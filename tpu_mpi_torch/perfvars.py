@@ -1,0 +1,887 @@
+"""MPI_T-inspired performance variables (pvars): always-on counters + spans.
+
+The reference ships no tracing at all (SURVEY.md: only ``Wtime``/``Wtick``;
+external PMPI/MPI_T tools are assumed) — this module is the layer those
+tools would have provided, owned by the runtime itself. Three cooperating
+pieces:
+
+- **Per-comm counters** keyed ``(world rank, cid)``: bytes sent/received,
+  op counts per ``(collective, algorithm, dtype)``, time blocked in the
+  Wait family, host-path phase time split rendezvous / fold / copy,
+  chunk-pipeline overlap inputs, RMA epoch counts, and per-collective
+  latency histograms (log2-µs buckets, ``config.pvars_hist_bins`` wide).
+  Plan-cache hits/misses ride along at snapshot time from
+  ``overlap.plans.stats()``.
+- **Timed spans** on the event IR: when tracing is on, the op scope opened
+  here stamps the recorded :class:`~tpu_mpi_torch.analyze.events.Event` with
+  ``t_start``/``t_end`` and the phase spans the channels observed, which
+  :mod:`tpu_mpi_torch.analyze.timeline` renders as a Chrome-trace / Perfetto
+  timeline.
+- **Runtime control**: the MPI-standard ``Pcontrol(level)``
+  (:func:`tpu_mpi_torch.environment.Pcontrol` delegates here) — 0 disables, 1
+  enables (the default), >= 2 enables AND flushes a dump immediately.
+
+Overhead discipline (the ``analyze.events.enabled()`` contract): every hot
+hook front-loads :func:`enabled` — one tuple compare against
+``config.GENERATION`` — so a ``TPU_MPI_PVARS=0`` run pays a single
+predictable branch per operation; the committed
+``benchmarks/results/overhead-pvars-cpusim.json`` artifact pins that.
+
+Span-attribution caveat: phase spans collect into a thread-local op scope,
+so a BLOCKING collective that routes through the nonblocking worker (only
+when that comm has outstanding ``I*`` ops) keeps its counters but loses its
+per-phase spans — the worker thread owns no scope for it.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import threading
+import time
+
+from . import config
+from . import tracectx as _tc
+from typing import Any, Dict, List, Optional, Tuple
+
+monotonic = time.monotonic
+
+PHASES = ("rendezvous", "fold", "copy",
+          # hierarchical-composite sub-phases (backend._run_hier_*)
+          "intra_fold", "inter_exchange", "allgather")
+
+_UNSET = object()
+_enabled_cache: Tuple[Any, bool] = (_UNSET, False)
+# Pcontrol's runtime override: None = follow config.pvars.
+_level_override: Optional[int] = None
+_store_lock = threading.Lock()
+_store: Dict[Tuple[int, int], "CommPvars"] = {}
+# bumped whenever accumulators are dropped from _store, so the per-thread
+# _acct caches never keep writing into an orphaned accumulator
+_store_gen = 0
+
+
+class _TLS(threading.local):
+    # class-attribute defaults: fresh threads read these without the
+    # AttributeError/getattr-default dance on the hot path
+    scope = None                      # the open _OpScope of this thread
+    acct = None                       # (store_gen, {key: CommPvars}) cache
+    wait_owned = False                # a wait-time owner is on the stack
+
+
+_tls = _TLS()
+
+
+def _config_level() -> int:
+    if _level_override is not None:
+        config.load()               # keep GENERATION meaningful for the gate
+        return _level_override
+    return int(config.load().pvars)
+
+
+def enabled() -> bool:
+    """Whether pvar collection is on — cached on ``config.GENERATION`` so
+    the per-operation cost of a disabled run is one tuple compare."""
+    global _enabled_cache
+    cached_gen, val = _enabled_cache
+    if cached_gen == config.GENERATION:
+        return val
+    val = _config_level() >= 1
+    _enabled_cache = (config.GENERATION, val)
+    return val
+
+
+def level() -> int:
+    """The effective collection level (0 off, 1 on; >= 2 behaves as 1 —
+    the flush side effect belongs to :func:`pcontrol` itself)."""
+    return _config_level()
+
+
+def pcontrol(lvl: int) -> int:
+    """Runtime toggle (the ``MPI_Pcontrol`` contract): 0 disables
+    collection, 1 restores the default (the ``pvars`` config knob), and
+    any level >= 2 enables collection and immediately flushes a dump to
+    ``config.pvars_dump`` (when set). Returns the effective level."""
+    global _level_override, _enabled_cache
+    lvl = int(lvl)
+    if lvl < 0:
+        lvl = 0
+    _level_override = None if lvl == 1 else lvl
+    _enabled_cache = (config.GENERATION, _config_level() >= 1)
+    if lvl >= 2:
+        finalize_dump(force=True)
+    return _config_level()
+
+
+class CommPvars:
+    """The counter set of one ``(world rank, cid)`` pair."""
+
+    __slots__ = ("rank", "cid", "size", "bytes_sent", "bytes_recv", "sends",
+                 "recvs", "wait_ns", "ops", "times", "phase_ns", "rma",
+                 "hist", "pipe_ops", "pipe_chunks", "pipe_fold_ns",
+                 "pipe_wait_ns", "explore_calls", "explore_explored",
+                 "table_swaps", "last_swap_gen", "batch_flushes",
+                 "batch_ops")
+
+    def __init__(self, rank: int, cid: int):
+        self.rank = rank
+        self.cid = cid
+        self.size = 0
+        self.bytes_sent = 0
+        self.bytes_recv = 0
+        self.sends = 0
+        self.recvs = 0
+        self.wait_ns = 0
+        # (coll, algo, dtype) -> op count
+        self.ops: Dict[Tuple[str, str, str], int] = {}
+        # (coll, algo, nbytes) -> [count, total_ns, min_ns, max_ns]
+        self.times: Dict[Tuple[str, str, int], List[int]] = {}
+        self.phase_ns = {p: 0 for p in PHASES}
+        self.rma = {"fence": 0, "lock": 0, "flush": 0}
+        self.hist: Dict[str, List[int]] = {}      # coll -> log2-µs buckets
+        # chunk-pipeline overlap inputs (see snapshot() for the derived
+        # fraction): fold time + post-first-chunk rendezvous waits of
+        # pipelined star roots
+        self.pipe_ops = 0
+        self.pipe_chunks = 0
+        self.pipe_fold_ns = 0
+        self.pipe_wait_ns = 0
+        # online bandit autotuner (tpu_mpi_torch.tune_online): decisions seen,
+        # decisions routed to an alternate arm, hot-swaps performed on this
+        # comm, and the config generation of the last swap.
+        self.explore_calls = 0
+        self.explore_explored = 0
+        self.table_swaps = 0
+        self.last_swap_gen = 0
+        # batched rendezvous submission: flushes and the ops
+        # they carried — occupancy = ops / flushes
+        self.batch_flushes = 0
+        self.batch_ops = 0
+
+    def snapshot(self) -> dict:
+        bins = max(4, int(config.load().pvars_hist_bins))
+        pipe_busy = self.pipe_fold_ns + self.pipe_wait_ns
+        return {
+            "rank": self.rank, "cid": self.cid, "size": self.size,
+            "bytes_sent": self.bytes_sent, "bytes_recv": self.bytes_recv,
+            "sends": self.sends, "recvs": self.recvs,
+            "wait_s": self.wait_ns / 1e9,
+            "ops": {"|".join(k): v for k, v in sorted(self.ops.items())},
+            "times": [{"coll": c, "algo": a, "nbytes": b, "count": t[0],
+                       "total_s": t[1] / 1e9, "min_s": t[2] / 1e9,
+                       "max_s": t[3] / 1e9}
+                      for (c, a, b), t in sorted(self.times.items())],
+            "phase_s": {p: ns / 1e9 for p, ns in self.phase_ns.items()},
+            "rma": dict(self.rma),
+            "hist_bins": bins,
+            "hist": {c: list(h) for c, h in sorted(self.hist.items())},
+            "pipeline": {
+                "ops": self.pipe_ops, "chunks": self.pipe_chunks,
+                "fold_s": self.pipe_fold_ns / 1e9,
+                "wait_after_first_s": self.pipe_wait_ns / 1e9,
+                # 1.0 = every post-first-chunk contribution had already
+                # landed when the root finished the previous fold (transfer
+                # fully hidden behind compute); 0.0 = fully serial
+                "overlap_fraction": (round(self.pipe_fold_ns / pipe_busy, 4)
+                                     if pipe_busy else None),
+            },
+            "explore": {
+                "calls": self.explore_calls,
+                "explored": self.explore_explored,
+                "fraction": (round(self.explore_explored
+                                   / self.explore_calls, 4)
+                             if self.explore_calls else None),
+                "table_swaps": self.table_swaps,
+                "last_swap_gen": self.last_swap_gen,
+            },
+            "batch": {
+                "flushes": self.batch_flushes,
+                "ops": self.batch_ops,
+                "occupancy": (round(self.batch_ops / self.batch_flushes, 4)
+                              if self.batch_flushes else None),
+            },
+        }
+
+
+def _acct(comm: Any = None, cid: Optional[int] = None,
+          size: int = 0) -> Optional[CommPvars]:
+    """The accumulator of (current world rank, comm's cid), creating it on
+    first touch; None outside an SPMD environment."""
+    from ._runtime import current_env
+    env = current_env()
+    if env is None:
+        return None
+    rank = env[1]
+    if comm is not None:
+        cid = comm.cid
+    elif cid is None:
+        cid = -1                      # unattributed (no comm at the hook)
+    key = (rank, cid)
+    cached = _tls.acct
+    if cached is not None and cached[0] == _store_gen:
+        acct = cached[1].get(key)
+        if acct is not None:
+            if comm is not None and not acct.size:
+                acct.size = size or len(comm.group)
+            return acct
+    with _store_lock:
+        acct = _store.get(key)
+        if acct is None:
+            acct = _store[key] = CommPvars(rank, cid)
+        if comm is not None and not acct.size:
+            acct.size = size or len(comm.group)
+    if cached is None or cached[0] != _store_gen:
+        cached = _tls.acct = (_store_gen, {})
+    cached[1][key] = acct
+    return acct
+
+
+# ---------------------------------------------------------------------------
+# Op scope: per-op span collection shared with the event IR
+# ---------------------------------------------------------------------------
+
+class _OpScope:
+    __slots__ = ("t0", "spans", "ev", "trace")
+
+    def __init__(self):
+        self.t0 = monotonic()
+        self.spans: List[Tuple[str, float, float]] = []
+        self.ev: Any = None           # the trace Event of this op, if any
+        self.trace: Any = None        # the request TraceCtx, when sampled
+
+
+def scope() -> Optional[_OpScope]:
+    """The open op scope of this thread (channels append phase spans to
+    ``scope().spans``), or None."""
+    return _tls.scope
+
+
+def op_begin() -> Optional[_OpScope]:
+    """Open an op scope on this thread. Returns None when one is already
+    open — the outermost owner finalizes (``_reduce_family`` wraps ``_run``
+    so the copy-out phase lands inside the same scope)."""
+    if _tls.scope is not None:
+        return None
+    sc = _OpScope()
+    if _tc.enabled():
+        # request tracing: adopt the TraceCtx the serve-tier rank worker
+        # bound to this thread, so the op's phase spans become children of
+        # the request span (one tuple compare when sampling is off)
+        sc.trace = _tc.current()
+    _tls.scope = sc
+    return sc
+
+
+def op_end(sc: _OpScope, comm: Any = None, coll: Optional[str] = None,
+           algo: Optional[str] = None, dtype: Optional[str] = None,
+           nbytes: Optional[int] = None) -> None:
+    """Close the scope: stamp the op's trace event (t_start/t_end/phases)
+    and fold duration + spans into the per-comm counters."""
+    _tls.scope = None
+    shim = _shim_map()
+    if shim and coll is not None:
+        # test/debug latency shim (config.tune_shim): the sleep lands
+        # BEFORE t1 so it is part of the measured span and is attributed
+        # to this (coll, algo) arm — the knob the bandit-convergence tests
+        # use to make one arm deterministically lose.
+        pause = shim.get((coll, algo or "star"))
+        if pause:
+            time.sleep(pause)
+    t1 = monotonic()
+    ev = sc.ev
+    if ev is not None:
+        ev.t_start = sc.t0
+        ev.t_end = t1
+        if sc.spans:
+            ev.phases = list(sc.spans)
+    if sc.trace is not None:
+        # per-rank request span: the op bracket parents under the request
+        # context, and each measured phase nests under the op span
+        from ._runtime import current_env
+        env = current_env()
+        who = f"rank {env[1]}" if env is not None else "rank ?"
+        rec = _tc.emit_span(sc.trace, coll or "op", who, sc.t0, t1,
+                            algo=algo, nbytes=nbytes)
+        if rec is not None and sc.spans:
+            pctx = _tc.TraceCtx(rec["trace"], rec["span"], True)
+            for name, s0, s1 in sc.spans:
+                _tc.emit_span(pctx, name, who, s0, s1)
+    if not enabled() or coll is None:
+        return
+    acct = _acct(comm)
+    if acct is None:
+        return
+    bins = max(4, int(config.load().pvars_hist_bins))
+    dur_ns = int((t1 - sc.t0) * 1e9)
+    key = (coll, algo or "star", -1 if nbytes is None else int(nbytes))
+    with _store_lock:
+        okey = (coll, algo or "star", dtype or "?")
+        acct.ops[okey] = acct.ops.get(okey, 0) + 1
+        t = acct.times.get(key)
+        if t is None:
+            acct.times[key] = [1, dur_ns, dur_ns, dur_ns]
+        else:
+            t[0] += 1
+            t[1] += dur_ns
+            if dur_ns < t[2]:
+                t[2] = dur_ns
+            if dur_ns > t[3]:
+                t[3] = dur_ns
+        for name, s0, s1 in sc.spans:
+            if name in acct.phase_ns:
+                acct.phase_ns[name] += int((s1 - s0) * 1e9)
+        hist = acct.hist.get(coll)
+        if hist is None:
+            hist = acct.hist[coll] = [0] * bins
+        idx = (dur_ns // 1000).bit_length()   # log2 bucket of the µs latency
+        hist[min(idx, len(hist) - 1)] += 1
+
+
+# -- test/debug latency shim (config.tune_shim) ------------------------------
+
+_shim_cache: Tuple[Any, Optional[Dict[Tuple[str, str], float]]] = (_UNSET, None)
+
+
+def _shim_map() -> Optional[Dict[Tuple[str, str], float]]:
+    """Parsed ``tune_shim`` spec ("coll:algo=microseconds,...") as
+    {(coll, algo): seconds}, or None when unset. Generation-cached: the
+    default (empty) spec costs one tuple compare per op."""
+    global _shim_cache
+    cached_gen, val = _shim_cache
+    if cached_gen == config.GENERATION:
+        return val
+    spec = config.load().tune_shim
+    out: Optional[Dict[Tuple[str, str], float]] = None
+    if spec:
+        out = {}
+        for part in spec.split(","):
+            part = part.strip()
+            if not part:
+                continue
+            key, _, us = part.partition("=")
+            coll, _, algo = key.partition(":")
+            try:
+                out[(coll.strip(), (algo or "star").strip())] = \
+                    float(us) / 1e6
+            except ValueError:
+                pass
+        out = out or None
+    _shim_cache = (config.GENERATION, out)
+    return out
+
+
+def payload_nbytes(contrib: Any) -> Optional[int]:
+    """Wire size of a collective contribution for the bandwidth counters
+    (rooted contributions arrive as ``(root, payload)`` tuples)."""
+    if isinstance(contrib, tuple) and len(contrib) == 2:
+        contrib = contrib[1]
+    nb = getattr(contrib, "nbytes", None)
+    if nb is None:
+        return None
+    dt = getattr(contrib, "dtype", None)
+    if dt is None or dt == object:
+        return None
+    return int(nb)
+
+
+# ---------------------------------------------------------------------------
+# Hot-path counter hooks (call sites gate on enabled())
+# ---------------------------------------------------------------------------
+
+def add_send(comm: Any, nbytes: int, wait_ns: int = 0) -> None:
+    acct = _acct(comm)
+    if acct is None:
+        return
+    with _store_lock:
+        acct.sends += 1
+        acct.bytes_sent += int(nbytes or 0)
+        acct.wait_ns += int(wait_ns)
+
+
+def add_recv(comm: Any, nbytes: int, wait_ns: int = 0) -> None:
+    acct = _acct(comm)
+    if acct is None:
+        return
+    with _store_lock:
+        acct.recvs += 1
+        acct.bytes_recv += int(nbytes or 0)
+        acct.wait_ns += int(wait_ns)
+
+
+def add_wait(wait_s: float, comm: Any = None, cid: Optional[int] = None) -> None:
+    """Time blocked in the Wait/Test family (unattributed waits land on the
+    pseudo-cid -1)."""
+    acct = _acct(comm, cid=cid)
+    if acct is None:
+        return
+    with _store_lock:
+        acct.wait_ns += int(wait_s * 1e9)
+
+
+# -- wait-time ownership (the outermost-owner rule for wait_ns) -------------
+#
+# A persistent collective round is fully accounted by the op scope its
+# worker (or the inline registered fast path) owns: the round's wall clock
+# lands in ``times`` and its blocked share in ``phase_ns["rendezvous"]``.
+# The caller blocked in ``Wait`` covers the SAME wall clock, so letting the
+# inner ``CollRequest.wait`` also bump ``wait_ns`` double-counts it — the
+# overhead_probe --pvars bug. ``PersistentCollRequest`` claims
+# ownership around its inner wait; nested add_wait callers check
+# :func:`wait_owned` first and stand down.
+
+def own_wait() -> bool:
+    """Claim wait-time ownership for this thread. Returns True when the
+    claim is fresh (caller must :func:`disown_wait` in a finally); False
+    when an outer owner already holds it."""
+    if _tls.wait_owned:
+        return False
+    _tls.wait_owned = True
+    return True
+
+
+def disown_wait() -> None:
+    """Release the wait-time claim taken by :func:`own_wait`."""
+    _tls.wait_owned = False
+
+
+def wait_owned() -> bool:
+    """True while an outer wait-time owner is on this thread's stack —
+    nested waits must not call :func:`add_wait`."""
+    return _tls.wait_owned
+
+
+def note_rma(comm: Any, kind: str) -> None:
+    """One RMA epoch event: kind in {fence, lock, flush}."""
+    acct = _acct(comm)
+    if acct is None:
+        return
+    with _store_lock:
+        if kind in acct.rma:
+            acct.rma[kind] += 1
+
+
+def note_pipelined(cid: int, nchunks: int, fold_ns: int,
+                   wait_after_first_ns: int) -> None:
+    """One chunk-pipelined star fold at the root: the overlap-fraction
+    inputs (fold time vs rendezvous waits AFTER the first chunk — waits
+    that a perfectly overlapped pipeline hides behind the fold)."""
+    acct = _acct(cid=cid)
+    if acct is None:
+        return
+    with _store_lock:
+        acct.pipe_ops += 1
+        acct.pipe_chunks += int(nchunks)
+        acct.pipe_fold_ns += int(fold_ns)
+        acct.pipe_wait_ns += int(wait_after_first_ns)
+
+
+def note_batch(cid: int, nops: int) -> None:
+    """One batched-submission flush on this comm: ``nops``
+    queued ops went through one rendezvous round trip."""
+    acct = _acct(cid=cid)
+    if acct is None:
+        return
+    with _store_lock:
+        acct.batch_flushes += 1
+        acct.batch_ops += int(nops)
+
+
+# -- inference-engine block (tpu_mpi_torch.infer) ----------------------------------
+#
+# Process-global (the engine spans every pool rank, so per-comm attribution
+# would just smear one logical step over three comms): counters accumulate,
+# gauges overwrite. Snapshot surfaces them as the top-level "infer" block
+# next to plan_cache.
+
+_infer: Dict[str, int] = {}
+_infer_gauges: Dict[str, int] = {}
+
+
+def note_infer(**counts: int) -> None:
+    """Accumulate inference-engine counters (steps, tokens, batch_slots,
+    prefills, step_ns, pwait_ns, stage_serial_ns, slo_hits/misses/
+    evictions, ...)."""
+    with _store_lock:
+        for k, v in counts.items():
+            _infer[k] = _infer.get(k, 0) + int(v)
+
+
+def set_infer_gauges(**vals: int) -> None:
+    """Overwrite inference-engine gauges (KV pressure, max_batch)."""
+    with _store_lock:
+        for k, v in vals.items():
+            _infer_gauges[k] = int(v)
+
+
+def infer_snapshot() -> dict:
+    """The infer block of :func:`snapshot` (may be empty): accumulated
+    counters plus the latest gauges under ``"gauges"``."""
+    with _store_lock:
+        if not _infer and not _infer_gauges:
+            return {}
+        return {**_infer, "gauges": dict(_infer_gauges)}
+
+
+# -- training block (tpu_mpi_torch.train) ------------------------------------------
+#
+# Process-global like the infer block: a training step spans every rank of
+# the job, and the trainer lives above any single comm. Counters (steps,
+# buckets, bucket_flushes, starts, waits, reshards, wait_ns,
+# comm_window_ns, step_ns) accumulate; gauges (nbuckets, bucket_bytes,
+# world) overwrite. A bounded per-step sample list feeds the stats
+# renderer's p50/p99 without unbounded growth.
+
+_train: Dict[str, int] = {}
+_train_gauges: Dict[str, int] = {}
+_train_steps: List[int] = []
+_TRAIN_STEP_CAP = 4096
+
+
+def note_train(**counts: int) -> None:
+    """Accumulate training counters (steps, bucket_flushes, starts,
+    waits, reshards, wait_ns, comm_window_ns, step_ns, ...)."""
+    with _store_lock:
+        for k, v in counts.items():
+            _train[k] = _train.get(k, 0) + int(v)
+
+
+def set_train_gauges(**vals: int) -> None:
+    """Overwrite training gauges (nbuckets, bucket_bytes, world)."""
+    with _store_lock:
+        for k, v in vals.items():
+            _train_gauges[k] = int(v)
+
+
+def note_train_step(ns: int) -> None:
+    """Record one optimizer-step duration sample (nanoseconds) for the
+    p50/p99 rendering; also accumulates steps/step_ns counters."""
+    with _store_lock:
+        _train["steps"] = _train.get("steps", 0) + 1
+        _train["step_ns"] = _train.get("step_ns", 0) + int(ns)
+        if len(_train_steps) < _TRAIN_STEP_CAP:
+            _train_steps.append(int(ns))
+
+
+def train_snapshot() -> dict:
+    """The train block of :func:`snapshot` (may be empty): accumulated
+    counters, latest gauges under ``"gauges"``, and the bounded step-time
+    sample list under ``"step_ns_samples"``."""
+    with _store_lock:
+        if not _train and not _train_gauges:
+            return {}
+        return {**_train, "gauges": dict(_train_gauges),
+                "step_ns_samples": list(_train_steps)}
+
+
+# -- elastic-capacity block (tpu_mpi_torch.elastic) ---------------------------------
+#
+# Process-global like the infer block: resizes span the whole pool, so
+# per-comm attribution is meaningless. Counters (resizes, rebinds, grown,
+# shrunk, failures) accumulate; gauges (pool_size, target_size, degraded)
+# overwrite.
+
+_elastic: Dict[str, int] = {}
+_elastic_gauges: Dict[str, int] = {}
+
+
+def note_elastic(**counts: int) -> None:
+    """Accumulate elastic-capacity counters (resizes, rebinds, grown,
+    shrunk, failures, ...)."""
+    with _store_lock:
+        for k, v in counts.items():
+            _elastic[k] = _elastic.get(k, 0) + int(v)
+
+
+def set_elastic_gauges(**vals: int) -> None:
+    """Overwrite elastic-capacity gauges (pool_size, target_size,
+    degraded)."""
+    with _store_lock:
+        for k, v in vals.items():
+            _elastic_gauges[k] = int(v)
+
+
+def elastic_snapshot() -> dict:
+    """The elastic block of :func:`snapshot` (may be empty): accumulated
+    counters plus the latest gauges under ``"gauges"``."""
+    with _store_lock:
+        if not _elastic and not _elastic_gauges:
+            return {}
+        return {**_elastic, "gauges": dict(_elastic_gauges)}
+
+
+# -- serve frame-path block (tpu_mpi_torch.serve) ----------------------------------
+#
+# Process-global like the infer block: the session/mailbox frame path spans
+# every tenant connection, so per-comm attribution would smear one wire hop
+# over many comms. ``ops`` counts OP/RESULT frames carrying array payloads,
+# ``copies`` counts payload materializations (ascontiguousarray / tobytes /
+# non-view marshalling) on that path — the zero-copy acceptance gate is
+# copies/ops <= 1 — ``sg_writes`` counts scatter-gather sendmsg calls and
+# ``zc_bytes`` the payload bytes that travelled as views.
+
+_serve_frame: Dict[str, int] = {}
+
+
+def note_serve_frame(**counts: int) -> None:
+    """Accumulate serve frame-path counters (ops, copies, sg_writes,
+    zc_bytes, ...)."""
+    with _store_lock:
+        for k, v in counts.items():
+            _serve_frame[k] = _serve_frame.get(k, 0) + int(v)
+
+
+def serve_frame_snapshot() -> dict:
+    """The serve_frame block of :func:`snapshot` (may be empty)."""
+    with _store_lock:
+        return dict(_serve_frame)
+
+
+# -- front-door block (tpu_mpi_torch.serve.frontdoor) ------------------------------
+#
+# Process-global like the serve_frame block: the event-driven session
+# transport multiplexes every attached socket on one readiness loop, so
+# per-comm attribution would smear loop mechanics over tenants. Counters
+# accumulate (attaches, wakeups, frames, lease_hits/lease_misses/
+# lease_drops, splice_bytes); gauges overwrite (open_sockets, workers,
+# workers_busy).
+
+_front_door: Dict[str, int] = {}
+_front_door_gauges: Dict[str, int] = {}
+
+
+def note_front_door(**counts: int) -> None:
+    """Accumulate front-door counters (attaches, wakeups, frames,
+    lease_hits, lease_misses, lease_drops, splice_bytes, ...)."""
+    with _store_lock:
+        for k, v in counts.items():
+            _front_door[k] = _front_door.get(k, 0) + int(v)
+
+
+def set_front_door_gauges(**vals: int) -> None:
+    """Overwrite front-door gauges (open_sockets, workers, workers_busy)."""
+    with _store_lock:
+        for k, v in vals.items():
+            _front_door_gauges[k] = int(v)
+
+
+def front_door_snapshot() -> dict:
+    """The front_door block of :func:`snapshot` (may be empty): accumulated
+    counters plus the latest gauges under ``"gauges"``."""
+    with _store_lock:
+        if not _front_door and not _front_door_gauges:
+            return {}
+        return {**_front_door, "gauges": dict(_front_door_gauges)}
+
+
+# -- lock-contention block (tpu_mpi_torch.locksmith) -------------------------------
+#
+# Populated only when the lock witness is armed (TPU_MPI_LOCKCHECK=1):
+# per named lock, how many acquisitions there were, how many had to wait
+# behind another holder, and the longest single hold in nanoseconds.
+# Process-global like the serve_frame block — lock names already carry
+# their subsystem (``broker.dispatch``, ``pool.queues``, ...).
+
+_locks: Dict[str, Dict[str, int]] = {}
+
+
+def note_lock(name: str, acquires: int = 0, contended: int = 0,
+              held_ns: int = 0) -> None:
+    """Accumulate contention counters for one named lock. ``held_ns`` is
+    a single observed hold time; the block keeps the max."""
+    with _store_lock:
+        row = _locks.get(name)
+        if row is None:
+            row = _locks[name] = {"acquires": 0, "contended": 0,
+                                  "max_held_ns": 0}
+        row["acquires"] += int(acquires)
+        row["contended"] += int(contended)
+        if held_ns > row["max_held_ns"]:
+            row["max_held_ns"] = int(held_ns)
+
+
+def locks_snapshot() -> dict:
+    """The locks block of :func:`snapshot` (empty when the witness is off)."""
+    with _store_lock:
+        return {k: dict(v) for k, v in _locks.items()}
+
+
+def note_explore(comm: Any, explored: bool) -> None:
+    """One online-autotuner decision on this comm (tpu_mpi_torch.tune_online):
+    ``explored`` when the call was routed to an alternate arm."""
+    acct = _acct(comm)
+    if acct is None:
+        return
+    with _store_lock:
+        acct.explore_calls += 1
+        if explored:
+            acct.explore_explored += 1
+
+
+def note_swap(comm: Any, generation: int) -> None:
+    """One online table hot-swap on this comm."""
+    acct = _acct(comm)
+    if acct is None:
+        return
+    with _store_lock:
+        acct.table_swaps += 1
+        acct.last_swap_gen = int(generation)
+
+
+def arm_stats(comm: Any) -> List[Tuple[str, str, int, int, int]]:
+    """This rank's accumulated latency stats on one comm as
+    ``(coll, algo, nbytes, count, total_ns)`` rows — the payload the
+    online autotuner's lockstep swap round allgathers so that every rank
+    merges the IDENTICAL cross-rank arm statistics."""
+    from ._runtime import current_env
+    env = current_env()
+    if env is None:
+        return []
+    key = (env[1], comm.cid)
+    with _store_lock:
+        acct = _store.get(key)
+        if acct is None:
+            return []
+        return [(c, a, b, t[0], t[1])
+                for (c, a, b), t in sorted(acct.times.items())]
+
+
+# ---------------------------------------------------------------------------
+# Snapshot / reset / dump
+# ---------------------------------------------------------------------------
+
+def _topology_stamp() -> str:
+    """The ``topology_key`` of the world these counters describe — stamped
+    into every dump record so ``tune merge`` can attribute samples to the
+    right fabric without a side channel. Derived from the live context
+    (domain map over the full world) when one is attached, else from
+    config alone (a flat default — better unstamped-conservative than
+    wrong)."""
+    from . import topology as _topo
+    try:
+        from ._runtime import current_env
+        env = current_env()
+        if env is not None:
+            ctx = env[0]
+            n = int(getattr(ctx, "size", 0) or 0)
+            if n >= 2:
+                dom = _topo.domain_count(ctx, tuple(range(n)))
+                return _topo.topology_key(dom, n)
+    except Exception:
+        pass
+    return _topo.topology_key(int(config.load().domains), 0)
+
+
+def snapshot(rank: Optional[int] = None, reset: bool = False) -> dict:
+    """Machine-readable dump of every counter (one rank, or all ranks this
+    process has accumulated). Stable schema — ``tpu_mpi_torch.stats`` and
+    ``tune.table_from_pvars`` consume exactly this."""
+    global _store_gen
+    from .overlap import plans
+    with _store_lock:
+        # cids mix ints and recovery tuples (("shrink", cid, epoch)) in one
+        # store — sort through str so the dump order is still deterministic
+        keys = [k for k in sorted(_store, key=lambda k: (k[0], str(k[1])))
+                if rank is None or k[0] == rank]
+        comms = [_store[k].snapshot() for k in keys]
+        if reset:
+            for k in keys:
+                del _store[k]
+            _store_gen += 1
+    return {"schema": 1, "kind": "tpu_mpi_torch-pvars", "level": level(),
+            "topology": _topology_stamp(),
+            "comms": comms, "plan_cache": plans.stats(),
+            "infer": infer_snapshot(), "train": train_snapshot(),
+            "elastic": elastic_snapshot(),
+            "serve_frame": serve_frame_snapshot(),
+            "front_door": front_door_snapshot(),
+            "locks": locks_snapshot()}
+
+
+def comm_snapshot(comm: Any, reset: bool = False) -> dict:
+    """``Comm.get_pvars`` backend: this rank's counters on one comm."""
+    global _store_gen
+    from ._runtime import require_env
+    _, rank = require_env()
+    key = (rank, comm.cid)
+    with _store_lock:
+        acct = _store.get(key)
+        snap = acct.snapshot() if acct is not None \
+            else CommPvars(rank, comm.cid).snapshot()
+        if reset and acct is not None:
+            del _store[key]
+            _store_gen += 1
+    return snap
+
+
+def reset() -> None:
+    """Drop every accumulated counter (all ranks of this process)."""
+    global _store_gen
+    with _store_lock:
+        _store.clear()
+        _infer.clear()
+        _infer_gauges.clear()
+        _train.clear()
+        _train_gauges.clear()
+        _train_steps.clear()
+        _elastic.clear()
+        _elastic_gauges.clear()
+        _serve_frame.clear()
+        _front_door.clear()
+        _front_door_gauges.clear()
+        _locks.clear()
+        _store_gen += 1
+
+
+def dump(path: str, rank: Optional[int] = None, reset: bool = False) -> str:
+    """Write :func:`snapshot` as JSON; returns the path."""
+    rec = snapshot(rank=rank, reset=reset)
+    d = os.path.dirname(os.path.abspath(path))
+    os.makedirs(d, exist_ok=True)
+    tmp = f"{path}.tmp.{os.getpid()}.{threading.get_ident()}"
+    with open(tmp, "w") as f:
+        json.dump(rec, f, indent=1)
+        f.write("\n")
+    os.replace(tmp, path)
+    return path
+
+
+def load_dumps(paths) -> List[dict]:
+    """Read pvar dump records from files and/or directories (a directory
+    contributes every ``pvars-rank*.json`` / ``*.json`` file in it).
+    Consumers: ``tpu_mpi_torch.stats`` and ``tune.table_from_pvars``."""
+    files: List[str] = []
+    for p in paths:
+        p = os.path.expanduser(p)
+        if os.path.isdir(p):
+            names = sorted(os.listdir(p))
+            picked = [n for n in names if n.startswith("pvars-rank")
+                      and n.endswith(".json")]
+            files.extend(os.path.join(p, n) for n in
+                         (picked or [n for n in names if n.endswith(".json")]))
+        else:
+            files.append(p)
+    recs = []
+    for f in files:
+        with open(f) as fh:
+            rec = json.load(fh)
+        if rec.get("kind") != "tpu_mpi_torch-pvars":
+            raise ValueError(f"{f}: not a tpu_mpi_torch pvar dump")
+        rec["_path"] = f
+        recs.append(rec)
+    return recs
+
+
+def finalize_dump(force: bool = False) -> Optional[str]:
+    """Per-rank dump at Finalize (and at ``Pcontrol(level >= 2)``): when
+    ``config.pvars_dump`` names a directory, this rank writes
+    ``pvars-rank<R>.json`` there. Costs one branch when pvars are off."""
+    if not (enabled() or force):
+        return None
+    from ._runtime import current_env
+    d = config.load().pvars_dump
+    if not d:
+        return None
+    env = current_env()
+    rank = env[1] if env is not None else 0
+    return dump(os.path.join(os.path.expanduser(d), f"pvars-rank{rank}.json"),
+                rank=rank)
