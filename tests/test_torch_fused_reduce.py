@@ -17,7 +17,7 @@ import torch
 
 from tpu_mpi.xla import pallas_kernels as pk
 from tpu_mpi_torch.buffers import from_numpy, to_numpy
-from tpu_mpi_torch.kernels import fused_reduce as fr
+from tpu_mpi_torch.kernels import _build, fused_reduce as fr
 
 OPS = ["SUM", "PROD", "MAX", "MIN"]
 DTYPES = ["float32", "float64", "bfloat16", "int32", "int64"]
@@ -120,14 +120,14 @@ def test_kernel_table():
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):
-    monkeypatch.setattr(fr, "BUILD_DIR", tmp_path)
+    monkeypatch.setattr(_build, "BUILD_DIR", tmp_path)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
     monkeypatch.setenv("PATH", str(tmp_path))
     with pytest.raises(RuntimeError, match="nvcc"):
-        fr.build()
+        fr.LIBRARY.build()
 
 
 def test_library_path_keyed_by_source():
-    p = fr.library_path()
-    assert p.parent == fr.BUILD_DIR and p.name.startswith("fused_reduce-")
-    assert fr.library_path() == p
+    p = fr.LIBRARY.path()
+    assert p.parent == _build.BUILD_DIR and p.name.startswith("fused_reduce-")
+    assert fr.LIBRARY.path() == p

@@ -84,3 +84,99 @@ def test_allreduce_main_path_on_card():
     MPI.testing.run_spmd(body, 4, timeout=120)
     assert fr.launches >= before + 9
     assert collective.chained_folds == chained
+
+
+# ---------------------------------------------------------------------------
+# Ring kernels (tpu_mpi_torch.kernels.ring)
+# ---------------------------------------------------------------------------
+
+_RING_DTYPES = [torch.float32, torch.float16, torch.bfloat16, torch.float64,
+                torch.int8, torch.int32, torch.int64, torch.uint8, torch.bool]
+
+
+def _stacked(dtype, n, count, dev, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if dtype.is_floating_point:
+        return torch.randn(n, count, generator=g, device=dev).to(dtype)
+    hi = 2 if dtype == torch.bool else 100
+    return torch.randint(0, hi, (n, count), generator=g, device=dev).to(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _RING_DTYPES)
+@pytest.mark.parametrize("n", [2, 5])
+def test_ring_kernels_match_plain_on_card(dtype, n):
+    import tpu_mpi_torch as MPI
+    from tpu_mpi_torch.kernels import ring
+    dev = _card()
+    xs = _stacked(dtype, n, 8229, dev, 7)
+    blocks = _stacked(dtype, n, n * 1031, dev, 8)
+    for name in ("SUM", "PROD", "MAX", "MIN", "BAND", "BOR", "BXOR"):
+        if not fr.supports(name, dtype):
+            continue
+        op = getattr(MPI, name)
+        combine = ring._combine_fn(op)[1]
+        before = dict(ring.launches)
+        got = ring.ring_allreduce(xs, op)
+        want = ring.ring_allreduce_plain(xs, combine)
+        got_rs = ring.ring_reduce_scatter(blocks, op)
+        want_rs = ring.ring_reduce_scatter_plain(blocks, combine)
+        torch.cuda.synchronize()
+        assert ring.launches["ring_allreduce"] == before["ring_allreduce"] + 1
+        assert ring.launches["ring_reduce_scatter"] == \
+            before["ring_reduce_scatter"] + 1
+        assert torch.equal(got, want), (dtype, name, n)
+        assert torch.equal(got_rs, want_rs), (dtype, name, n)
+    for shard in (xs, xs[:, 1:].contiguous()):       # 16-byte and narrower words
+        before = ring.launches["ring_allgather"]
+        got = ring.ring_allgather(shard)
+        torch.cuda.synchronize()
+        assert ring.launches["ring_allgather"] == before + 1
+        assert torch.equal(got, ring.ring_allgather_plain(shard))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["non-contiguous", "no ranks", "indivisible",
+                                 "dtype"])
+def test_ring_kernels_refuse_on_card(bad):
+    from tpu_mpi_torch.kernels import ring
+    dev = _card()
+    x = torch.zeros(4, 64, device=dev)
+    before = dict(ring.launches)
+    with pytest.raises(ValueError):
+        if bad == "non-contiguous":
+            ring.ring_allreduce(x[:, ::2], "sum")
+        elif bad == "no ranks":
+            ring.ring_allgather(torch.zeros(0, 64, device=dev))
+        elif bad == "indivisible":
+            ring.ring_reduce_scatter(torch.zeros(4, 10, device=dev), "sum")
+        else:
+            ring.ring_allreduce(x.to(torch.complex64), "sum")
+    assert ring.launches == before
+
+
+@pytest.mark.cuda
+def test_ingraph_tier_on_card():
+    import numpy as np
+    import tpu_mpi_torch as MPI
+    from tpu_mpi_torch import collective, xla
+    from tpu_mpi_torch.kernels import ring
+    _card()
+    mesh = xla.make_mesh({"x": 4})
+    assert mesh.device.type == "cuda"
+    rng = np.random.default_rng(2)
+    xs = torch.from_numpy(rng.standard_normal((4, 4 * 3001)).astype(np.float32)
+                          ).to(mesh.device)
+    folds, chained = fr.launches, collective.chained_folds
+    before = dict(ring.launches)
+    total = xla.allreduce(xs, MPI.SUM)
+    shards = xla.reduce_scatter(xs, MPI.SUM)
+    back = xla.allgather(shards, tiled=True)
+    torch.cuda.synchronize()
+    want = fr.fused_multi_reduce_plain(list(xs), "SUM")
+    assert total.is_cuda and torch.equal(total[3], want)
+    assert torch.equal(back[1], want)
+    assert fr.launches == folds + 2
+    assert ring.launches["ring_allgather"] == before["ring_allgather"] + 1
+    assert collective.chained_folds == chained

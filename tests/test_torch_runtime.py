@@ -162,6 +162,7 @@ def test_import_with_jax_blocked():
         "import tpu_mpi_torch as MPI\n"
         "import tpu_mpi_torch.collective, tpu_mpi_torch.tune\n"
         "import tpu_mpi_torch.tune_online, tpu_mpi_torch.analyze.matcher\n"
+        "import tpu_mpi_torch.xla\n"
         "out = MPI.testing.run_spmd(lambda: MPI.Allreduce(1, MPI.SUM,"
         " MPI.COMM_WORLD), 2, timeout=30)\n"
         "assert out == [2, 2], out\n"

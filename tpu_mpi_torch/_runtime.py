@@ -1192,10 +1192,11 @@ _warm_lock = threading.Lock()
 
 def _warm_cuda_backend() -> None:
     """Initialize CUDA once, serially, before rank threads start: the
-    context, the caching allocator and the fold kernel's library (built at
-    first use). Rank threads then never race to first-initialize any of
-    them — the launcher owns backend bring-up, like mpiexec owns process
-    bring-up in the reference. Without CUDA there is nothing to warm."""
+    context, the caching allocator and the kernel libraries (the fold and
+    the rings, built at first use). Rank threads then never race to
+    first-initialize any of them — the launcher owns backend bring-up, like
+    mpiexec owns process bring-up in the reference. Without CUDA there is
+    nothing to warm."""
     global _cuda_warmed
     with _warm_lock:
         if _cuda_warmed:
@@ -1204,8 +1205,11 @@ def _warm_cuda_backend() -> None:
         if torch.cuda.is_available():
             torch.cuda.init()
             torch.empty(1, device="cuda")
-            from .kernels import fused_reduce
-            fused_reduce.load_library()
+            from .kernels import _build, fused_reduce, ring
+            libs = (fused_reduce.LIBRARY, ring.LIBRARY)
+            _build.build_all(libs)
+            for lib in libs:
+                lib.load()
         _cuda_warmed = True
 
 

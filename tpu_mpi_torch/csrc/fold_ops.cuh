@@ -1,0 +1,215 @@
+// One fold step per (storage type, reduction op), shared by every kernel of
+// the port that combines operands: the fused rank-ordered fold
+// (fused_reduce.cu) and the ring collectives (ring.cu).
+//
+// Exactness rules, each matching PyTorch's own CUDA elementwise kernels, so
+// a kernel's fold is bitwise equal to the same fold written in PyTorch:
+//   * float/double add and multiply use the _rn intrinsics, so nvcc cannot
+//     contract a step into an FMA;
+//   * half and bfloat16 widen to float with the conversion intrinsics, apply
+//     one float operation, and round back to the storage type at every step
+//     (PyTorch's opmath rule);
+//   * MAX/MIN propagate NaN exactly as torch.maximum/torch.minimum do on the
+//     card (a NaN in a wins, then a NaN in b, else fmax/fmin), so the fmax
+//     semantics that drop NaN never decide;
+//   * integer SUM/PROD wrap modulo 2^bits (computed in unsigned arithmetic);
+//   * bool SUM/MAX/BOR are OR, PROD/MIN/BAND are AND, BXOR is XOR.
+//
+// Also here: the dtype/op codes of the C interfaces, the launch-size rule,
+// and dispatch<L>(dtype, op, ...), which calls L<T, OP>::run(...) for the
+// (type, op) pair the codes name, or returns TMT_EBADARG.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <cuda_fp16.h>
+#include <cuda_bf16.h>
+#include <stdint.h>
+
+#define TMT_EBADARG 100000
+
+enum Dtype {
+  DT_F32 = 0, DT_F64 = 1, DT_F16 = 2, DT_BF16 = 3, DT_I8 = 4,
+  DT_I16 = 5, DT_I32 = 6, DT_I64 = 7, DT_U8 = 8, DT_BOOL = 9,
+};
+
+enum Op {
+  OP_SUM = 0, OP_PROD = 1, OP_MAX = 2, OP_MIN = 3,
+  OP_BAND = 4, OP_BOR = 5, OP_BXOR = 6,
+};
+
+// bool, stored as one byte holding 0 or 1
+struct Bool { uint8_t v; };
+
+// ---- one fold step per (type, op) -------------------------------------------
+
+template <typename T, int OP>
+struct Step;
+
+// float / double ---------------------------------------------------------------
+template <> struct Step<float, OP_SUM> {
+  static __device__ __forceinline__ float f(float a, float b) { return __fadd_rn(a, b); }
+};
+template <> struct Step<float, OP_PROD> {
+  static __device__ __forceinline__ float f(float a, float b) { return __fmul_rn(a, b); }
+};
+template <> struct Step<float, OP_MAX> {
+  static __device__ __forceinline__ float f(float a, float b) {
+    if (a != a) return a;
+    if (b != b) return b;
+    return fmaxf(a, b);
+  }
+};
+template <> struct Step<float, OP_MIN> {
+  static __device__ __forceinline__ float f(float a, float b) {
+    if (a != a) return a;
+    if (b != b) return b;
+    return fminf(a, b);
+  }
+};
+template <> struct Step<double, OP_SUM> {
+  static __device__ __forceinline__ double f(double a, double b) { return __dadd_rn(a, b); }
+};
+template <> struct Step<double, OP_PROD> {
+  static __device__ __forceinline__ double f(double a, double b) { return __dmul_rn(a, b); }
+};
+template <> struct Step<double, OP_MAX> {
+  static __device__ __forceinline__ double f(double a, double b) {
+    if (a != a) return a;
+    if (b != b) return b;
+    return fmax(a, b);
+  }
+};
+template <> struct Step<double, OP_MIN> {
+  static __device__ __forceinline__ double f(double a, double b) {
+    if (a != a) return a;
+    if (b != b) return b;
+    return fmin(a, b);
+  }
+};
+
+// half / bfloat16: widen, one float step, round back ---------------------------
+template <int OP> struct Step<__half, OP> {
+  static __device__ __forceinline__ __half f(__half a, __half b) {
+    return __float2half_rn(Step<float, OP>::f(__half2float(a), __half2float(b)));
+  }
+};
+template <int OP> struct Step<__nv_bfloat16, OP> {
+  static __device__ __forceinline__ __nv_bfloat16 f(__nv_bfloat16 a, __nv_bfloat16 b) {
+    return __float2bfloat16_rn(Step<float, OP>::f(__bfloat162float(a), __bfloat162float(b)));
+  }
+};
+
+// integers: wrap modulo 2^bits --------------------------------------------------
+template <typename T> struct Wide { typedef uint32_t type; };
+template <> struct Wide<int64_t> { typedef uint64_t type; };
+
+template <typename T> struct IntStep {
+  typedef typename Wide<T>::type U;
+  static __device__ __forceinline__ T sum(T a, T b) { return (T)((U)a + (U)b); }
+  static __device__ __forceinline__ T prod(T a, T b) { return (T)((U)a * (U)b); }
+};
+
+#define INT_STEPS(T)                                                              \
+  template <> struct Step<T, OP_SUM> {                                            \
+    static __device__ __forceinline__ T f(T a, T b) { return IntStep<T>::sum(a, b); } \
+  };                                                                              \
+  template <> struct Step<T, OP_PROD> {                                           \
+    static __device__ __forceinline__ T f(T a, T b) { return IntStep<T>::prod(a, b); } \
+  };                                                                              \
+  template <> struct Step<T, OP_MAX> {                                            \
+    static __device__ __forceinline__ T f(T a, T b) { return a < b ? b : a; }     \
+  };                                                                              \
+  template <> struct Step<T, OP_MIN> {                                            \
+    static __device__ __forceinline__ T f(T a, T b) { return b < a ? b : a; }     \
+  };                                                                              \
+  template <> struct Step<T, OP_BAND> {                                           \
+    static __device__ __forceinline__ T f(T a, T b) { return (T)(a & b); }        \
+  };                                                                              \
+  template <> struct Step<T, OP_BOR> {                                            \
+    static __device__ __forceinline__ T f(T a, T b) { return (T)(a | b); }        \
+  };                                                                              \
+  template <> struct Step<T, OP_BXOR> {                                           \
+    static __device__ __forceinline__ T f(T a, T b) { return (T)(a ^ b); }        \
+  };
+
+INT_STEPS(int8_t)
+INT_STEPS(int16_t)
+INT_STEPS(int32_t)
+INT_STEPS(int64_t)
+INT_STEPS(uint8_t)
+
+#undef INT_STEPS
+
+template <int OP> struct Step<Bool, OP> {
+  static __device__ __forceinline__ Bool f(Bool a, Bool b) {
+    uint8_t x = a.v != 0, y = b.v != 0, r;
+    if (OP == OP_SUM || OP == OP_MAX || OP == OP_BOR) r = x | y;
+    else if (OP == OP_BXOR) r = x ^ y;
+    else r = x & y;                       // PROD, MIN, BAND
+    Bool out = {r};
+    return out;
+  }
+};
+
+// ---- launch size ---------------------------------------------------------------
+
+// Blocks for a grid-stride loop over `items`: enough to fill every SM
+// (16 blocks of `threads` each), never more than the items need.
+static int grid_for(int64_t items, int threads) {
+  static int sms = 0;
+  if (sms == 0) {
+    int dev = 0;
+    cudaGetDevice(&dev);
+    if (cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev) != cudaSuccess
+        || sms <= 0)
+      sms = 132;
+  }
+  int64_t blocks = (items + threads - 1) / threads;
+  int64_t cap = (int64_t)sms * 16;
+  if (blocks > cap) blocks = cap;
+  return (int)(blocks < 1 ? 1 : blocks);
+}
+
+// ---- (dtype, op) codes -> L<T, OP>::run ----------------------------------------
+
+template <typename T> struct IsFloat { static const bool value = false; };
+template <> struct IsFloat<float> { static const bool value = true; };
+template <> struct IsFloat<double> { static const bool value = true; };
+template <> struct IsFloat<__half> { static const bool value = true; };
+template <> struct IsFloat<__nv_bfloat16> { static const bool value = true; };
+
+template <template <typename, int> class L, typename T, typename... A>
+static int dispatch_op(int op, A... a) {
+  switch (op) {
+    case OP_SUM: return L<T, OP_SUM>::run(a...);
+    case OP_PROD: return L<T, OP_PROD>::run(a...);
+    case OP_MAX: return L<T, OP_MAX>::run(a...);
+    case OP_MIN: return L<T, OP_MIN>::run(a...);
+  }
+  if constexpr (!IsFloat<T>::value) {     // bitwise ops: integers and bool only
+    switch (op) {
+      case OP_BAND: return L<T, OP_BAND>::run(a...);
+      case OP_BOR: return L<T, OP_BOR>::run(a...);
+      case OP_BXOR: return L<T, OP_BXOR>::run(a...);
+    }
+  }
+  return TMT_EBADARG;
+}
+
+template <template <typename, int> class L, typename... A>
+static int dispatch(int dtype, int op, A... a) {
+  switch (dtype) {
+    case DT_F32: return dispatch_op<L, float>(op, a...);
+    case DT_F64: return dispatch_op<L, double>(op, a...);
+    case DT_F16: return dispatch_op<L, __half>(op, a...);
+    case DT_BF16: return dispatch_op<L, __nv_bfloat16>(op, a...);
+    case DT_I8: return dispatch_op<L, int8_t>(op, a...);
+    case DT_I16: return dispatch_op<L, int16_t>(op, a...);
+    case DT_I32: return dispatch_op<L, int32_t>(op, a...);
+    case DT_I64: return dispatch_op<L, int64_t>(op, a...);
+    case DT_U8: return dispatch_op<L, uint8_t>(op, a...);
+    case DT_BOOL: return dispatch_op<L, Bool>(op, a...);
+  }
+  return TMT_EBADARG;
+}

@@ -1,0 +1,37 @@
+"""The Python side of ``csrc/fold_ops.cuh``: the dtype and op codes the
+kernels' C interfaces take, which (dtype, op) pairs the kernels fold, and
+the plain PyTorch step of each op — the fold step every kernel's plain
+version applies, rounding as the kernel's Step<T, OP> does."""
+
+from __future__ import annotations
+
+import operator
+
+import torch
+
+# dtype -> kernel code (enum Dtype)
+DTYPE_CODE = {
+    torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3,
+    torch.int8: 4, torch.int16: 5, torch.int32: 6, torch.int64: 7,
+    torch.uint8: 8, torch.bool: 9,
+}
+_FLOAT_OPS = ("SUM", "PROD", "MAX", "MIN")
+_INT_OPS = _FLOAT_OPS + ("BAND", "BOR", "BXOR")
+# op name -> kernel code (enum Op)
+OP_CODE = {name: i for i, name in enumerate(_INT_OPS)}
+
+# The plain fold steps: exactly the tensor operations the reduction
+# operators of tpu_mpi_torch.operators apply.
+PLAIN_STEP = {
+    "SUM": operator.add, "PROD": operator.mul,
+    "MAX": torch.maximum, "MIN": torch.minimum,
+    "BAND": operator.and_, "BOR": operator.or_, "BXOR": operator.xor,
+}
+
+
+def supports(op: str, dtype: torch.dtype) -> bool:
+    """Whether the kernels fold ``dtype`` under the predefined op ``op``."""
+    if dtype not in DTYPE_CODE:
+        return False
+    ops = _FLOAT_OPS if dtype.is_floating_point else _INT_OPS
+    return op in ops
