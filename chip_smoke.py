@@ -34,7 +34,46 @@ fatal on failure:
 6. times with CUDA events at the main paths' shapes: each kernel, its
    bound, its plain version, one PyTorch call computing the same function
    as the library yardstick (timed only; the port never calls it), a 1 GiB
-   ``copy_`` bandwidth control, and the host-lane ``MPI.Allreduce`` per op.
+   ``copy_`` bandwidth control, and the host-lane ``MPI.Allreduce`` per op;
+7. build: ``permute.cu`` and ``ring_attention.cu`` join phase 2's parallel
+   build;
+8. the new kernels against their plain versions: the permute and
+   all-to-all kernels bitwise at n in {2, 4, 5, 8} and per-rank sizes 1,
+   127, 4096, 4097, 2^22+3 over every dtype of the fold phases, with a
+   partial permutation; ring attention elementwise within
+   ``attention.allowed_error`` at n in {1, 2, 4}, causal and not, float32
+   and bfloat16, t_local in {8, 72, 256}, d in {8, 64, 128}; non-contiguous
+   input, a non-permutation, a CPU/CUDA mix and float16 must raise;
+9. model path: the flagship transformer (benchmarks/flagship_probe.py's
+   configuration: d_model 1024, 16 heads, 8 layers, d_ff 4096, vocab
+   32768, bfloat16, random weights from a seeded generator) serves 3
+   requests of (8, 1024) tokens from a numpy seed through
+   ``transformer_forward(..., sp_axis="sp")`` on ``{"sp": 4}``: logits and
+   the greedy next token of each sequence, every tensor on cuda, 8
+   ring-attention launches per request, no fold, ring or chained launch;
+   the logits against the same port's forward without sp (plain dense
+   attention) within a stated bfloat16 tolerance and share of agreeing
+   greedy tokens, once more in float32 with TF32 off; one request through
+   ``tp_axis="tp"`` on ``{"tp": 4}`` (16 fold launches) against the single
+   forward;
+10. recipes: ``ulysses_attention`` at the model's attention shapes (4
+   all-to-all launches) against ``parallel.ring_attention``;
+   ``pipeline_forward`` of the 8 layers on ``{"pp": 4}`` with 8
+   microbatches of (1, 1024) (11 permute launches) against the layers in
+   sequence; ``moe_dispatch_combine`` on ``{"ep": 4}`` with 2048 tokens a
+   rank, capacity 1024 and one flagship FFN expert a rank (2 all-to-all
+   launches, dropped rows exact zeros); a periodic ``halo_exchange`` on
+   ``{"x": 4}`` (2 permute launches);
+11. each new kernel against its plain version on the inputs the paths
+   give it (the pipeline hop and the MoE dispatch buffer bitwise, the
+   model's (4, 128, 256, 64) bfloat16 attention operands within
+   ``attention.allowed_error``), then times with CUDA events of each at
+   those shapes, its bound, its plain version and its library yardstick;
+   the model path's ms per request, tokens/s and device idle share under
+   ``torch.profiler``.
+
+Card comparisons run with TF32 off and bfloat16 reduced-precision
+reductions off (``torch.backends.cuda.matmul``), set at the start.
 
 It prints the card line, then the ``kernels`` JSON line, and last
 ``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
@@ -67,6 +106,26 @@ RING_SIZES = (1, 127, 4097, 8229, BIG_SIZE)
 DTYPES = ("float32", "float64", "float16", "bfloat16", "int8", "int16",
           "int32", "int64", "uint8", "bool")
 ALL_OPS = ("SUM", "PROD", "MAX", "MIN", "BAND", "BOR", "BXOR")
+PERMUTE_NS = (2, 4, 5, 8)
+# odd sizes take the narrow words; 4096 elements (and shards of them) the
+# 16-byte words of every dtype
+PERMUTE_SIZES = (1, 127, 4096, 4097, (1 << 22) + 3)
+ATTN_NS = (1, 2, 4)
+ATTN_TS = (8, 72, 256)
+ATTN_DS = (8, 64, 128)
+ATTN_BH = 2
+# benchmarks/flagship_probe.py:34-35, nothing cut
+FLAGSHIP = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8, d_ff=4096)
+BATCH, SEQ, SP = 8, 1024, 4
+REQUESTS = 3
+# the sp logits against the dense forward: bfloat16 rounds every layer's
+# activations, and the two attentions round P and their sums at other
+# places, so the logits (of order 1) drift apart by a few bfloat16 ulps
+MODEL_TOL = {"bfloat16": 0.125, "float32": 1e-4}
+MODEL_AGREE = {"bfloat16": 0.95, "float32": 0.999}
+RECIPE_TOL = 3e-2       # bfloat16 recipes against their references
+MOE_TOKENS, MOE_CAPACITY = 2048, 1024
+PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 67.0}   # spec sheet, dense
 
 
 def log(msg: str) -> None:
@@ -504,6 +563,443 @@ def ring_times(ring, xs, shards, caps: dict) -> dict:
     }
 
 
+# ---------------------------------------------------------------------------
+# 8. new kernels against plain
+# ---------------------------------------------------------------------------
+
+def _raises(call, what: str) -> None:
+    try:
+        call()
+    except ValueError:
+        return
+    raise AssertionError(f"{what} did not raise")
+
+
+def check_permute_parity(permute, device) -> dict:
+    """The permute and all-to-all kernels against their plain versions,
+    bitwise, on every case; returns per-kernel case counts."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    pick = np.random.default_rng(SEED + 2)
+    cases = dict.fromkeys(permute.REPLACES, 0)
+
+    def one(name, got, want, what):
+        torch.cuda.synchronize()
+        if got.device.type != "cuda" or not same_bits(got, want):
+            raise AssertionError(f"{name} kernel != plain: {what}")
+        cases[name] += 1
+
+    for dname in DTYPES:
+        dtype = getattr(torch, dname)
+        for size in PERMUTE_SIZES:
+            for n in PERMUTE_NS:
+                what = f"{dname} n={n} size={size}"
+                xs = operands(dtype, n, size, device, gen)
+                perm = pick.permutation(n).tolist()
+                partial = [-1 if d % 3 == 1 else (d + 1) % n for d in range(n)]
+                one("collective_permute", permute.collective_permute(xs, perm),
+                    permute.permute_rows_plain(xs, permute.inverse(perm, n)), what)
+                one("collective_permute", permute.permute_rows(xs, partial),
+                    permute.permute_rows_plain(xs, partial), f"partial {what}")
+                blocks = operands(dtype, n, n * -(-size // n), device, gen)
+                one("pairwise_alltoall", permute.pairwise_alltoall(blocks),
+                    permute.pairwise_alltoall_plain(blocks), what)
+                del xs, blocks
+    x = torch.zeros(4, 2 * 4097, device=device)
+    _raises(lambda: permute.collective_permute(x[:, ::2], [1, 2, 3, 0]),
+            "a non-contiguous permute")
+    _raises(lambda: permute.pairwise_alltoall(x[:, ::2]), "a non-contiguous alltoall")
+    _raises(lambda: permute.collective_permute(x, [0, 0, 1, 2]), "a non-permutation")
+    return {"cases": cases}
+
+
+def attention_close(attention, got, q, k, v, *, causal: bool, what: str) -> tuple:
+    """The kernel's output ``got`` against the plain version on the same
+    inputs, elementwise within ``attention.allowed_error``; returns the
+    largest absolute difference and the largest share of its bound any
+    element used, or raises."""
+    import torch
+    scale = q.shape[-1] ** -0.5
+    want = attention.ring_attention_plain(q, k, v, causal=causal, scale=scale)
+    limit = attention.allowed_error(q, k, v, want, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    diff = (got.float() - want.float()).abs()
+    err, share = float(diff.max()), float((diff / limit.clamp_min(1e-30)).max())
+    if got.device.type != "cuda" or not bool((diff <= limit).all()):
+        raise AssertionError(f"ring_attention kernel != plain: {what} "
+                             f"max_abs_err={err}, {share} of the bound")
+    return err, share
+
+
+def check_attention_parity(attention, device) -> dict:
+    """The ring-attention kernel against its plain version within
+    ``attention.allowed_error``; returns the case count and, per dtype, the
+    largest absolute difference and the largest share of the bound."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 3)
+    cases, worst, shares = 0, {}, {}
+    for dtype in (torch.float32, torch.bfloat16):
+        key = str(dtype).split(".")[1]
+        worst[key] = shares[key] = 0.0
+        for n in ATTN_NS:
+            for t in ATTN_TS:
+                for d in ATTN_DS:
+                    for causal in (True, False):
+                        q, k, v = (torch.randn(n, ATTN_BH, t, d, generator=gen,
+                                               device=device).to(dtype)
+                                   for _ in range(3))
+                        got = attention.ring_attention(q, k, v, causal=causal)
+                        err, share = attention_close(
+                            attention, got, q, k, v, causal=causal,
+                            what=f"{dtype} n={n} t={t} d={d} causal={causal}")
+                        worst[key] = max(worst[key], err)
+                        shares[key] = max(shares[key], share)
+                        cases += 1
+    q = torch.zeros(2, 2, 16, 8, device=device)
+    _raises(lambda: attention.attend(q.transpose(1, 2), q.transpose(1, 2),
+                                     q.transpose(1, 2), causal=True),
+            "non-contiguous attention")
+    _raises(lambda: attention.attend(q, q.cpu(), q, causal=True),
+            "a CPU/CUDA mix")
+    _raises(lambda: attention.attend(q.half(), q.half(), q.half(), causal=True),
+            "float16 attention")
+    return {"cases": cases, "max_abs_err": worst, "bound_share": shares}
+
+
+# ---------------------------------------------------------------------------
+# 9. model path
+# ---------------------------------------------------------------------------
+
+def stack_seq(tokens, n: int):
+    """(b, T) -> stacked (n, b, T/n): rank r holds sequence block r."""
+    b, t = tokens.shape
+    return tokens.view(b, n, t // n).transpose(0, 1).contiguous()
+
+
+def unstack_seq(logits):
+    """Stacked (n, b, t, V) -> (b, n*t, V)."""
+    n, b, t, v = logits.shape
+    return logits.transpose(0, 1).reshape(b, n * t, v)
+
+
+def compare_logits(got, want, what: str, dtype: str) -> dict:
+    """Largest absolute difference and share of agreeing greedy tokens over
+    every position; raises past the stated bounds."""
+    err = max_abs_err(got, want)
+    agree = float((got.argmax(-1) == want.argmax(-1)).float().mean())
+    if not bool(got.isfinite().all()):
+        raise AssertionError(f"{what}: non-finite logits")
+    if err > MODEL_TOL[dtype] or agree < MODEL_AGREE[dtype]:
+        raise AssertionError(f"{what}: max_abs_err {err} (bound {MODEL_TOL[dtype]}), "
+                             f"greedy agreement {agree} (bound {MODEL_AGREE[dtype]})")
+    return {"max_abs_err": err, "greedy_agree": agree}
+
+
+def serve(tr, cfg, params, requests: np.ndarray, device) -> list:
+    """The model path: every request through the sp forward; returns
+    (stacked logits, greedy next token of each sequence) per request."""
+    import torch
+    outs = []
+    for req in requests:
+        tokens = torch.from_numpy(req).to(device)
+        logits = tr.transformer_forward(cfg, params, stack_seq(tokens, SP),
+                                        sp_axis="sp")
+        outs.append((logits, logits[-1, :, -1].argmax(-1)))
+    torch.cuda.synchronize()
+    return outs
+
+
+def model_profile(tr, cfg, params, tokens, logdir: str, iters: int = 3) -> dict:
+    """Device busy share of the window of ``iters`` sp requests under
+    ``torch.profiler``: the union of kernel, memcpy and memset spans."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    stacked = stack_seq(tokens, SP)
+    tr.transformer_forward(cfg, params, stacked, sp_axis="sp")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(iters):
+            tr.transformer_forward(cfg, params, stacked, sp_axis="sp")
+        torch.cuda.synchronize()
+        window_us = (time.perf_counter() - t0) * 1e6
+    os.makedirs(logdir, exist_ok=True)
+    trace = os.path.join(logdir, "model_path.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        events = json.load(f).get("traceEvents", [])
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -1.0
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    attn = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
+            and "ring_attention_kernel" in e.get("name", "")]
+    by_name: dict = {}
+    for e in events:
+        if e.get("ph") == "X" and e.get("cat") == "kernel":
+            name = e.get("name", "")[:60]
+            by_name[name] = by_name.get(name, 0.0) + float(e["dur"]) / 1e3 / iters
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    return {"window_ms": window_us / 1e3, "busy_ms": busy / 1e3,
+            "top_kernels_ms_per_request": [[k, round(v, 4)] for k, v in top],
+            "attention_spans": len(attn),
+            "attention_ms": sum(float(e["dur"]) for e in attn) / 1e3,
+            "iters": iters, "trace": trace}
+
+
+# ---------------------------------------------------------------------------
+# 10. recipes
+# ---------------------------------------------------------------------------
+
+def _stage_params(params: dict, n: int) -> list:
+    """Pipeline stage params: slot j of rank r is layer r * per + j, each
+    weight stacked over the ranks."""
+    import torch
+    layers = params["layers"]
+    per = len(layers) // n
+    return [{k: torch.stack([layers[r * per + j][k] for r in range(n)])
+             for k in layers[0]} for j in range(per)]
+
+
+def recipes(tr, par, cfg, params, device) -> dict:
+    """Phase 10; returns per-recipe results and launch counts."""
+    import torch
+    from tpu_mpi_torch.kernels import attention, permute
+    rng = np.random.default_rng(SEED + 10)
+    dt = cfg.dtype
+    out = {}
+
+    def counted(fn):
+        permute.reset_launches()
+        attention.reset_launches()
+        res = fn()
+        torch.cuda.synchronize()
+        return res, dict(permute.launches), attention.launches
+
+    # Ulysses at the model's attention shapes
+    b, h, tl, dh = BATCH, cfg.n_heads, SEQ // SP, cfg.head_dim
+    q, k, v = (torch.from_numpy(rng.standard_normal((SP, b, h, tl, dh),
+                                                    dtype=np.float32))
+               .to(device=device, dtype=dt) for _ in range(3))
+    uly, moves, attn = counted(lambda: par.ulysses_attention(q, k, v, axis="sp"))
+    ring = par.ring_attention(q, k, v, axis="sp")
+    out["ulysses"] = {"alltoall_launches": moves["pairwise_alltoall"],
+                      "max_abs_err": max_abs_err(uly.float(), ring.float()),
+                      "shape": list(q.shape)}
+    if moves["pairwise_alltoall"] != 4 or attn:
+        raise AssertionError(f"ulysses launched {moves} and {attn} attention")
+    if out["ulysses"]["max_abs_err"] > RECIPE_TOL:
+        raise AssertionError(f"ulysses != ring attention: {out['ulysses']}")
+    out["ulysses_inputs"] = (q, k, v)
+
+    # pipeline of the 8 layers, 2 a stage, 8 microbatches of (1, 1024)
+    n = SP
+    positions = torch.arange(SEQ, device=device)
+    tokens = torch.from_numpy(rng.integers(0, cfg.vocab, (8, 1, SEQ))).to(device)
+    mbs = params["embed"][tokens]                               # (8, 1, 1024, d)
+    stages = _stage_params(params, n)
+
+    def stage_fn(sp, x):
+        ys = []
+        for r in range(n):
+            y = x[r]
+            for slot in sp:
+                y = tr._attn_ffn_block(cfg, {k: w[r] for k, w in slot.items()}, y,
+                                       positions, tp_axis=None, sp_axis=None)
+            ys.append(y)
+        return torch.stack(ys)
+
+    piped, moves, _ = counted(lambda: par.pipeline_forward(stage_fn, stages, mbs,
+                                                           axis="pp"))
+    seq = []
+    for mb in mbs:
+        y = mb
+        for layer in params["layers"]:
+            y = tr._attn_ffn_block(cfg, layer, y, positions, tp_axis=None,
+                                   sp_axis=None)
+        seq.append(y)
+    seq = torch.stack(seq)
+    out["pipeline"] = {"permute_launches": moves["collective_permute"],
+                       "max_abs_err": max_abs_err(piped[-1].float(), seq.float()),
+                       "microbatches": list(mbs.shape)}
+    if moves["collective_permute"] != 8 + n - 1:
+        raise AssertionError(f"pipeline launched {moves}")
+    if out["pipeline"]["max_abs_err"] > RECIPE_TOL:
+        raise AssertionError(f"pipeline != layers in sequence: {out['pipeline']}")
+    out["pipeline_hop"] = piped[:, 0].contiguous()
+    del piped, seq, mbs
+
+    # MoE: one flagship FFN expert a rank, skewed routing so that expert 0
+    # overflows its capacity
+    d = cfg.d_model
+    toks = torch.from_numpy(rng.standard_normal((n, MOE_TOKENS, d),
+                                                dtype=np.float32)).to(device=device, dtype=dt)
+    idx = torch.from_numpy(rng.choice(n, (n, MOE_TOKENS), p=[0.55, 0.25, 0.1, 0.1])
+                           ).to(device)
+    w_in = torch.stack([params["layers"][r]["w_in"] for r in range(n)])
+    w_out = torch.stack([params["layers"][r]["w_out"] for r in range(n)])
+
+    def expert(x):                                   # (n, n*capacity, d)
+        import torch.nn.functional as F
+        return torch.matmul(F.gelu(torch.matmul(x, w_in), approximate="tanh"), w_out)
+
+    moe, moves, _ = counted(lambda: par.moe_dispatch_combine(
+        toks, idx, expert, capacity=MOE_CAPACITY, axis="ep"))
+    slot = torch.cumsum(torch.nn.functional.one_hot(idx, n), 1).gather(
+        2, idx[..., None])[..., 0] - 1
+    keep = slot < MOE_CAPACITY
+    dropped = int((~keep).sum())
+    want = torch.zeros_like(toks)
+    for e in range(n):
+        sel = keep & (idx == e)
+        want[sel] = expert(toks[sel][None].expand(n, -1, -1).contiguous())[e]
+    out["moe"] = {"alltoall_launches": moves["pairwise_alltoall"],
+                  "dropped": dropped,
+                  "max_abs_err": max_abs_err(moe.float(), want.float())}
+    if moves["pairwise_alltoall"] != 2:
+        raise AssertionError(f"moe launched {moves}")
+    if dropped == 0 or not bool((moe[~keep] == 0).all()) \
+            or bool(torch.signbit(moe[~keep]).any()):
+        raise AssertionError("moe: dropped rows are not exact zeros")
+    if out["moe"]["max_abs_err"] > RECIPE_TOL:
+        raise AssertionError(f"moe kept rows differ from the experts: {out['moe']}")
+    # the dispatch buffer the first all-to-all moved: each rank's kept
+    # tokens in (destination, slot) order, zeros in the empty slots
+    send = toks.new_zeros((n, n, MOE_CAPACITY, d))
+    send[torch.arange(n, device=device)[:, None].expand(n, MOE_TOKENS)[keep],
+         idx[keep], slot[keep]] = toks[keep]
+    out["moe_send"] = send.reshape(n, -1)
+    del moe, want, toks
+
+    # periodic halo exchange on {"x": 4}
+    grid = torch.from_numpy(rng.standard_normal((n, 512, 256), dtype=np.float32)
+                            ).to(device)
+    halo, moves, _ = counted(lambda: par.halo_exchange(grid, axes="x", halo=2))
+    want = torch.cat([grid[..., -2:].roll(1, 0), grid, grid[..., :2].roll(-1, 0)], -1)
+    out["halo"] = {"permute_launches": moves["collective_permute"],
+                   "bitwise": same_bits(halo, want)}
+    if moves["collective_permute"] != 2 or not out["halo"]["bitwise"]:
+        raise AssertionError(f"halo exchange: {out['halo']}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 11. times of the new kernels
+# ---------------------------------------------------------------------------
+
+def kernel_span_ms(fn, needle: str, logdir: str, iters: int = 20) -> float:
+    """Mean device duration of the kernel spans whose name holds ``needle``
+    over ``iters`` calls of ``fn``, under ``torch.profiler``: the kernel
+    alone, without the wrapper's host time between launches."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    os.makedirs(logdir, exist_ok=True)
+    trace = os.path.join(logdir, f"{needle}.json")
+    prof.export_chrome_trace(trace)
+    with open(trace) as f:
+        durs = [float(e["dur"]) for e in json.load(f).get("traceEvents", [])
+                if e.get("ph") == "X" and e.get("cat") == "kernel"
+                and needle in e.get("name", "")]
+    if not durs:
+        raise AssertionError(f"the profiler saw no {needle} spans")
+    return sum(durs) / len(durs) / 1e3
+
+
+def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
+    """Each new kernel at the recipe and model shapes: first held against
+    its plain version on the same inputs (raises on a mismatch), then
+    kernel, plain and library times (ms) and the bound. ``hop`` is the
+    pipeline's stacked activation (4, 1, 1024, d), ``send`` the MoE
+    dispatch buffer, ``qkv`` the model's stacked (4, 8, 16, 256, 64)
+    attention operands."""
+    import torch
+    import torch.nn.functional as F
+    n = hop.shape[0]
+    perm = [(r + 1) % n for r in range(n)]
+    inv = torch.tensor(permute.inverse(perm, n), device=hop.device)
+    src = permute.inverse(perm, n)
+    per = send[0].numel() // n
+    q, k, v = (x.reshape(n, -1, x.shape[-2], x.shape[-1]).contiguous() for x in qkv)
+    _, bh, t, d = q.shape
+
+    moved = {
+        "collective_permute": (permute.collective_permute(hop, perm),
+                               permute.permute_rows_plain(hop, src)),
+        "pairwise_alltoall": (permute.pairwise_alltoall(send),
+                              permute.pairwise_alltoall_plain(send)),
+    }
+    torch.cuda.synchronize()
+    for name, (got, want) in moved.items():
+        if got.device.type != "cuda" or not same_bits(got, want):
+            raise AssertionError(f"{name} kernel != plain at the path's shape "
+                                 f"{list(want.shape)}")
+    del moved
+    attn_err, attn_share = attention_close(
+        attention, attention.attend(q, k, v, causal=True), q, k, v, causal=True,
+        what=f"the model's shape {list(q.shape)}")
+    main_parity = {"collective_permute": {"bitwise": True, "max_abs_err": 0.0},
+                   "pairwise_alltoall": {"bitwise": True, "max_abs_err": 0.0},
+                   "ring_attention": {"max_abs_err": attn_err,
+                                      "bound_share": attn_share}}
+    gathered = [x.view(n, BATCH, -1, t, d).permute(1, 2, 0, 3, 4)
+                .reshape(BATCH, -1, n * t, d).contiguous() for x in qkv]
+    dt = str(q.dtype).split(".")[1]
+    flops = 4 * d * attention.causal_pairs(n, t) * bh
+    hbm = 3.35e12                                     # spec sheet, bytes/s
+    times = {
+        "collective_permute": {
+            "ms": time_ms(lambda: permute.collective_permute(hop, perm)),
+            "span_ms": kernel_span_ms(lambda: permute.collective_permute(hop, perm),
+                                      "permute_kernel", logdir),
+            "plain_ms": time_ms(lambda: permute.permute_rows_plain(hop, src)),
+            "library_ms": time_ms(lambda: hop[inv]),
+            "library_call": "xs[inverse_perm]",
+            "bound": (2 * hop.numel() * hop.element_size() / hbm * 1e3, "bytes"),
+            "shape": list(hop.shape), "dtype": str(hop.dtype),
+        },
+        "pairwise_alltoall": {
+            "ms": time_ms(lambda: permute.pairwise_alltoall(send)),
+            "span_ms": kernel_span_ms(lambda: permute.pairwise_alltoall(send),
+                                      "alltoall_kernel", logdir),
+            "plain_ms": time_ms(lambda: permute.pairwise_alltoall_plain(send)),
+            "library_ms": time_ms(lambda: send.view(n, n, per).transpose(0, 1)
+                                  .contiguous()),
+            "library_call": "xs.view(n, n, per).transpose(0, 1).contiguous()",
+            "bound": (2 * send.numel() * send.element_size() / hbm * 1e3, "bytes"),
+            "shape": list(send.shape), "dtype": str(send.dtype),
+        },
+        "ring_attention": {
+            "ms": time_ms(lambda: attention.attend(q, k, v, causal=True)),
+            "span_ms": kernel_span_ms(lambda: attention.attend(q, k, v, causal=True),
+                                      "ring_attention_kernel", logdir),
+            "plain_ms": time_ms(lambda: attention.ring_attention_plain(
+                q, k, v, causal=True, scale=d ** -0.5), iters=5),
+            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                *gathered, is_causal=True)),
+            "library_call": "F.scaled_dot_product_attention(..., is_causal=True) "
+                            "on the gathered (8, 16, 1024, 64)",
+            "bound": max((4 * q.numel() * q.element_size() / hbm * 1e3, "bytes"),
+                         (flops / (PEAK_TFLOPS[dt] * 1e12) * 1e3, "operations")),
+            "shape": list(q.shape), "dtype": str(q.dtype), "flops": flops,
+        },
+    }
+    for name in times:
+        times[name]["main_parity"] = main_parity[name]
+    return times
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -516,15 +1012,26 @@ def main() -> int:
     from tpu_mpi_torch.implementations import capabilities
     from tpu_mpi_torch.kernels import _build, fused_reduce as fr, ring
 
+    from tpu_mpi_torch import parallel as par
+    from tpu_mpi_torch.kernels import attention, permute
+    from tpu_mpi_torch.models import transformer as tr
+
+    # every card comparison below: float32 matmuls in full float32, bfloat16
+    # matmuls reduced in float32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = False
+    torch.backends.cudnn.allow_tf32 = False
     device = torch.device("cuda", 0)
     card = card_line()
     kind = torch.cuda.get_device_name(0)
     log(f"card {card} | torch {kind} | torch {torch.__version__} "
-        f"cuda {torch.version.cuda}")
+        f"cuda {torch.version.cuda} | allow_tf32 "
+        f"{torch.backends.cuda.matmul.allow_tf32}, bf16 reduced-precision "
+        f"reduction {torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction}")
     where = f"[{card}]"
 
     t0 = time.perf_counter()
-    libs = (fr.LIBRARY, ring.LIBRARY)
+    libs = (fr.LIBRARY, ring.LIBRARY, permute.LIBRARY, attention.LIBRARY)
     built = _build.build_all(libs)
     for lib in libs:
         lib.load()
@@ -674,6 +1181,163 @@ def main() -> int:
             "parity_cases": ring_parity["cases"][name],
             "copy_gbps": copy_gbps,
         })
+
+    # 8. the new kernels against their plain versions
+    t0 = time.perf_counter()
+    perm_parity = check_permute_parity(permute, device)
+    log(f"permute and alltoall kernels == plain, bitwise, on "
+        f"{perm_parity['cases']} cases ({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    attn_parity = check_attention_parity(attention, device)
+    log(f"ring attention kernel == plain within the elementwise bound "
+        f"({attention.TOLERANCE_NOTE}) on {attn_parity['cases']} cases, "
+        f"max_abs_err {attn_parity['max_abs_err']}, largest share of the bound "
+        f"{attn_parity['bound_share']} ({time.perf_counter() - t0:.1f} s)")
+
+    # 9. model path: 3 requests through the sp forward at the flagship width
+    cfg = tr.TransformerConfig(**FLAGSHIP, dtype=torch.bfloat16)
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED)
+    params = tr.transformer_init(gen, cfg, device=device)
+    n_params = sum(p.numel() for p in [params["embed"], params["ln_f"]]
+                   + [w for layer in params["layers"] for w in layer.values()])
+    requests = np.random.default_rng(SEED).integers(
+        0, cfg.vocab, (REQUESTS, BATCH, SEQ)).astype(np.int64)
+    fr.reset_launches()
+    ring.reset_launches()
+    permute.reset_launches()
+    attention.reset_launches()
+    collective.chained_folds = 0
+    t0 = time.perf_counter()
+    served = serve(tr, cfg, params, requests, device)
+    serve_s = time.perf_counter() - t0
+    model_launches = attention.launches
+    others = (fr.launches, sum(ring.launches.values()), ring.callable_rings,
+              collective.chained_folds, sum(permute.launches.values()))
+    log(f"model path: {REQUESTS} requests of ({BATCH}, {SEQ}) tokens through the "
+        f"sp forward on {{'sp': {SP}}}, {n_params} parameters, in {serve_s:.2f} s "
+        f"(first requests, build-free); ring_attention launches {model_launches}; "
+        f"fold, ring, callable, chained, permute launches {others}")
+    if model_launches != REQUESTS * cfg.n_layers:
+        raise AssertionError(f"{model_launches} ring-attention launches for "
+                             f"{REQUESTS} requests of {cfg.n_layers} layers")
+    if any(others):
+        raise AssertionError(f"the sp forward launched other kernels: {others}")
+    sp_checks = []
+    for req, (logits, nxt) in zip(requests, served):
+        for tns in (logits, nxt):
+            if tns.device.type != "cuda":
+                raise AssertionError(f"model output on {tns.device}")
+        if tuple(logits.shape) != (SP, BATCH, SEQ // SP, cfg.vocab) \
+                or tuple(nxt.shape) != (BATCH,):
+            raise AssertionError(f"model output shapes {logits.shape} {nxt.shape}")
+        dense = tr.transformer_forward(cfg, params, torch.from_numpy(req).to(device))
+        check = compare_logits(unstack_seq(logits), dense, "sp vs dense forward",
+                               "bfloat16")
+        check["next_tokens_agree"] = int((nxt == dense[:, -1].argmax(-1)).sum())
+        sp_checks.append(check)
+        del dense
+    next_tokens = [nxt.tolist() for _, nxt in served]
+    del served
+    log(f"sp logits vs dense forward (bfloat16): {sp_checks}; next tokens "
+        f"{next_tokens}")
+    params32 = {"embed": params["embed"].float(), "ln_f": params["ln_f"].float(),
+                "layers": [{k: w.float() for k, w in layer.items()}
+                           for layer in params["layers"]]}
+    cfg32 = tr.TransformerConfig(**FLAGSHIP, dtype=torch.float32)
+    tok0 = torch.from_numpy(requests[0]).to(device)
+    f32_check = compare_logits(
+        unstack_seq(tr.transformer_forward(cfg32, params32, stack_seq(tok0, SP),
+                                           sp_axis="sp")),
+        tr.transformer_forward(cfg32, params32, tok0), "sp vs dense forward",
+        "float32")
+    del params32
+    log(f"sp logits vs dense forward (float32, TF32 off): {f32_check}")
+    fr.reset_launches()
+    tp_logits = tr.transformer_forward(cfg, tr.shard_params(params, cfg, SP), tok0,
+                                       tp_axis="tp")
+    torch.cuda.synchronize()
+    tp_folds = fr.launches
+    tp_check = compare_logits(tp_logits[SP - 1],
+                              tr.transformer_forward(cfg, params, tok0),
+                              "tp vs single forward", "bfloat16")
+    del tp_logits
+    log(f"tp forward on {{'tp': {SP}}}: fold launches {tp_folds}; vs single "
+        f"forward {tp_check}")
+    if tp_folds != 2 * cfg.n_layers:
+        raise AssertionError(f"{tp_folds} fold launches for the tp forward")
+
+    # 10. recipes
+    t0 = time.perf_counter()
+    rec = recipes(tr, par, cfg, params, device)
+    log(f"recipes ({time.perf_counter() - t0:.1f} s): ulysses {rec['ulysses']}, "
+        f"pipeline {rec['pipeline']}, moe {rec['moe']}, halo {rec['halo']}")
+
+    # 11. times of the new kernels and of the model path
+    new_times = new_kernel_times(permute, attention, rec["pipeline_hop"],
+                                 rec["moe_send"], rec["ulysses_inputs"], logdir)
+    del rec["pipeline_hop"], rec["moe_send"], rec["ulysses_inputs"]
+    for name, t in new_times.items():
+        log(f"{name} at {t['shape']} {t['dtype']}: kernel == plain on these "
+            f"inputs {t['main_parity']}; kernel {t['ms']:.4f} ms per "
+            f"call (CUDA events; {t['span_ms']:.4f} ms kernel span under the "
+            f"profiler), bound "
+            f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), plain {t['plain_ms']:.4f} "
+            f"ms, {t['library_call']} {t['library_ms']:.4f} ms {where}")
+    stacked0 = stack_seq(tok0, SP)
+    request_ms = time_ms(lambda: tr.transformer_forward(cfg, params, stacked0,
+                                                        sp_axis="sp")
+                         [-1, :, -1].argmax(-1), iters=10)
+    tokens_per_s = BATCH * SEQ / (request_ms * 1e-3)
+    mprof = model_profile(tr, cfg, params, tok0, logdir)
+    idle = 1 - mprof["busy_ms"] / mprof["window_ms"]
+    log(f"model path: {request_ms:.4f} ms per request of {BATCH}x{SEQ} tokens "
+        f"(CUDA events, 10 requests), {tokens_per_s:.1f} tokens/s; profiled "
+        f"{mprof['iters']} requests: window {mprof['window_ms']:.4f} ms, device "
+        f"busy {mprof['busy_ms']:.4f} ms (idle share {idle:.3f}), ring attention "
+        f"{mprof['attention_ms'] / max(1, mprof['attention_spans']):.4f} ms x "
+        f"{mprof['attention_spans']}; device busy per request "
+        f"{mprof['busy_ms'] / mprof['iters']:.4f} ms against {request_ms:.4f} ms "
+        f"unprofiled {where}")
+    log(f"model path, device time per request by kernel (profiler): "
+        f"{mprof['top_kernels_ms_per_request']}")
+
+    def entry(name, t, source, replaces, launches, err, parity, **extra):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches, "max_abs_err": err,
+                "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+                "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+                "library_call": t["library_call"], "parity": parity,
+                "span_ms": t["span_ms"], "shape": t["shape"], "dtype": t["dtype"],
+                "main_parity": t["main_parity"], **extra}
+
+    rel = lambda path: str(path.relative_to(repo))    # noqa: E731
+    kernels.append(entry(
+        "pairwise_alltoall", new_times["pairwise_alltoall"], rel(permute.SOURCE),
+        permute.REPLACES["pairwise_alltoall"],
+        rec["ulysses"]["alltoall_launches"] + rec["moe"]["alltoall_launches"], 0.0,
+        "bitwise", parity_cases=perm_parity["cases"]["pairwise_alltoall"],
+        path="recipes: ulysses_attention + moe_dispatch_combine"))
+    kernels.append(entry(
+        "collective_permute", new_times["collective_permute"], rel(permute.SOURCE),
+        permute.REPLACES["collective_permute"],
+        rec["pipeline"]["permute_launches"] + rec["halo"]["permute_launches"], 0.0,
+        "bitwise", parity_cases=perm_parity["cases"]["collective_permute"],
+        path="recipes: pipeline_forward + halo_exchange"))
+    kernels.append(entry(
+        "ring_attention", new_times["ring_attention"], rel(attention.SOURCE),
+        attention.REPLACES, model_launches,
+        max(*attn_parity["max_abs_err"].values(),
+            new_times["ring_attention"]["main_parity"]["max_abs_err"]),
+        f"elementwise: {attention.TOLERANCE_NOTE}",
+        parity_cases=attn_parity["cases"],
+        max_abs_err_by_dtype=attn_parity["max_abs_err"],
+        bound_share_by_dtype=attn_parity["bound_share"],
+        path="model: transformer_forward(sp_axis='sp'), 3 requests",
+        request_ms=request_ms, tokens_per_s=tokens_per_s, model_idle_share=idle,
+        model_window_ms=mprof["window_ms"], model_busy_ms=mprof["busy_ms"],
+        sp_vs_dense=sp_checks, sp_vs_dense_f32=f32_check, tp_vs_single=tp_check))
+    kernels[0]["tp_forward_launches"] = tp_folds
     print(card, flush=True)         # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

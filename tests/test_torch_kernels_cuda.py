@@ -1,4 +1,4 @@
-"""The fused fold kernel against its plain version, on the card.
+"""The port's kernels against their plain versions, on the card.
 
 These tests need an NVIDIA card and nvcc: the CUDA kernel has no CPU
 mode, so on a CPU-only host they skip. The file imports neither jax nor
@@ -180,3 +180,165 @@ def test_ingraph_tier_on_card():
     assert fr.launches == folds + 2
     assert ring.launches["ring_allgather"] == before["ring_allgather"] + 1
     assert collective.chained_folds == chained
+
+
+# ---------------------------------------------------------------------------
+# Permute and alltoall kernels (tpu_mpi_torch.kernels.permute)
+# ---------------------------------------------------------------------------
+
+_MOVE_DTYPES = [torch.float32, torch.bfloat16, torch.float64, torch.int8,
+                torch.int32, torch.int64, torch.bool]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _MOVE_DTYPES)
+@pytest.mark.parametrize("n,per", [(2, 4097), (5, 127), (8, 1),
+                                   (4, 1024)])      # 16-byte words
+def test_permute_kernels_match_plain_on_card(dtype, n, per):
+    from tpu_mpi_torch.kernels import permute
+    dev = _card()
+    xs = _stacked(dtype, n, n * per, dev, 11)
+    g = torch.Generator().manual_seed(n)
+    perm = torch.randperm(n, generator=g).tolist()
+    partial = [-1 if d % 3 == 1 else (d + 1) % n for d in range(n)]
+    before = dict(permute.launches)
+    cases = [
+        (permute.collective_permute(xs, perm),
+         permute.permute_rows_plain(xs, permute.inverse(perm, n))),
+        (permute.permute_rows(xs, partial), permute.permute_rows_plain(xs, partial)),
+        (permute.permute_rows(xs[:, 1:].contiguous(), partial),   # narrower words
+         permute.permute_rows_plain(xs[:, 1:], partial)),
+        (permute.pairwise_alltoall(xs), permute.pairwise_alltoall_plain(xs)),
+    ]
+    torch.cuda.synchronize()
+    assert permute.launches["collective_permute"] == before["collective_permute"] + 3
+    assert permute.launches["pairwise_alltoall"] == before["pairwise_alltoall"] + 1
+    for got, want in cases:
+        assert got.is_cuda and torch.equal(got, want), (dtype, n, per)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["non-contiguous", "not a permutation",
+                                 "source out of range", "indivisible"])
+def test_permute_kernels_refuse_on_card(bad):
+    from tpu_mpi_torch.kernels import permute
+    dev = _card()
+    x = torch.zeros(4, 64, device=dev)
+    before = dict(permute.launches)
+    with pytest.raises(ValueError):
+        if bad == "non-contiguous":
+            permute.collective_permute(x[:, ::2], [1, 2, 3, 0])
+        elif bad == "not a permutation":
+            permute.collective_permute(x, [0, 0, 1, 2])
+        elif bad == "source out of range":
+            permute.permute_rows(x, [0, 1, 2, 4])
+        else:
+            permute.pairwise_alltoall(torch.zeros(4, 10, device=dev))
+    assert permute.launches == before
+
+
+@pytest.mark.cuda
+def test_xla_movement_routes_through_the_kernels_on_card():
+    from tpu_mpi_torch import xla
+    from tpu_mpi_torch.kernels import permute
+    dev = _card()
+    x = torch.randn(4, 8, 6, 5, device=dev)
+    before = dict(permute.launches)
+    got = {
+        "alltoall": xla.alltoall(x, split_axis=0, concat_axis=1),
+        "untiled": xla.alltoall(x[:, :4].contiguous(), split_axis=0,
+                                concat_axis=2, tiled=False),
+        "ring_shift": xla.ring_shift(x, shift=-1),
+        "sendrecv": xla.sendrecv(x, dest=[2, None, 0, 1]),
+    }
+    torch.cuda.synchronize()
+    assert permute.launches["pairwise_alltoall"] == before["pairwise_alltoall"] + 2
+    assert permute.launches["collective_permute"] == before["collective_permute"] + 2
+    cpu = x.cpu()
+    want = {
+        "alltoall": xla.alltoall(cpu, split_axis=0, concat_axis=1),
+        "untiled": xla.alltoall(cpu[:, :4].contiguous(), split_axis=0,
+                                concat_axis=2, tiled=False),
+        "ring_shift": xla.ring_shift(cpu, shift=-1),
+        "sendrecv": xla.sendrecv(cpu, dest=[2, None, 0, 1]),
+    }
+    for name in got:
+        assert torch.equal(got[name].cpu(), want[name]), name
+
+
+# ---------------------------------------------------------------------------
+# Ring attention kernel (tpu_mpi_torch.kernels.attention)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("n,t,d", [(1, 8, 8), (2, 72, 64), (4, 256, 128),
+                                   (3, 13, 40)])
+def test_ring_attention_matches_plain_on_card(dtype, causal, n, t, d):
+    from tpu_mpi_torch.kernels import attention
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(t + d)
+    q, k, v = (torch.randn(n, 3, t, d, generator=g, device=dev).to(dtype)
+               for _ in range(3))
+    before = attention.launches
+    got = attention.attend(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    want = attention.ring_attention_plain(q, k, v, causal=causal,
+                                          scale=d ** -0.5)
+    limit = attention.allowed_error(q, k, v, want, causal=causal,
+                                    scale=d ** -0.5)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= limit).all()), (float(diff.max()),
+                                         float((diff - limit).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bad", ["non-contiguous", "cpu and cuda", "float16",
+                                 "head dim", "seq multiple"])
+def test_ring_attention_refuses_on_card(bad):
+    from tpu_mpi_torch.kernels import attention
+    dev = _card()
+    q = torch.zeros(2, 3, 16, 8, device=dev)
+    before = attention.launches
+    with pytest.raises(ValueError):
+        if bad == "non-contiguous":
+            attention.attend(q.transpose(1, 2), q.transpose(1, 2),
+                             q.transpose(1, 2), causal=True)
+        elif bad == "cpu and cuda":
+            attention.attend(q, q.cpu(), q, causal=True)
+        elif bad == "float16":
+            h = q.half()
+            attention.attend(h, h, h, causal=True)
+        elif bad == "head dim":
+            w = torch.zeros(2, 3, 16, 136, device=dev)
+            attention.attend(w, w, w, causal=True)
+        else:
+            r = torch.zeros(2, 12, 8, device=dev)
+            attention.ring_attention(r, r, r)
+    assert attention.launches == before
+
+
+@pytest.mark.cuda
+def test_sp_transformer_forward_on_card():
+    from tpu_mpi_torch.kernels import attention
+    from tpu_mpi_torch.models import transformer as tr
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tr.TransformerConfig(vocab=64, d_model=64, n_heads=4, n_layers=2,
+                               d_ff=128)
+    g = torch.Generator(device=dev)
+    g.manual_seed(3)
+    params = tr.transformer_init(g, cfg, device=dev)
+    tokens = torch.randint(0, 64, (2, 64), generator=g, device=dev)
+    stacked = tokens.view(2, 4, 16).transpose(0, 1).contiguous()
+    before = attention.launches
+    sp = tr.transformer_forward(cfg, params, stacked, sp_axis="sp")
+    torch.cuda.synchronize()
+    assert attention.launches == before + cfg.n_layers
+    single = tr.transformer_forward(cfg, params, tokens)
+    torch.testing.assert_close(sp.transpose(0, 1).reshape(single.shape), single,
+                               atol=1e-4, rtol=1e-4)

@@ -171,6 +171,19 @@ static int grid_for(int64_t items, int threads) {
   return (int)(blocks < 1 ? 1 : blocks);
 }
 
+// ---- word width of a byte copy -------------------------------------------------
+
+// launch(W{}) with W the widest of the 16, 8, 4, 2 and 1-byte words that
+// divides every pointer and byte length OR-ed into `bits`.
+template <class F>
+static int by_word(uintptr_t bits, F launch) {
+  if (bits % 16 == 0) return launch(uint4{});
+  if (bits % 8 == 0) return launch(uint2{});
+  if (bits % 4 == 0) return launch(uint32_t{});
+  if (bits % 2 == 0) return launch(uint16_t{});
+  return launch(uint8_t{});
+}
+
 // ---- (dtype, op) codes -> L<T, OP>::run ----------------------------------------
 
 template <typename T> struct IsFloat { static const bool value = false; };

@@ -185,10 +185,7 @@ extern "C" int tmt_ring_allgather(const void* x, void* out, int n, int64_t nbyte
   if (n < 1 || nbytes < 0 || !x || !out) return TMT_EBADARG;
   if (nbytes == 0) return 0;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const uintptr_t bits = (uintptr_t)x | (uintptr_t)out | (uintptr_t)nbytes;
-  if (bits % 16 == 0) return launch_allgather<uint4>(x, out, n, nbytes, s);
-  if (bits % 8 == 0) return launch_allgather<uint2>(x, out, n, nbytes, s);
-  if (bits % 4 == 0) return launch_allgather<uint32_t>(x, out, n, nbytes, s);
-  if (bits % 2 == 0) return launch_allgather<uint16_t>(x, out, n, nbytes, s);
-  return launch_allgather<uint8_t>(x, out, n, nbytes, s);
+  return by_word((uintptr_t)x | (uintptr_t)out | (uintptr_t)nbytes, [&](auto w) {
+    return launch_allgather<decltype(w)>(x, out, n, nbytes, s);
+  });
 }

@@ -1,0 +1,201 @@
+"""Ring attention of n ranks on one card: the port of the Pallas kernel
+``ring_attention`` of ``tpu_mpi/xla/pallas_kernels.py``.
+
+``ring_attention(q, k, v, causal=...)`` takes the stacked per-rank blocks of
+a sequence sharded over n ranks, rank axis first: ``(n, t, d)`` as the TPU
+kernel sees one head, or ``(n, BH, t, d)`` with batch and heads written out
+where the TPU wrapper is vmapped. Rank r's block holds global positions
+``r*t .. r*t + t - 1``. It returns the attention output block of every rank,
+``(n, [BH,] t, d)``, in the input dtype (float32 or bfloat16), with
+``causal=True`` masking by global position.
+
+On a CUDA tensor the wrapper launches the hand-written kernel in
+``tpu_mpi_torch/csrc/ring_attention.cu`` or raises. On a CPU tensor it runs
+:func:`ring_attention_plain`, which replays the TPU kernel's schedule on the
+stacked tensors: n ring steps with the K/V rotation as a ``roll`` of the
+stacked blocks (step s holds block ``(r - s) % n``), the same Q panels
+(``bq = t`` up to 1024 rows, else 512), float32 state with m starting at
+-1e30, scores scaled in float32, masked keys -inf, P rounded to the input
+dtype before P.V, ``acc / l`` cast back. It is also the kernel's oracle on
+the card. The kernel folds key tiles where the TPU kernel folds whole
+panels, so the two agree to a tolerance, not to bits; see the source.
+
+Bound on the card: Q, K, V read and O written once against ``4 d`` flops
+per unmasked (query, key) pair, whichever takes longer.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+import threading
+from typing import Optional
+
+import torch
+
+from . import _build
+from .fold_ops import DTYPE_CODE
+from .ring import _stream
+
+SOURCE = _build.CSRC / "ring_attention.cu"
+REPLACES = "tpu_mpi/xla/pallas_kernels.py:574"      # ring_attention
+DTYPES = (torch.float32, torch.bfloat16)
+MAX_HEAD_DIM = 128
+SUBLANE = 8         # the TPU wrapper's multiple for the local sequence length
+M_INIT = -1e30      # the running max's start
+# The kernel against the plain version on the card, elementwise (see
+# ``allowed_error``). float32: |got - want| <= atol + rtol |want|, both sum in
+# float32 in other orders (key tiles against whole panels). bfloat16:
+# |got - want| <= 2^-7 (A + |want|), A the attention of |v| in float32. Each
+# side rounds every p to bfloat16 (relative error <= 2^-8) against its own
+# running max, so the two float32 outputs differ by at most
+# 2 * 2^-8 * sum_j p_j |v_j| / l = 2^-7 A, and their bfloat16 roundings
+# (half an ulp, <= 2^-8 of the value, each) by at most 2^-7 |want| more;
+# the bound carries 2^-6 of itself for float32 sums and exp.
+F32_TOLERANCE = (1e-4, 1e-4)
+BF16_REL = 2.0 ** -7 * (1 + 2.0 ** -6)
+TOLERANCE_NOTE = ("float32 |got-want| <= 1e-4 + 1e-4|want|; bfloat16 |got-want| "
+                  "<= 2^-7 (1+2^-6) (A + |want|), A = attention of |v| in float32")
+
+# Launches of the kernel, one per wrapper call that launched it.
+launches = 0
+_count_lock = threading.Lock()
+
+
+def reset_launches() -> None:
+    global launches
+    with _count_lock:
+        launches = 0
+
+
+def panel_rows(t: int) -> int:
+    """Q rows per online-softmax panel of the TPU kernel."""
+    return t if t <= 1024 else 512
+
+
+def causal_pairs(n: int, t: int) -> int:
+    """Unmasked (query, key) pairs of one head under the causal mask over
+    the global sequence of n blocks of t."""
+    total = n * t
+    return total * (total + 1) // 2
+
+
+def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                         causal: bool, scale: float) -> torch.Tensor:
+    """The TPU kernel's schedule on stacked (n, BH, t, d) blocks."""
+    n, _, t, _ = q.shape
+    cdt, f32 = q.dtype, torch.float32
+    acc = torch.zeros(q.shape, dtype=f32, device=q.device)
+    m = torch.full(q.shape[:-1] + (1,), M_INIT, dtype=f32, device=q.device)
+    l = torch.zeros(q.shape[:-1] + (1,), dtype=f32, device=q.device)
+    ranks = torch.arange(n, device=q.device).view(n, 1, 1, 1)
+    keys = torch.arange(t, device=q.device).view(1, 1, 1, t)
+    bq = panel_rows(t)
+    kc, vc = k, v
+    for step in range(n):
+        kf, vf = kc.to(f32), vc.to(f32)
+        kg = ((ranks - step) % n) * t + keys          # global key positions
+        for qlo in range(0, t, bq):
+            qs = slice(qlo, min(qlo + bq, t))
+            rows = torch.arange(qs.start, qs.stop, device=q.device).view(1, 1, -1, 1)
+            scores = torch.matmul(q[:, :, qs].to(f32), kf.transpose(-1, -2)) * scale
+            if causal:
+                scores = scores.masked_fill(ranks * t + rows < kg, -math.inf)
+            m_prev = m[:, :, qs]
+            m_new = torch.maximum(m_prev, scores.amax(-1, keepdim=True))
+            corr = torch.exp(m_prev - m_new)
+            p = torch.exp(scores - m_new)
+            l[:, :, qs] = l[:, :, qs] * corr + p.sum(-1, keepdim=True)
+            acc[:, :, qs] = acc[:, :, qs] * corr + torch.matmul(p.to(cdt).to(f32), vf)
+            m[:, :, qs] = m_new
+        if step < n - 1:                               # rank r receives from r-1
+            kc, vc = kc.roll(1, 0), vc.roll(1, 0)
+    return (acc / l).to(cdt)
+
+
+def allowed_error(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  want: torch.Tensor, *, causal: bool, scale: float) -> torch.Tensor:
+    """The largest |kernel - plain| each output element may show (float32),
+    for ``want`` the plain version's output on the same inputs."""
+    size = want.float().abs()
+    if q.dtype != torch.bfloat16:
+        atol, rtol = F32_TOLERANCE
+        return atol + rtol * size
+    weight = ring_attention_plain(q.float(), k.float(), v.float().abs(),
+                                  causal=causal, scale=scale)
+    return BF16_REL * (weight + size)
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
+    for x in (q, k, v):
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"ring_attention takes tensors, got {type(x).__name__}")
+    if q.dim() != 4 or q.shape[0] < 1:
+        raise ValueError(f"ring_attention takes stacked (n, BH, t, d) blocks, "
+                         f"got shape {tuple(q.shape)}")
+    if k.shape != q.shape or v.shape != q.shape:
+        raise ValueError("ring_attention: q, k and v differ in shape")
+    if len({x.dtype for x in (q, k, v)}) != 1 or len({x.device for x in (q, k, v)}) != 1:
+        raise ValueError("ring_attention: q, k and v differ in dtype or device")
+
+
+def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
+            scale: float) -> torch.Tensor:
+    """The kernel on stacked (n, BH, t, d) CUDA blocks, or a refusal."""
+    n, bh, t, d = q.shape
+    if q.device.type != "cuda":
+        raise ValueError(f"ring_attention: no kernel for device {q.device}")
+    if q.dtype not in DTYPES:
+        raise ValueError(f"ring_attention kernel takes float32 or bfloat16, "
+                         f"got {q.dtype}")
+    if d > MAX_HEAD_DIM:
+        raise ValueError(f"ring_attention kernel takes head dims up to "
+                         f"{MAX_HEAD_DIM}, got {d}")
+    if not all(x.is_contiguous() for x in (q, k, v)):
+        raise ValueError("ring_attention kernel takes contiguous blocks")
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(q.device):
+        rc = LIBRARY.load().tmt_ring_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, bh, t,
+            d, scale, int(causal), DTYPE_CODE[q.dtype], _stream(q))
+    _build.check(rc, "ring_attention")
+    global launches
+    with _count_lock:
+        launches += 1
+    return out
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
+           scale: Optional[float] = None) -> torch.Tensor:
+    """Ring attention of stacked (n, BH, t, d) blocks, any t: the kernel on
+    a CUDA tensor, the plain schedule on a CPU tensor. ``scale`` defaults to
+    ``1/sqrt(d)``."""
+    _check(q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return ring_attention_plain(q, k, v, causal=causal, scale=scale)
+    return _launch(q, k, v, causal, scale)
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   causal: bool = False) -> torch.Tensor:
+    """The TPU wrapper's contract on stacked blocks: (n, t, d) or
+    (n, BH, t, d), ``t`` a multiple of 8, scale ``1/sqrt(d)``."""
+    t = q.shape[-2] if q.dim() >= 2 else 0
+    if t % SUBLANE:
+        raise ValueError(f"local seq len {t} must be a multiple of {SUBLANE}")
+    if q.dim() == 3:
+        return attend(q[:, None], k[:, None], v[:, None], causal=causal)[:, 0]
+    return attend(q, k, v, causal=causal)
+
+
+def _bind(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.tmt_ring_attention
+    fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, i, p]
+    fn.restype = ctypes.c_int
+
+
+LIBRARY = _build.Library("ring_attention", SOURCE, _bind)

@@ -1,0 +1,130 @@
+"""Expert parallelism: capacity-bounded token routing over an ``ep`` axis —
+the port of ``tpu_mpi/parallel/ep.py``.
+
+Two realizations, as in the JAX package:
+
+- :func:`moe_dispatch_combine` — the in-graph path on stacked tensors
+  (static shapes, capacity masking, two ``xla.alltoall``; on a CUDA tensor
+  each is one launch of the pairwise all-to-all kernel,
+  :mod:`tpu_mpi_torch.kernels.permute`);
+- :func:`moe_host_dispatch_combine` — the host-path variant with true
+  variable counts over the port's ``Alltoall``/``Alltoallv`` on an ``ep``
+  communicator, which visits the algorithm-selection layer on every call.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Callable
+
+import numpy as np
+import torch
+
+from .. import xla
+
+# Per-thread persistent count-exchange buffers, keyed by (cid, n): the count
+# Alltoall keeps one signature every call, so the auto-arm table can promote
+# it (see the JAX package's note).
+_count_bufs = threading.local()
+
+
+def _count_exchange_bufs(cid: int, n: int):
+    cache = getattr(_count_bufs, "m", None)
+    if cache is None:
+        cache = _count_bufs.m = {}
+    key = (cid, n)
+    if key not in cache:
+        cache[key] = (np.zeros(n, np.int64), np.zeros(n, np.int64))
+    return cache[key]
+
+
+def moe_dispatch_combine(tokens: torch.Tensor, expert_idx: torch.Tensor,
+                         expert_fn: Callable[[torch.Tensor], torch.Tensor], *,
+                         capacity: int, axis: str = "ep") -> torch.Tensor:
+    """Top-1 Mixture-of-Experts dispatch/combine.
+
+    tokens: stacked (n, t, d) local tokens; expert_idx: (n, t) target
+    expert (== rank on ``axis``) per token; expert_fn: every rank's expert
+    at once, applied to the stacked received tokens (n, n*capacity, d), so
+    that rank r's expert applies to row r. Tokens over capacity are dropped
+    (returned as exact zeros), the static-shape MoE contract. Returns the
+    stacked (n, t, d)."""
+    n, t, d = tokens.shape
+    idx = expert_idx.to(torch.int64)
+    # position of each token within its expert's capacity window
+    onehot = torch.nn.functional.one_hot(idx, n).to(torch.int32)   # (n, t, n)
+    pos = torch.cumsum(onehot, dim=1) * onehot                      # 1-based
+    slot = pos.sum(dim=2) - 1                                       # (n, t)
+    keep = slot < capacity
+    clip = slot.clamp(0, capacity - 1)
+    ranks = torch.arange(n, device=tokens.device)[:, None].expand(n, t)
+
+    # scatter local tokens into per-expert send buffers (n, n, capacity, d)
+    send = tokens.new_zeros((n, n, capacity, d))
+    send.index_put_((ranks, idx, clip),
+                    torch.where(keep[..., None], tokens, 0.0), accumulate=True)
+
+    recv = xla.alltoall(send, axis=axis, split_axis=0, concat_axis=0, tiled=True)
+    out = expert_fn(recv.reshape(n, n * capacity, d)).reshape(n, n, capacity, d)
+    back = xla.alltoall(out, axis=axis, split_axis=0, concat_axis=0, tiled=True)
+
+    # gather results back to token order
+    gathered = back[ranks, idx, clip]
+    return torch.where(keep[..., None], gathered, 0.0)
+
+
+def moe_host_dispatch_combine(tokens: np.ndarray, expert_idx: np.ndarray,
+                              expert_fn: Callable[[np.ndarray], np.ndarray],
+                              comm, *, capacity: int) -> np.ndarray:
+    """Top-1 MoE dispatch/combine on the host path: rank == expert over an
+    ``ep`` communicator, shipped with ``Alltoallv`` (true variable counts).
+
+    tokens: (t, d) float32 local tokens (t may be 0); expert_idx: (t,)
+    target rank per token; expert_fn: this rank's expert, applied row-wise
+    to whatever tokens arrive. Tokens beyond ``capacity`` per destination
+    are dropped and come back as exact zeros. Returns (t, d),
+    bitwise-deterministic for a fixed routing. Every call makes one int64
+    ``Alltoall`` of the counts and two ``Alltoallv`` (dispatch, combine).
+    """
+    from .. import collective as _c
+    tokens = np.ascontiguousarray(tokens)
+    if tokens.ndim != 2:
+        tokens = tokens.reshape(-1, tokens.shape[-1] if tokens.size else 1)
+    t, d = tokens.shape
+    n = comm.size()
+    idx = np.asarray(expert_idx, dtype=np.int64).reshape(-1)
+
+    # sender-side capacity bound: the first `capacity` tokens per
+    # destination in original token order
+    picked = [np.flatnonzero(idx == e)[:capacity] for e in range(n)]
+    scounts = [int(p.size) for p in picked]
+    order = (np.concatenate(picked) if picked else
+             np.zeros(0, np.int64)).astype(np.int64)
+    send = tokens[order] if t else tokens.reshape(0, d)
+
+    sbuf, rbuf = _count_exchange_bufs(comm.cid, n)
+    sbuf[:] = scounts
+    rbuf[:] = 0
+    _c.Alltoall(sbuf, rbuf, 1, comm)
+    rcounts = [int(c) for c in rbuf]
+    sc_el = [c * d for c in scounts]
+    rc_el = [c * d for c in rcounts]
+
+    flat_in = np.zeros(sum(rc_el), tokens.dtype)
+    _c.Alltoallv(np.ascontiguousarray(send.reshape(-1)), flat_in,
+                 sc_el, rc_el, comm)
+    arrived = flat_in.reshape(-1, d)
+
+    # the expert one row at a time, so a token's result never depends on
+    # how many others shared its exchange
+    out = np.empty_like(arrived)
+    for i in range(arrived.shape[0]):
+        out[i] = expert_fn(arrived[i:i + 1])[0]
+
+    flat_back = np.zeros(sum(sc_el), tokens.dtype)
+    _c.Alltoallv(np.ascontiguousarray(out.reshape(-1)), flat_back,
+                 rc_el, sc_el, comm)
+    combined = np.zeros((t, d), tokens.dtype)   # dropped rows: exact zeros
+    if order.size:
+        combined[order] = flat_back.reshape(-1, d)
+    return combined

@@ -1,0 +1,45 @@
+"""Ring attention: exact attention over sequence shards — the port of
+``tpu_mpi/parallel/ring.py``.
+
+Each rank of the ``sp`` mesh axis holds one block of the sequence; the JAX
+function rotates the K/V blocks around the axis with ``lax.ppermute`` and
+folds them into an online softmax. Here the n ranks share one card and the
+blocks are stacked, rank axis first, ``(n, b, h, t, d)``; the whole ring is
+one launch of the ring-attention kernel
+(:mod:`tpu_mpi_torch.kernels.attention`) on a CUDA tensor, at every n,
+n = 1 included, and its plain schedule on a CPU tensor.
+
+Rounding follows the Pallas kernel, not ``tpu_mpi/parallel/ring.py``: the
+scale multiplies float32 scores (the JAX function pre-scales q in its
+dtype), masked keys are -inf (it adds -1e30 and zeroes p below -5e29), and
+its n = 1 branch is a plain softmax in the input dtype. The two compute the
+same function and are held to a tolerance, not to bits.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from ..kernels import attention as _attention
+
+
+def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                   axis: str = "sp", causal: bool = True,
+                   scale: Optional[float] = None) -> torch.Tensor:
+    """Blockwise-exact attention over a sequence-sharded axis.
+
+    q, k, v: stacked (n, batch, heads, block_len, head_dim) — rank r's
+    local sequence block is row r, and it holds global block r. Returns the
+    stacked local output blocks (same shape as q). ``axis`` names the mesh
+    axis, as in the JAX signature; the rank axis is dim 0."""
+    if not isinstance(axis, str):
+        raise NotImplementedError("ring attention runs over one mesh axis")
+    if q.dim() != 5:
+        raise ValueError(f"ring_attention takes stacked (n, b, h, t, d) blocks, "
+                         f"got shape {tuple(q.shape)}")
+    n, b, h, t, d = q.shape
+    flat = [x.reshape(n, b * h, t, d).contiguous() for x in (q, k, v)]
+    out = _attention.attend(*flat, causal=causal, scale=scale)
+    return out.view(n, b, h, t, d)

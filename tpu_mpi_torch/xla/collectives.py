@@ -28,9 +28,18 @@ Lowerings:
   (:mod:`tpu_mpi_torch.kernels.ring`).
 - ``bcast``: the root's row on every rank. (The JAX lowering, a one-hot
   ``psum``, also turns a -0.0 of the root into +0.0.)
-- movement and prefix functions (``allgatherv``, ``gatherv``,
-  ``scatterv``, ``alltoall``, ``alltoallv``, ``scan``, ``exscan``,
-  ``ring_shift``, ``sendrecv``) are PyTorch indexing and elementwise ops.
+- ``alltoall``: on a CUDA tensor, each rank's pieces are arranged as n
+  contiguous destination blocks (``movedim``/``reshape``, as the Pallas
+  wrapper's ``_to_block_tile`` arranges its layout), exchanged by the
+  pairwise all-to-all kernel (:mod:`tpu_mpi_torch.kernels.permute`) and
+  joined in source order along ``concat_axis``.
+- ``ring_shift``, ``sendrecv``: on a CUDA tensor, the collective permute
+  kernel, driven by a source table (-1 gives the zeros of an unmatched
+  rank).
+- the other movement and prefix functions (``allgatherv``, ``gatherv``,
+  ``scatterv``, ``alltoallv``, ``scan``, ``exscan``), and ``alltoall``,
+  ``ring_shift`` and ``sendrecv`` on a CPU tensor, are PyTorch indexing
+  and elementwise ops.
   ``scan``/``exscan`` fold in rank order, where ``lax.associative_scan``
   associates as a tree: float prefixes may differ in the last bits.
 
@@ -47,6 +56,7 @@ import numpy as np
 import torch
 
 from .. import collective as _collective
+from ..kernels import permute as _permute
 from ..kernels import ring as _ring
 from ..kernels.ring import stacked_ranks
 from ..operators import LAND, LOR, LXOR, MAX, MIN, Op, PROD, SUM, as_op
@@ -273,15 +283,40 @@ def alltoall(xs: torch.Tensor, *, axis: str = "x", split_axis: int = 0,
         if width % n:
             raise ValueError(f"alltoall: split axis of size {width} does not "
                              f"split over {n} ranks")
+    elif width != n:
+        raise ValueError(f"untiled alltoall needs a split axis of size {n}")
+    if xs.device.type != "cpu":
+        return _alltoall_blocks(xs, split_axis, concat_axis, tiled)
+    if tiled:
         c = width // n
         return torch.stack([torch.cat([xs[s].narrow(split_axis, r * c, c)
                                        for s in range(n)], dim=concat_axis)
                             for r in range(n)])
-    if width != n:
-        raise ValueError(f"untiled alltoall needs a split axis of size {n}")
     return torch.stack([torch.stack([xs[s].select(split_axis, r)
                                      for s in range(n)], dim=concat_axis)
                         for r in range(n)])
+
+
+def _alltoall_blocks(xs: torch.Tensor, split_axis: int, concat_axis: int,
+                     tiled: bool) -> torch.Tensor:
+    """``alltoall`` through the pairwise all-to-all kernel: rank s's piece
+    for rank d becomes the contiguous block (s, d), the kernel delivers it
+    as block (d, s), and rank d's blocks join in source order along
+    ``concat_axis``."""
+    n = xs.shape[0]
+    local = tuple(xs.shape[1:])
+    a, c = split_axis, concat_axis
+    if tiled:
+        piece = local[:a] + (local[a] // n,) + local[a + 1:]
+        blocks = xs.reshape((n,) + local[:a] + (n,) + piece[a:]).movedim(1 + a, 1)
+    else:
+        piece = local[:a] + local[a + 1:]
+        blocks = xs.movedim(1 + a, 1)
+    got = _permute.pairwise_alltoall(blocks.contiguous()).view((n, n) + piece)
+    joined = got.movedim(1, 1 + c)
+    if not tiled:
+        return joined.contiguous()
+    return joined.reshape((n,) + piece[:c] + (n * piece[c],) + piece[c + 1:])
 
 
 def alltoallv(xs: torch.Tensor, counts: Sequence[Sequence[int]], *,
@@ -347,8 +382,15 @@ def exscan(xs: torch.Tensor, op: Any = SUM, *, axis: str = "x") -> torch.Tensor:
 def ring_shift(xs: torch.Tensor, *, axis: str = "x", shift: int = 1) -> torch.Tensor:
     """Periodic ring step: rank r gets the row of rank r - shift."""
     _check_axis(axis)
-    stacked_ranks(xs, "ring_shift")
+    n = stacked_ranks(xs, "ring_shift")
+    if xs.device.type != "cpu":
+        return _permute.permute_rows(xs.contiguous(), _shift_sources(n, shift))
     return xs.roll(shift, 0)
+
+
+def _shift_sources(n: int, shift: int) -> list:
+    """The permute kernel's source table of a periodic shift."""
+    return [(d - shift) % n for d in range(n)]
 
 
 def sendrecv(xs: torch.Tensor, *, dest: Sequence[int], axis: str = "x") -> torch.Tensor:
@@ -361,7 +403,18 @@ def sendrecv(xs: torch.Tensor, *, dest: Sequence[int], axis: str = "x") -> torch
     if len(set(targets)) != len(targets) or any(d >= n for d in targets):
         raise ValueError(f"sendrecv: dest {list(dest)} is not a partial "
                          f"permutation of {n} ranks")
+    if xs.device.type != "cpu":
+        return _permute.permute_rows(xs.contiguous(), _pair_sources(pairs, n))
     out = torch.zeros_like(xs)
     for i, d in pairs:
         out[d] = xs[i]
     return out
+
+
+def _pair_sources(pairs: Sequence[tuple], n: int) -> list:
+    """The permute kernel's source table of (sender, receiver) pairs: -1
+    where a rank receives nothing."""
+    src = [-1] * n
+    for i, d in pairs:
+        src[d] = i
+    return src
