@@ -35,22 +35,26 @@ fatal on failure:
    bound, its plain version, one PyTorch call computing the same function
    as the library yardstick (timed only; the port never calls it), a 1 GiB
    ``copy_`` bandwidth control, and the host-lane ``MPI.Allreduce`` per op;
-7. build: ``permute.cu`` and ``ring_attention.cu`` join phase 2's parallel
-   build;
+7. build: ``permute.cu``, ``ring_attention.cu`` and
+   ``ring_attention_sm90.cu`` join phase 2's parallel build;
 8. the new kernels against their plain versions: the permute and
    all-to-all kernels bitwise at n in {2, 4, 5, 8} and per-rank sizes 1,
    127, 4096, 4097, 2^22+3 over every dtype of the fold phases, with a
    partial permutation; ring attention elementwise within
    ``attention.allowed_error`` at n in {1, 2, 4}, causal and not, float32
-   and bfloat16, t_local in {8, 72, 256}, d in {8, 64, 128}; non-contiguous
-   input, a non-permutation, a CPU/CUDA mix and float16 must raise;
+   and bfloat16, t_local in {8, 72, 256}, d in {8, 36, 64, 128}, on each of
+   its three routes (bfloat16 with d % 8 == 0: the sm90 kernel and the
+   mma.sync kernel; d = 36: mma.sync; float32: FMA), each
+   call counted on the route it should take; non-contiguous input, a
+   non-permutation, a CPU/CUDA mix and float16 must raise;
 9. model path: the flagship transformer (benchmarks/flagship_probe.py's
    configuration: d_model 1024, 16 heads, 8 layers, d_ff 4096, vocab
    32768, bfloat16, random weights from a seeded generator) serves 3
    requests of (8, 1024) tokens from a numpy seed through
    ``transformer_forward(..., sp_axis="sp")`` on ``{"sp": 4}``: logits and
    the greedy next token of each sequence, every tensor on cuda, 8
-   ring-attention launches per request, no fold, ring or chained launch;
+   ring-attention launches per request, all 24 on the sm90 route, no fold,
+   ring or chained launch;
    the logits against the same port's forward without sp (plain dense
    attention) within a stated bfloat16 tolerance and share of agreeing
    greedy tokens, once more in float32 with TF32 off; one request through
@@ -67,9 +71,14 @@ fatal on failure:
 11. each new kernel against its plain version on the inputs the paths
    give it (the pipeline hop and the MoE dispatch buffer bitwise, the
    model's (4, 128, 256, 64) bfloat16 attention operands within
-   ``attention.allowed_error``), then times with CUDA events of each at
-   those shapes, its bound, its plain version and its library yardstick;
-   the model path's ms per request, tokens/s and device idle share under
+   ``attention.allowed_error``, on the sm90 route and on the mma.sync
+   kernel it replaced there), then times with CUDA events of each at
+   those shapes, its bound, its plain version and its library yardstick,
+   in the same run: the sm90 kernel per call and its span, the mma.sync
+   kernel's span, SDPA per call and its span (a line says so when the
+   profiler recorded none of SDPA's kernels); the
+   permute per call in turns with ``xs[inverse_perm]``, and its span; the
+   model path's ms per request, tokens/s and device idle share under
    ``torch.profiler``.
 
 Card comparisons run with TF32 off and bfloat16 reduced-precision
@@ -112,7 +121,7 @@ PERMUTE_NS = (2, 4, 5, 8)
 PERMUTE_SIZES = (1, 127, 4096, 4097, (1 << 22) + 3)
 ATTN_NS = (1, 2, 4)
 ATTN_TS = (8, 72, 256)
-ATTN_DS = (8, 64, 128)
+ATTN_DS = (8, 36, 64, 128)     # 36: the bfloat16 head dim off the sm90 route
 ATTN_BH = 2
 # benchmarks/flagship_probe.py:34-35, nothing cut
 FLAGSHIP = dict(vocab=32768, d_model=1024, n_heads=16, n_layers=8, d_ff=4096)
@@ -633,16 +642,29 @@ def attention_close(attention, got, q, k, v, *, causal: bool, what: str) -> tupl
 
 
 def check_attention_parity(attention, device) -> dict:
-    """The ring-attention kernel against its plain version within
-    ``attention.allowed_error``; returns the case count and, per dtype, the
-    largest absolute difference and the largest share of the bound."""
+    """Each ring-attention route against the plain version within
+    ``attention.allowed_error``, every call counted on the route it should
+    take; returns the case count and, per dtype and route, the largest
+    absolute difference and the largest share of the bound."""
     import torch
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 3)
     cases, worst, shares = 0, {}, {}
+
+    def one(key, way, call, q, k, v, causal, what):
+        nonlocal cases
+        before = dict(attention.route_launches)
+        got = call()
+        err, share = attention_close(attention, got, q, k, v, causal=causal, what=what)
+        moved = {r: attention.route_launches[r] - before[r] for r in before}
+        if moved != {r: int(r == way) for r in before}:
+            raise AssertionError(f"{what}: launches by route {moved}, not one {way}")
+        worst[key] = max(worst.get(key, 0.0), err)
+        shares[key] = max(shares.get(key, 0.0), share)
+        cases += 1
+
     for dtype in (torch.float32, torch.bfloat16):
-        key = str(dtype).split(".")[1]
-        worst[key] = shares[key] = 0.0
+        dname = str(dtype).split(".")[1]
         for n in ATTN_NS:
             for t in ATTN_TS:
                 for d in ATTN_DS:
@@ -650,13 +672,17 @@ def check_attention_parity(attention, device) -> dict:
                         q, k, v = (torch.randn(n, ATTN_BH, t, d, generator=gen,
                                                device=device).to(dtype)
                                    for _ in range(3))
-                        got = attention.ring_attention(q, k, v, causal=causal)
-                        err, share = attention_close(
-                            attention, got, q, k, v, causal=causal,
-                            what=f"{dtype} n={n} t={t} d={d} causal={causal}")
-                        worst[key] = max(worst[key], err)
-                        shares[key] = max(shares[key], share)
-                        cases += 1
+                        what = f"{dtype} n={n} t={t} d={d} causal={causal}"
+                        way = attention.route(dtype, d, True)
+                        one(f"{dname} {way}", way,
+                            lambda: attention.ring_attention(q, k, v, causal=causal),
+                            q, k, v, causal, what)
+                        if way != "sm90":
+                            continue
+                        one(f"{dname} mma_sync", "mma_sync",
+                            lambda: attention._launch(q, k, v, causal, d ** -0.5,
+                                                      via="mma_sync"),
+                            q, k, v, causal, f"{what} on mma.sync")
     q = torch.zeros(2, 2, 16, 8, device=device)
     _raises(lambda: attention.attend(q.transpose(1, 2), q.transpose(1, 2),
                                      q.transpose(1, 2), causal=True),
@@ -739,7 +765,7 @@ def model_profile(tr, cfg, params, tokens, logdir: str, iters: int = 3) -> dict:
             busy += hi - max(lo, end)
             end = hi
     attn = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
-            and "ring_attention_kernel" in e.get("name", "")]
+            and "ring_attention_sm90_kernel" in e.get("name", "")]
     by_name: dict = {}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") == "kernel":
@@ -893,28 +919,33 @@ def recipes(tr, par, cfg, params, device) -> dict:
 # 11. times of the new kernels
 # ---------------------------------------------------------------------------
 
-def kernel_span_ms(fn, needle: str, logdir: str, iters: int = 20) -> float:
+def kernel_span_ms(fn, needle, logdir: str, iters: int = 20):
     """Mean device duration of the kernel spans whose name holds ``needle``
     over ``iters`` calls of ``fn``, under ``torch.profiler``: the kernel
-    alone, without the wrapper's host time between launches."""
+    alone, without the wrapper's host time between launches. ``needle``
+    None: the device time of all of a call's kernels (a library call, a
+    yardstick only: None when the profiler saw no kernel of it)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
-            fn()
-        torch.cuda.synchronize()
     os.makedirs(logdir, exist_ok=True)
-    trace = os.path.join(logdir, f"{needle}.json")
-    prof.export_chrome_trace(trace)
-    with open(trace) as f:
-        durs = [float(e["dur"]) for e in json.load(f).get("traceEvents", [])
-                if e.get("ph") == "X" and e.get("cat") == "kernel"
-                and needle in e.get("name", "")]
-    if not durs:
-        raise AssertionError(f"the profiler saw no {needle} spans")
-    return sum(durs) / len(durs) / 1e3
+    trace = os.path.join(logdir, f"{needle or 'library'}.json")
+    for _ in range(2):          # the profiler now and then records no kernel at all
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            durs = [float(e["dur"]) for e in json.load(f).get("traceEvents", [])
+                    if e.get("ph") == "X" and e.get("cat") == "kernel"
+                    and (needle is None or needle in e.get("name", ""))]
+        if durs:
+            return sum(durs) / (iters if needle is None else len(durs)) / 1e3
+    if needle is None:
+        return None
+    raise AssertionError(f"the profiler saw no {needle} spans")
 
 
 def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
@@ -949,22 +980,38 @@ def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
     attn_err, attn_share = attention_close(
         attention, attention.attend(q, k, v, causal=True), q, k, v, causal=True,
         what=f"the model's shape {list(q.shape)}")
+    prev_err, prev_share = attention_close(
+        attention, attention._launch(q, k, v, True, d ** -0.5, via="mma_sync"),
+        q, k, v, causal=True, what=f"the model's shape {list(q.shape)} on mma.sync")
     main_parity = {"collective_permute": {"bitwise": True, "max_abs_err": 0.0},
                    "pairwise_alltoall": {"bitwise": True, "max_abs_err": 0.0},
                    "ring_attention": {"max_abs_err": attn_err,
-                                      "bound_share": attn_share}}
+                                      "bound_share": attn_share,
+                                      "mma_sync_max_abs_err": prev_err,
+                                      "mma_sync_bound_share": prev_share}}
     gathered = [x.view(n, BATCH, -1, t, d).permute(1, 2, 0, 3, 4)
                 .reshape(BATCH, -1, n * t, d).contiguous() for x in qkv]
     dt = str(q.dtype).split(".")[1]
     flops = 4 * d * attention.causal_pairs(n, t) * bh
     hbm = 3.35e12                                     # spec sheet, bytes/s
+    # the permute's per-call time is host time: taken in turns with the
+    # library call, three of each, and the medians kept
+    hop_ms, lib_ms = [], []
+    for _ in range(3):
+        hop_ms.append(time_ms(lambda: permute.collective_permute(hop, perm), iters=200))
+        lib_ms.append(time_ms(lambda: hop[inv], iters=200))
+    previous = lambda: attention._launch(q, k, v, True, d ** -0.5,  # noqa: E731
+                                         via="mma_sync")
+    sdpa = lambda: F.scaled_dot_product_attention(*gathered, is_causal=True)  # noqa: E731
     times = {
         "collective_permute": {
-            "ms": time_ms(lambda: permute.collective_permute(hop, perm)),
+            "ms": sorted(hop_ms)[1],
+            "ms_turns": hop_ms,
             "span_ms": kernel_span_ms(lambda: permute.collective_permute(hop, perm),
                                       "permute_kernel", logdir),
             "plain_ms": time_ms(lambda: permute.permute_rows_plain(hop, src)),
-            "library_ms": time_ms(lambda: hop[inv]),
+            "library_ms": sorted(lib_ms)[1],
+            "library_ms_turns": lib_ms,
             "library_call": "xs[inverse_perm]",
             "bound": (2 * hop.numel() * hop.element_size() / hbm * 1e3, "bytes"),
             "shape": list(hop.shape), "dtype": str(hop.dtype),
@@ -983,11 +1030,14 @@ def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
         "ring_attention": {
             "ms": time_ms(lambda: attention.attend(q, k, v, causal=True)),
             "span_ms": kernel_span_ms(lambda: attention.attend(q, k, v, causal=True),
-                                      "ring_attention_kernel", logdir),
+                                      "ring_attention_sm90_kernel", logdir),
+            "previous_ms": time_ms(previous),
+            "previous_span_ms": kernel_span_ms(previous, "ring_attention_kernel",
+                                               logdir),
             "plain_ms": time_ms(lambda: attention.ring_attention_plain(
                 q, k, v, causal=True, scale=d ** -0.5), iters=5),
-            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                *gathered, is_causal=True)),
+            "library_ms": time_ms(sdpa),
+            "library_span_ms": kernel_span_ms(sdpa, None, logdir),
             "library_call": "F.scaled_dot_product_attention(..., is_causal=True) "
                             "on the gathered (8, 16, 1024, 64)",
             "bound": max((4 * q.numel() * q.element_size() / hbm * 1e3, "bytes"),
@@ -1031,7 +1081,8 @@ def main() -> int:
     where = f"[{card}]"
 
     t0 = time.perf_counter()
-    libs = (fr.LIBRARY, ring.LIBRARY, permute.LIBRARY, attention.LIBRARY)
+    libs = (fr.LIBRARY, ring.LIBRARY, permute.LIBRARY, attention.LIBRARY,
+            attention.LIBRARY_SM90)
     built = _build.build_all(libs)
     for lib in libs:
         lib.load()
@@ -1212,15 +1263,20 @@ def main() -> int:
     served = serve(tr, cfg, params, requests, device)
     serve_s = time.perf_counter() - t0
     model_launches = attention.launches
+    model_routes = dict(attention.route_launches)
     others = (fr.launches, sum(ring.launches.values()), ring.callable_rings,
               collective.chained_folds, sum(permute.launches.values()))
     log(f"model path: {REQUESTS} requests of ({BATCH}, {SEQ}) tokens through the "
         f"sp forward on {{'sp': {SP}}}, {n_params} parameters, in {serve_s:.2f} s "
-        f"(first requests, build-free); ring_attention launches {model_launches}; "
-        f"fold, ring, callable, chained, permute launches {others}")
+        f"(first requests, build-free); ring_attention launches {model_launches} "
+        f"by route {model_routes}; fold, ring, callable, chained, permute launches "
+        f"{others}")
     if model_launches != REQUESTS * cfg.n_layers:
         raise AssertionError(f"{model_launches} ring-attention launches for "
                              f"{REQUESTS} requests of {cfg.n_layers} layers")
+    if model_routes["sm90"] != model_launches:
+        raise AssertionError(f"model-path attention left the sm90 kernel: "
+                             f"{model_routes}")
     if any(others):
         raise AssertionError(f"the sp forward launched other kernels: {others}")
     sp_checks = []
@@ -1284,6 +1340,23 @@ def main() -> int:
             f"profiler), bound "
             f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), plain {t['plain_ms']:.4f} "
             f"ms, {t['library_call']} {t['library_ms']:.4f} ms {where}")
+    ra, cp = new_times["ring_attention"], new_times["collective_permute"]
+    log(f"ring_attention, same run: sm90 span {ra['span_ms']:.4f} ms "
+        f"({ra['ms']:.4f} ms per call); mma.sync kernel span "
+        f"{ra['previous_span_ms']:.4f} ms ({ra['previous_ms']:.4f} ms per call); "
+        f"SDPA {ra['library_ms']:.4f} ms per call; bound {ra['bound'][0]:.4f} ms "
+        f"{where}")
+    if ra["library_span_ms"] is None:
+        log("ring_attention: SDPA's kernel span NOT MEASURED in this run (the "
+            "profiler recorded none of its kernels twice); compare the sm90 "
+            "kernel's per-call time with SDPA's per-call time above instead")
+    else:
+        log(f"ring_attention, same run: sm90 span / SDPA span "
+            f"{ra['span_ms']:.4f} / {ra['library_span_ms']:.4f} = "
+            f"{ra['span_ms'] / ra['library_span_ms']:.3f}")
+    log(f"collective_permute per call in turns: kernel {cp['ms_turns']} ms, "
+        f"xs[inverse_perm] {cp['library_ms_turns']} ms; medians {cp['ms']:.4f} / "
+        f"{cp['library_ms']:.4f} = {cp['ms'] / cp['library_ms']:.3f} {where}")
     stacked0 = stack_seq(tok0, SP)
     request_ms = time_ms(lambda: tr.transformer_forward(cfg, params, stacked0,
                                                         sp_axis="sp")
@@ -1323,13 +1396,20 @@ def main() -> int:
         permute.REPLACES["collective_permute"],
         rec["pipeline"]["permute_launches"] + rec["halo"]["permute_launches"], 0.0,
         "bitwise", parity_cases=perm_parity["cases"]["collective_permute"],
-        path="recipes: pipeline_forward + halo_exchange"))
+        path="recipes: pipeline_forward + halo_exchange",
+        ms_turns=new_times["collective_permute"]["ms_turns"],
+        library_ms_turns=new_times["collective_permute"]["library_ms_turns"]))
     kernels.append(entry(
-        "ring_attention", new_times["ring_attention"], rel(attention.SOURCE),
+        "ring_attention", new_times["ring_attention"], rel(attention.SOURCE_SM90),
         attention.REPLACES, model_launches,
         max(*attn_parity["max_abs_err"].values(),
             new_times["ring_attention"]["main_parity"]["max_abs_err"]),
         f"elementwise: {attention.TOLERANCE_NOTE}",
+        launches_by_route=model_routes,
+        previous_span_ms=new_times["ring_attention"]["previous_span_ms"],
+        previous_ms=new_times["ring_attention"]["previous_ms"],
+        library_span_ms=new_times["ring_attention"]["library_span_ms"],
+        source_previous=rel(attention.SOURCE),
         parity_cases=attn_parity["cases"],
         max_abs_err_by_dtype=attn_parity["max_abs_err"],
         bound_share_by_dtype=attn_parity["bound_share"],

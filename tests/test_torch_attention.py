@@ -171,3 +171,83 @@ def test_cpu_tensors_launch_nothing_and_bounds_count_pairs():
 def test_library_path_keyed_by_source():
     p = attention.LIBRARY.path()
     assert p.name.startswith("ring_attention-") and p.suffix == ".so"
+
+
+# The sm90 kernel's arithmetic (tpu_mpi_torch/csrc/ring_attention_sm90.cu),
+# replayed here: key tiles of 64 keys in ring-step order, each with its own
+# running max, m in log2 units, p = exp2(s * scale * log2(e) - m), the row sum
+# of the unrounded p, P rounded to bfloat16 before P.V, out = acc / l. Fully
+# masked tiles (the causal skips) are exact no-ops here as in the kernel.
+
+SM90_BLOCK_KEYS = 64
+
+
+def _sm90_tiling(q, k, v, *, causal, scale):
+    n, bh, t, d = q.shape
+    f32 = torch.float32
+    c = torch.tensor(scale, dtype=f32) * torch.tensor(math.log2(math.e), dtype=f32)
+    acc = torch.zeros(q.shape, dtype=f32)
+    m = torch.full((n, bh, t, 1), attention.M_INIT, dtype=f32)
+    l = torch.zeros((n, bh, t, 1), dtype=f32)
+    ranks = torch.arange(n).view(n, 1, 1, 1)
+    rows = torch.arange(t).view(1, 1, t, 1)
+    qf = q.float()
+    for step in range(n):
+        src = (ranks - step) % n                 # the block rank r holds
+        kc, vc = k.roll(step, 0).float(), v.roll(step, 0).float()
+        for k0 in range(0, t, SM90_BLOCK_KEYS):
+            ks = slice(k0, min(k0 + SM90_BLOCK_KEYS, t))
+            keys = torch.arange(ks.start, ks.stop).view(1, 1, 1, -1)
+            s = qf @ kc[:, :, ks].transpose(-1, -2)
+            if causal:
+                s = s.masked_fill(src * t + keys > ranks * t + rows, -math.inf)
+            m_new = torch.maximum(m, s.amax(-1, keepdim=True) * c)
+            corr = torch.exp2(m - m_new)
+            p = torch.exp2(s * c - m_new)
+            l = l * corr + p.sum(-1, keepdim=True)
+            acc = acc * corr + p.to(torch.bfloat16).float() @ vc[:, :, ks]
+            m = m_new
+    return (acc / l).to(q.dtype)
+
+
+@pytest.mark.parametrize("n,bh,t,d,causal", [
+    (4, 2, 72, 64, True),          # ragged t: the last 64-key tile is partial
+    (4, 2, 72, 64, False),
+    (3, 2, 13, 40, True),          # t below one tile, d below one panel
+    (2, 1, 13, 8, False),
+    (2, 1, 200, 128, True),        # several tiles a block, two 64-column panels
+])
+def test_sm90_tiling_stays_inside_the_bfloat16_bound(n, bh, t, d, causal):
+    g = torch.Generator().manual_seed(n * t + d + SM90_BLOCK_KEYS)
+    q, k, v = (torch.randn(n, bh, t, d, generator=g).to(torch.bfloat16)
+               for _ in range(3))
+    scale = d ** -0.5
+    want = attention.attend(q, k, v, causal=causal)
+    limit = attention.allowed_error(q, k, v, want, causal=causal, scale=scale)
+    got = _sm90_tiling(q, k, v, causal=causal, scale=scale)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= limit).all()), float((diff / limit).max())
+    # the tiling is a real change of rounding, not the plain schedule again
+    if t > SM90_BLOCK_KEYS:
+        assert not torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,d,aligned,want", [
+    (torch.bfloat16, 64, True, "sm90"),          # every model-path call
+    (torch.bfloat16, 8, True, "sm90"),
+    (torch.bfloat16, 128, True, "sm90"),
+    (torch.bfloat16, 36, True, "mma_sync"),      # d % 8 != 0: no tensor map
+    (torch.bfloat16, 64, False, "mma_sync"),     # a base off 16 bytes
+    (torch.float32, 64, True, "fma"),            # TF32 wgmma would miss 1e-4
+    (torch.float32, 36, False, "fma"),
+])
+def test_route_by_dtype_head_dim_and_alignment(dtype, d, aligned, want):
+    assert attention.route(dtype, d, aligned) == want
+    assert want in attention.ROUTES
+
+
+def test_route_counts_reset_with_the_total():
+    attention.route_launches["sm90"] += 1
+    attention.reset_launches()
+    assert attention.launches == 0 and set(attention.route_launches.values()) == {0}
+    assert attention.LIBRARY_SM90.path().name.startswith("ring_attention_sm90-")

@@ -296,6 +296,73 @@ def test_ring_attention_matches_plain_on_card(dtype, causal, n, t, d):
                                          float((diff - limit).max()))
 
 
+def _attention_case(dev, n, bh, t, d, dtype, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    return [torch.randn(n, bh, t, d, generator=g, device=dev).to(dtype)
+            for _ in range(3)]
+
+
+def _within_bound(attention, got, q, k, v, causal):
+    scale = q.shape[-1] ** -0.5
+    want = attention.ring_attention_plain(q, k, v, causal=causal, scale=scale)
+    limit = attention.allowed_error(q, k, v, want, causal=causal, scale=scale)
+    diff = (got.float() - want.float()).abs()
+    assert bool((diff <= limit).all()), (float(diff.max()),
+                                         float((diff / limit).max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bh,t,d,causal", [
+    (4, 128, 256, 64, True),       # the flagship's sp attention
+    (4, 128, 256, 64, False),
+    (2, 3, 13, 8, True),           # ragged t, below one 64-key tile
+    (2, 3, 72, 40, False),         # ragged t past one tile, d below a panel
+    (3, 2, 72, 128, True),         # two 64-column panels
+    (2, 2, 200, 128, False),
+])
+def test_sm90_ring_attention_matches_plain_on_card(n, bh, t, d, causal):
+    from tpu_mpi_torch.kernels import attention
+    dev = _card()
+    q, k, v = _attention_case(dev, n, bh, t, d, torch.bfloat16, t + d)
+    assert attention.route(q.dtype, d, True) == "sm90"
+    before = dict(attention.route_launches)
+    got = attention.attend(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.route_launches["sm90"] == before["sm90"] + 1
+    assert attention.route_launches["mma_sync"] == before["mma_sync"]
+    _within_bound(attention, got, q, k, v, causal)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_head_dim_off_eight_takes_the_mma_sync_route(causal):
+    from tpu_mpi_torch.kernels import attention
+    dev = _card()
+    q, k, v = _attention_case(dev, 3, 2, 72, 36, torch.bfloat16, 36)
+    before = dict(attention.route_launches)
+    got = attention.attend(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert attention.route_launches["mma_sync"] == before["mma_sync"] + 1
+    assert attention.route_launches["sm90"] == before["sm90"]
+    _within_bound(attention, got, q, k, v, causal)
+
+
+@pytest.mark.cuda
+def test_permute_launch_path_two_tables_back_to_back_on_card():
+    from tpu_mpi_torch.kernels import permute
+    dev = _card()
+    xs = _stacked(torch.bfloat16, 4, 4 * 1024, dev, 13)
+    before = permute.launches["collective_permute"]
+    first = permute.collective_permute(xs, [1, 2, 3, 0])
+    second = permute.permute_rows(xs, [2, -1, 0, 1])
+    again = permute.collective_permute(xs, [1, 2, 3, 0])
+    torch.cuda.synchronize()
+    assert permute.launches["collective_permute"] == before + 3
+    assert torch.equal(first, xs.roll(1, 0)) and torch.equal(again, first)
+    assert torch.equal(second, permute.permute_rows_plain(xs, [2, -1, 0, 1]))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("bad", ["non-contiguous", "cpu and cuda", "float16",
                                  "head dim", "seq multiple"])

@@ -214,3 +214,40 @@ def test_library_path_keyed_by_source():
 def test_xla_reaches_every_pallas_kernel_by_its_jax_name():
     for name in ["pairwise_alltoall", "collective_permute", "ring_attention"]:
         assert callable(getattr(pk, name)) and callable(getattr(xla, name))
+
+
+# The launch path's table cache: a table is checked and converted once per
+# distinct table, bad tables raise every time, and the cache is bounded.
+
+def test_table_cache_gives_the_same_result_twice():
+    permute._table.cache_clear()
+    x = torch.randn(4, 6)
+    first = permute.permute_rows(x, [3, -1, 0, 1])
+    again = permute.permute_rows(x, (3, -1, 0, 1))
+    assert torch.equal(first, again)
+    assert torch.equal(first, permute.permute_rows_plain(x, [3, -1, 0, 1]))
+    assert permute._table.cache_info().hits >= 1
+    rot = permute.collective_permute(x, [1, 2, 3, 0])
+    assert torch.equal(rot, permute.collective_permute(x, [1, 2, 3, 0]))
+    assert torch.equal(rot, x.roll(1, 0))
+
+
+@pytest.mark.parametrize("bad", [[0, 0, 1, 2], [1, 2, 3], [0, 1, 2, 4]])
+def test_bad_tables_raise_every_time(bad):
+    x = torch.zeros(4, 3)
+    for _ in range(2):
+        with pytest.raises(ValueError, match="not a permutation"):
+            permute.collective_permute(x, bad)
+        with pytest.raises(ValueError):
+            permute.permute_rows(x, bad if len(bad) != 4 else [0, 1, 2, -2])
+
+
+def test_table_cache_is_bounded():
+    x = torch.zeros(8, 2)
+    for i in range(permute.TABLE_CACHE + 20):
+        src = [(d + i) % 8 if (i >> d) & 1 else -1 for d in range(8)]
+        permute.permute_rows(x, src)
+    info = permute._table.cache_info()
+    assert info.maxsize == permute.TABLE_CACHE
+    assert info.currsize <= permute.TABLE_CACHE
+    assert permute._inverse_table.cache_info().maxsize == permute.TABLE_CACHE

@@ -6,6 +6,10 @@ into ``tpu_mpi_torch/_build/``. The file name carries a hash of the source,
 the headers beside it and the flags, so an edit builds anew; a file lock
 makes concurrent processes build it once. The library is loaded with
 ``ctypes`` and its functions typed by the kernel module that owns it.
+
+Every wrapper launches through :func:`call`, the one lean launch path: it
+appends the device's current stream as a raw handle and makes the device
+current only when it is not already.
 """
 
 from __future__ import annotations
@@ -20,6 +24,8 @@ import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Sequence
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -47,6 +53,27 @@ def check(rc: int, what: str) -> None:
         raise RuntimeError(f"{what} kernel launch failed: {why}")
 
 
+# The current stream's raw handle and the current device without building a
+# torch.cuda.Stream or re-checking CUDA's initialisation (PyTorch's own
+# generated code reads them this way); the public calls where a build lacks
+# them.
+_raw_stream = getattr(torch._C, "_cuda_getCurrentRawStream", None) or \
+    (lambda index: torch.cuda.current_stream(index).cuda_stream)
+_current_device = getattr(torch._C, "_cuda_getDevice", None) or torch.cuda.current_device
+
+
+def call(fn: Callable[..., int], device: torch.device, what: str, *args) -> None:
+    """Launch ``fn(*args, stream)`` on ``device``'s current stream with the
+    device current, and raise for a nonzero return code."""
+    index = device.index
+    if index == _current_device():
+        rc = fn(*args, _raw_stream(index))
+    else:
+        with torch.cuda.device(index):
+            rc = fn(*args, _raw_stream(index))
+    check(rc, what)
+
+
 class Library:
     """One CUDA source, built and loaded at first use (thread-safe).
     ``bind(lib)`` sets the ``argtypes``/``restype`` of its functions."""
@@ -57,6 +84,7 @@ class Library:
         self.source = source
         self._bind = bind
         self._lib = None
+        self._fns: dict = {}
         self._lock = threading.Lock()
 
     def path(self) -> Path:
@@ -99,6 +127,13 @@ class Library:
                 self._bind(lib)
                 self._lib = lib
         return self._lib
+
+    def fn(self, name: str) -> Callable[..., int]:
+        """The bound C function ``name``, resolved once."""
+        found = self._fns.get(name)
+        if found is None:
+            found = self._fns[name] = getattr(self.load(), name)
+        return found
 
 
 def build_all(libs: Sequence[Library]) -> list[Path]:

@@ -9,16 +9,27 @@ where the TPU wrapper is vmapped. Rank r's block holds global positions
 ``(n, [BH,] t, d)``, in the input dtype (float32 or bfloat16), with
 ``causal=True`` masking by global position.
 
-On a CUDA tensor the wrapper launches the hand-written kernel in
-``tpu_mpi_torch/csrc/ring_attention.cu`` or raises. On a CPU tensor it runs
-:func:`ring_attention_plain`, which replays the TPU kernel's schedule on the
-stacked tensors: n ring steps with the K/V rotation as a ``roll`` of the
-stacked blocks (step s holds block ``(r - s) % n``), the same Q panels
-(``bq = t`` up to 1024 rows, else 512), float32 state with m starting at
--1e30, scores scaled in float32, masked keys -inf, P rounded to the input
-dtype before P.V, ``acc / l`` cast back. It is also the kernel's oracle on
-the card. The kernel folds key tiles where the TPU kernel folds whole
-panels, so the two agree to a tolerance, not to bits; see the source.
+On a CUDA tensor the wrapper launches one of three hand-written kernels,
+chosen by :func:`route` from the dtype, the head dim and the alignment, or
+raises:
+
+- ``"sm90"``: bfloat16 with ``d % 8 == 0`` and 16-byte-aligned bases (every
+  model-path call), ``tpu_mpi_torch/csrc/ring_attention_sm90.cu``: TMA-fed
+  K/V tiles, wgmma, a producer warp and two consumer warpgroups;
+- ``"mma_sync"``: the other bfloat16 head dims,
+  ``tpu_mpi_torch/csrc/ring_attention.cu`` on mma.sync;
+- ``"fma"``: float32, the same file, FMA at the TPU kernel's HIGHEST
+  precision (TF32 wgmma would miss the float32 tolerance).
+
+On a CPU tensor it runs :func:`ring_attention_plain`, which replays the TPU
+kernel's schedule on the stacked tensors: n ring steps with the K/V rotation
+as a ``roll`` of the stacked blocks (step s holds block ``(r - s) % n``), the
+same Q panels (``bq = t`` up to 1024 rows, else 512), float32 state with m
+starting at -1e30, scores scaled in float32, masked keys -inf, P rounded to
+the input dtype before P.V, ``acc / l`` cast back. It is also the kernels'
+oracle on the card. The kernels fold key tiles where the TPU kernel folds
+whole panels (and the sm90 kernel takes exp as exp2 with the scale folded
+in), so they agree with it to a tolerance, not to bits; see the sources.
 
 Bound on the card: Q, K, V read and O written once against ``4 d`` flops
 per unmasked (query, key) pair, whichever takes longer.
@@ -35,12 +46,13 @@ import torch
 
 from . import _build
 from .fold_ops import DTYPE_CODE
-from .ring import _stream
 
 SOURCE = _build.CSRC / "ring_attention.cu"
+SOURCE_SM90 = _build.CSRC / "ring_attention_sm90.cu"
 REPLACES = "tpu_mpi/xla/pallas_kernels.py:574"      # ring_attention
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
+ROUTES = ("sm90", "mma_sync", "fma")
 SUBLANE = 8         # the TPU wrapper's multiple for the local sequence length
 M_INIT = -1e30      # the running max's start
 # The kernel against the plain version on the card, elementwise (see
@@ -57,8 +69,10 @@ BF16_REL = 2.0 ** -7 * (1 + 2.0 ** -6)
 TOLERANCE_NOTE = ("float32 |got-want| <= 1e-4 + 1e-4|want|; bfloat16 |got-want| "
                   "<= 2^-7 (1+2^-6) (A + |want|), A = attention of |v| in float32")
 
-# Launches of the kernel, one per wrapper call that launched it.
+# Launches of the kernels, one per wrapper call that launched one: in all,
+# and per route.
 launches = 0
+route_launches = dict.fromkeys(ROUTES, 0)
 _count_lock = threading.Lock()
 
 
@@ -66,6 +80,16 @@ def reset_launches() -> None:
     global launches
     with _count_lock:
         launches = 0
+        for name in route_launches:
+            route_launches[name] = 0
+
+
+def route(dtype: torch.dtype, d: int, aligned: bool) -> str:
+    """The kernel a CUDA call of this dtype and head dim takes; ``aligned``:
+    every base (q, k, v and the output) lies on 16 bytes."""
+    if dtype == torch.float32:
+        return "fma"
+    return "sm90" if d % 8 == 0 and aligned else "mma_sync"
 
 
 def panel_rows(t: int) -> int:
@@ -140,8 +164,10 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            scale: float) -> torch.Tensor:
-    """The kernel on stacked (n, BH, t, d) CUDA blocks, or a refusal."""
+            scale: float, *, via: Optional[str] = None) -> torch.Tensor:
+    """A kernel on stacked (n, BH, t, d) CUDA blocks, or a refusal. ``via``
+    names a route in place of :func:`route`'s choice (for measurement: the
+    kernel must take the call)."""
     n, bh, t, d = q.shape
     if q.device.type != "cuda":
         raise ValueError(f"ring_attention: no kernel for device {q.device}")
@@ -156,14 +182,18 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    with torch.cuda.device(q.device):
-        rc = LIBRARY.load().tmt_ring_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), n, bh, t,
-            d, scale, int(causal), DTYPE_CODE[q.dtype], _stream(q))
-    _build.check(rc, "ring_attention")
+    ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
+    way = via or route(q.dtype, d, all(p % 16 == 0 for p in ptrs))
+    if way == "sm90":
+        _build.call(LIBRARY_SM90.fn("tmt_ring_attention_sm90"), q.device,
+                    "ring_attention", *ptrs, n, bh, t, d, scale, int(causal))
+    else:
+        _build.call(LIBRARY.fn("tmt_ring_attention"), q.device, "ring_attention",
+                    *ptrs, n, bh, t, d, scale, int(causal), DTYPE_CODE[q.dtype])
     global launches
     with _count_lock:
         launches += 1
+        route_launches[way] += 1
     return out
 
 
@@ -198,4 +228,12 @@ def _bind(lib: ctypes.CDLL) -> None:
     fn.restype = ctypes.c_int
 
 
+def _bind_sm90(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.tmt_ring_attention_sm90
+    fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+
+
 LIBRARY = _build.Library("ring_attention", SOURCE, _bind)
+LIBRARY_SM90 = _build.Library("ring_attention_sm90", SOURCE_SM90, _bind_sm90)

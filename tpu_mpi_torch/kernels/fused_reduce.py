@@ -102,13 +102,10 @@ def _launch(xs: list, op: str, out: Optional[torch.Tensor]) -> torch.Tensor:
         raise ValueError("fused_multi_reduce kernel takes a contiguous out")
     else:
         _check_no_partial_overlap(xs, out)
-    lib = LIBRARY.load()
     ptrs = (ctypes.c_void_p * len(xs))(*[x.data_ptr() for x in xs])
-    with torch.cuda.device(x0.device):
-        stream = torch.cuda.current_stream(x0.device).cuda_stream
-        rc = lib.tmt_fused_reduce(ptrs, len(xs), out.data_ptr(), x0.numel(),
-                                  DTYPE_CODE[x0.dtype], OP_CODE[op], stream)
-    _build.check(rc, "fused_multi_reduce")
+    _build.call(LIBRARY.fn("tmt_fused_reduce"), x0.device, "fused_multi_reduce",
+                ptrs, len(xs), out.data_ptr(), x0.numel(), DTYPE_CODE[x0.dtype],
+                OP_CODE[op])
     global launches
     with _count_lock:
         launches += 1

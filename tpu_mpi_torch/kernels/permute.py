@@ -24,19 +24,23 @@ kernels' handshakes guard remote DMA, which does not exist between the
 rows of one tensor.
 
 Bound on the card: bytes, 2 x the stacked tensor (each byte read once and
-written once).
+written once). At the recipes' sizes (an 8 MiB pipeline hop) the kernel
+takes a few microseconds, so the wrapper's host time decides a call: a
+source table is checked and converted to its C array once per distinct
+table (a bounded cache), and the launch goes through ``_build.call``.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Sequence
 
 import torch
 
 from . import _build
-from .ring import _kernel_input, _stream, block_elems, stacked_ranks
+from .ring import _kernel_input, block_elems, stacked_ranks
 
 SOURCE = _build.CSRC / "permute.cu"
 REPLACES = {
@@ -44,6 +48,7 @@ REPLACES = {
     "collective_permute": "tpu_mpi/xla/pallas_kernels.py:463",
 }
 MAX_RANKS = 512     # TMT_MAX_RANKS: the source table rides as a kernel parameter
+TABLE_CACHE = 64    # distinct source tables kept checked and converted
 
 # Launches of each kernel, one per wrapper call that launched it.
 launches = dict.fromkeys(REPLACES, 0)
@@ -70,12 +75,20 @@ def _ranks_fit(n: int, what: str) -> None:
 # collective_permute
 # ---------------------------------------------------------------------------
 
-def _sources(src: Sequence[int], n: int) -> list:
-    src = [int(s) for s in src]
+@functools.lru_cache(maxsize=TABLE_CACHE)
+def _table(src: tuple, n: int) -> tuple:
+    """The checked source table of n destinations and its C array."""
+    src = tuple(int(s) for s in src)
     if len(src) != n or any(s < -1 or s >= n for s in src):
-        raise ValueError(f"source table {src} does not name one of {n} ranks "
+        raise ValueError(f"source table {list(src)} does not name one of {n} ranks "
                          f"(or -1) for each of {n} destinations")
-    return src
+    return src, (ctypes.c_int * n)(*src)
+
+
+@functools.lru_cache(maxsize=TABLE_CACHE)
+def _inverse_table(perm: tuple, n: int) -> tuple:
+    """``_table`` of the source table of the full permutation ``perm``."""
+    return _table(tuple(inverse(perm, n)), n)
 
 
 def permute_rows_plain(xs: torch.Tensor, src: Sequence[int]) -> torch.Tensor:
@@ -88,23 +101,26 @@ def permute_rows_plain(xs: torch.Tensor, src: Sequence[int]) -> torch.Tensor:
     return out
 
 
+def _permute(xs: torch.Tensor, n: int, src: tuple, table) -> torch.Tensor:
+    # is_cuda and is_contiguous read flags of the tensor: the kernel's path
+    # asks nothing more of it
+    if not (xs.is_cuda and xs.is_contiguous()):
+        if xs.device.type == "cpu":
+            return permute_rows_plain(xs, src)
+        _kernel_input(xs, "collective_permute")
+    _ranks_fit(n, "collective_permute")
+    out = torch.empty_like(xs)
+    _build.call(LIBRARY.fn("tmt_permute"), xs.device, "collective_permute",
+                xs.data_ptr(), out.data_ptr(), n, xs.numel() // n * xs.element_size(),
+                table)
+    _count("collective_permute")
+    return out
+
+
 def permute_rows(xs: torch.Tensor, src: Sequence[int]) -> torch.Tensor:
     """``out[d] = xs[src[d]]``, zeros where ``src[d]`` is -1."""
     n = stacked_ranks(xs, "collective_permute")
-    src = _sources(src, n)
-    if xs.device.type == "cpu":
-        return permute_rows_plain(xs, src)
-    _kernel_input(xs, "collective_permute")
-    _ranks_fit(n, "collective_permute")
-    out = torch.empty_like(xs, memory_format=torch.contiguous_format)
-    table = (ctypes.c_int * n)(*src)
-    with torch.cuda.device(xs.device):
-        rc = LIBRARY.load().tmt_permute(
-            xs.data_ptr(), out.data_ptr(), n, xs[0].numel() * xs.element_size(),
-            table, _stream(xs))
-    _build.check(rc, "collective_permute")
-    _count("collective_permute")
-    return out
+    return _permute(xs, n, *_table(tuple(src), n))
 
 
 def inverse(perm: Sequence[int], n: int) -> list:
@@ -122,7 +138,7 @@ def inverse(perm: Sequence[int], n: int) -> list:
 def collective_permute(xs: torch.Tensor, perm: Sequence[int]) -> torch.Tensor:
     """Rank r's row of the stacked tensor goes to rank ``perm[r]``."""
     n = stacked_ranks(xs, "collective_permute")
-    return permute_rows(xs, inverse(perm, n))
+    return _permute(xs, n, *_inverse_table(tuple(perm), n))
 
 
 # ---------------------------------------------------------------------------
@@ -158,11 +174,8 @@ def pairwise_alltoall(xs: torch.Tensor) -> torch.Tensor:
     _kernel_input(xs, "pairwise_alltoall")
     _ranks_fit(n, "pairwise_alltoall")
     out = xs.new_empty((n, n * per))
-    with torch.cuda.device(xs.device):
-        rc = LIBRARY.load().tmt_alltoall(
-            xs.data_ptr(), out.data_ptr(), n, per * xs.element_size(),
-            _stream(xs))
-    _build.check(rc, "pairwise_alltoall")
+    _build.call(LIBRARY.fn("tmt_alltoall"), xs.device, "pairwise_alltoall",
+                xs.data_ptr(), out.data_ptr(), n, per * xs.element_size())
     _count("pairwise_alltoall")
     return out
 

@@ -154,10 +154,6 @@ def _kernel_input(xs: torch.Tensor, what: str, kop: Optional[str] = None) -> Non
         raise ValueError(f"{what} kernel takes a contiguous stacked tensor")
 
 
-def _stream(xs: torch.Tensor) -> int:
-    return torch.cuda.current_stream(xs.device).cuda_stream
-
-
 # ---------------------------------------------------------------------------
 # ring_allreduce
 # ---------------------------------------------------------------------------
@@ -200,11 +196,9 @@ def ring_allreduce(xs: torch.Tensor, op: Any = "sum") -> torch.Tensor:
     _kernel_input(xs, "ring_allreduce", kop)
     out = torch.empty_like(xs, memory_format=torch.contiguous_format)
     count = xs[0].numel()
-    with torch.cuda.device(xs.device):
-        rc = LIBRARY.load().tmt_ring_allreduce(
-            xs.data_ptr(), out.data_ptr(), n, count, chunk_elems(count, n),
-            DTYPE_CODE[xs.dtype], OP_CODE[kop], _stream(xs))
-    _build.check(rc, "ring_allreduce")
+    _build.call(LIBRARY.fn("tmt_ring_allreduce"), xs.device, "ring_allreduce",
+                xs.data_ptr(), out.data_ptr(), n, count, chunk_elems(count, n),
+                DTYPE_CODE[xs.dtype], OP_CODE[kop])
     _count("ring_allreduce")
     return out
 
@@ -244,11 +238,9 @@ def ring_reduce_scatter(xs: torch.Tensor, op: Any = "sum") -> torch.Tensor:
         return ring_reduce_scatter_plain(xs, combine)
     _kernel_input(xs, "ring_reduce_scatter", kop)
     out = xs.new_empty((n, per))
-    with torch.cuda.device(xs.device):
-        rc = LIBRARY.load().tmt_ring_reduce_scatter(
-            xs.data_ptr(), out.data_ptr(), n, per,
-            DTYPE_CODE[xs.dtype], OP_CODE[kop], _stream(xs))
-    _build.check(rc, "ring_reduce_scatter")
+    _build.call(LIBRARY.fn("tmt_ring_reduce_scatter"), xs.device,
+                "ring_reduce_scatter", xs.data_ptr(), out.data_ptr(), n, per,
+                DTYPE_CODE[xs.dtype], OP_CODE[kop])
     _count("ring_reduce_scatter")
     return out
 
@@ -280,11 +272,8 @@ def ring_allgather(xs: torch.Tensor) -> torch.Tensor:
         return ring_allgather_plain(xs)
     _kernel_input(xs, "ring_allgather")
     out = xs.new_empty((n,) + tuple(xs.shape))
-    with torch.cuda.device(xs.device):
-        rc = LIBRARY.load().tmt_ring_allgather(
-            xs.data_ptr(), out.data_ptr(), n, xs.numel() * xs.element_size(),
-            _stream(xs))
-    _build.check(rc, "ring_allgather")
+    _build.call(LIBRARY.fn("tmt_ring_allgather"), xs.device, "ring_allgather",
+                xs.data_ptr(), out.data_ptr(), n, xs.numel() * xs.element_size())
     _count("ring_allgather")
     return out
 
