@@ -80,6 +80,21 @@ fatal on failure:
    permute per call in turns with ``xs[inverse_perm]``, and its span; the
    model path's ms per request, tokens/s and device idle share under
    ``torch.profiler``.
+12. training at the flagship width: ``transformer_train_step`` on
+   ``{"sp": 4}``, 3 steps of batch 8 x 1024 (labels the tokens shifted by
+   one, lr 1e-3): 24 ring-attention launches, all sm90, one fold launch per
+   parameter tensor and one for the loss per step, no chained fold, finite
+   losses, step 0's loss against the dense single-device step; one float32
+   sp step and one float32 tp step against the dense autograd step (TF32
+   off; the largest update difference relative to the update); one bfloat16
+   step on ``{"tp": 4}`` (4 L fold launches); ``DDPTrainer`` and
+   ``FSDPTrainer`` on 4 rank threads fed the dense step's gradients of each
+   rank's (2, 1024) quarter, 2 steps, 25 MiB buckets: bitwise equal float64
+   parameters, every bucket folded by the kernel, FSDP's optimizer state
+   1/4 of DDP's; then times: ms per sp step (CUDA events), tokens/s, device
+   busy time per step and the top kernels (profiler), the step's spec-sheet
+   bound, the attention backward per call against SDPA's forward+backward
+   on the gathered (8, 16, 1024, 64), ms per DDP and FSDP step.
 
 Card comparisons run with TF32 off and bfloat16 reduced-precision
 reductions off (``torch.backends.cuda.matmul``), set at the start.
@@ -135,6 +150,19 @@ MODEL_AGREE = {"bfloat16": 0.95, "float32": 0.999}
 RECIPE_TOL = 3e-2       # bfloat16 recipes against their references
 MOE_TOKENS, MOE_CAPACITY = 2048, 1024
 PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 67.0}   # spec sheet, dense
+# phase 12: training at the flagship width (benchmarks/flagship_probe.py's lr)
+TRAIN_STEPS, TRAIN_LR = 3, 1e-3
+TRAIN_TRAINER_STEPS, TRAIN_BUCKET_BYTES = 2, 25 << 20
+# step 0's bfloat16 loss against the dense step's: both average the same
+# float32 cross-entropy of logits that drift by a few bfloat16 ulps
+# (MODEL_TOL) at single positions, so the means of 8192 positions agree
+# far closer than one logit
+TRAIN_LOSS_TOL = 0.02
+# the float32 step's updates against the dense step's, relative to the
+# largest update of each tensor: float32 sums in other orders through
+# eight layers; at lr 1 the update stands clear of the parameter's own
+# float32 rounding
+TRAIN_LR_F32, TRAIN_F32_TOL = 1.0, 1e-3
 
 
 def log(msg: str) -> None:
@@ -710,6 +738,13 @@ def unstack_seq(logits):
     return logits.transpose(0, 1).reshape(b, n * t, v)
 
 
+def float32_params(params: dict) -> dict:
+    """A float32 copy of the model's weights."""
+    return {"embed": params["embed"].float(), "ln_f": params["ln_f"].float(),
+            "layers": [{k: w.float() for k, w in layer.items()}
+                       for layer in params["layers"]]}
+
+
 def compare_logits(got, want, what: str, dtype: str) -> dict:
     """Largest absolute difference and share of agreeing greedy tokens over
     every position; raises past the stated bounds."""
@@ -740,19 +775,29 @@ def serve(tr, cfg, params, requests: np.ndarray, device) -> list:
 def model_profile(tr, cfg, params, tokens, logdir: str, iters: int = 3) -> dict:
     """Device busy share of the window of ``iters`` sp requests under
     ``torch.profiler``: the union of kernel, memcpy and memset spans."""
+    stacked = stack_seq(tokens, SP)
+    return device_profile(lambda: tr.transformer_forward(cfg, params, stacked,
+                                                         sp_axis="sp"),
+                          logdir, "model_path", iters)
+
+
+def device_profile(fn, logdir: str, name: str, iters: int = 3) -> dict:
+    """``fn`` once, then ``iters`` calls under ``torch.profiler``: the
+    window, the device's busy time (the union of kernel, memcpy and memset
+    spans), the device time by kernel per call and the sm90 attention
+    spans."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    stacked = stack_seq(tokens, SP)
-    tr.transformer_forward(cfg, params, stacked, sp_axis="sp")
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(iters):
-            tr.transformer_forward(cfg, params, stacked, sp_axis="sp")
+            fn()
         torch.cuda.synchronize()
         window_us = (time.perf_counter() - t0) * 1e6
     os.makedirs(logdir, exist_ok=True)
-    trace = os.path.join(logdir, "model_path.json")
+    trace = os.path.join(logdir, f"{name}.json")
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = json.load(f).get("traceEvents", [])
@@ -1050,6 +1095,292 @@ def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
     return times
 
 
+# ---------------------------------------------------------------------------
+# 12. training at the flagship width
+# ---------------------------------------------------------------------------
+
+def flat_params(params: dict) -> dict:
+    """The model's parameters by name, in forward order (embed, the layers,
+    ln_f): the trainers' dictionary."""
+    out = {"embed": params["embed"]}
+    for i, layer in enumerate(params["layers"]):
+        out.update({f"layers.{i}.{k}": w for k, w in layer.items()})
+    out["ln_f"] = params["ln_f"]
+    return out
+
+
+def nest_params(flat: dict, n_layers: int) -> dict:
+    return {"embed": flat["embed"], "ln_f": flat["ln_f"],
+            "layers": [{k.split(".")[2]: w for k, w in flat.items()
+                        if k.startswith(f"layers.{i}.")} for i in range(n_layers)]}
+
+
+def dense_step(tr, cfg, params: dict, tokens, labels, lr: float, shards: int):
+    """The single-device autograd step a train step on ``shards`` sequence
+    ranks computes: each shard's loss the mean over its own positions, their
+    sum differentiated (the step psums the per-rank gradients), SGD as the
+    step takes it; the loss the shards' mean. ``shards`` 1: the dense mean
+    loss (the tp step's)."""
+    import torch
+    leaves = {k: w.detach().requires_grad_() for k, w in flat_params(params).items()}
+    logits = tr.transformer_forward(cfg, nest_params(leaves, cfg.n_layers), tokens)
+    t = tokens.shape[1] // shards
+    losses = [tr._xent(logits[:, r * t:(r + 1) * t], labels[:, r * t:(r + 1) * t])
+              for r in range(shards)]
+    grads = torch.autograd.grad(sum(losses), list(leaves.values()))
+    new = {k: (w.detach() - lr * g).to(w.dtype) for (k, w), g in zip(leaves.items(), grads)}
+    return nest_params(new, cfg.n_layers), float(sum(losses).detach()) / shards
+
+
+def update_error(before: dict, got: dict, want: dict) -> float:
+    """The largest difference between two steps' parameter updates, per
+    tensor relative to the reference update's largest element, over every
+    tensor (float64 differences)."""
+    worst = 0.0
+    b, g, w = flat_params(before), flat_params(got), flat_params(want)
+    for k in b:
+        u_got = b[k].double() - g[k].double()
+        u_want = b[k].double() - w[k].double()
+        worst = max(worst, float((u_got - u_want).abs().max())
+                    / max(float(u_want.abs().max()), 1e-30))
+    return worst
+
+
+def unshard_tp(tr, cfg, params: dict) -> dict:
+    """The tp step's stacked shards back to the dense layout."""
+    specs = tr.transformer_param_specs(cfg, "tp")
+
+    def join(x, spec):
+        if spec == (None, "tp"):
+            return x.movedim(0, 1).reshape(x.shape[1], -1)
+        if spec == ("tp", None):
+            return x.reshape(-1, x.shape[-1])
+        return x
+
+    return {"embed": params["embed"], "ln_f": params["ln_f"],
+            "layers": [{k: join(w, sp[k]) for k, w in layer.items()}
+                       for layer, sp in zip(params["layers"], specs["layers"])]}
+
+
+def step_flops(cfg) -> float:
+    """benchmarks/flagship_probe.py's analytic matmul FLOPs of one train step
+    (3x the forward, attention counted unmasked)."""
+    b, t, d, f, v = BATCH, SEQ, cfg.d_model, cfg.d_ff, cfg.vocab
+    per_layer = 2 * b * t * d * 3 * d + 2 * 2 * b * t * t * d + 2 * b * t * d * d \
+        + 2 * 2 * b * t * d * f
+    return 3.0 * (cfg.n_layers * per_layer + 2 * b * t * d * v)
+
+
+def counts(collective, fr, attention) -> tuple:
+    return (fr.launches, attention.launches, attention.route_launches["sm90"],
+            collective.chained_folds)
+
+
+def reset_counts(collective, fr, ring, permute, attention) -> None:
+    fr.reset_launches()
+    ring.reset_launches()
+    permute.reset_launches()
+    attention.reset_launches()
+    collective.chained_folds = 0
+
+
+def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str) -> dict:
+    """Phase 12: the sp and tp train steps, the trainers, and their times."""
+    import torch
+    import torch.nn.functional as F
+    from tpu_mpi_torch import collective
+    from tpu_mpi_torch.kernels import attention, fused_reduce as fr, permute, ring
+    from tpu_mpi_torch.train import DDPTrainer, FSDPTrainer
+    out = {}
+    rng = np.random.default_rng(SEED + 12)
+    batches = rng.integers(0, cfg.vocab, (TRAIN_STEPS, BATCH, SEQ))
+    tokens = [torch.from_numpy(b).to(device) for b in batches]
+    labels = [torch.from_numpy(np.roll(b, -1, axis=1)).to(device) for b in batches]
+    n_tensors = 2 + 6 * cfg.n_layers
+
+    # the sp step: 3 steps at the flagship width, every launch counted
+    step, _ = tr.transformer_train_step(cfg, xla.make_mesh({"sp": SP}), lr=TRAIN_LR)
+    reset_counts(collective, fr, ring, permute, attention)
+    p, losses = params, []
+    for tok, lab in zip(tokens, labels):
+        p, loss = step(p, tok, lab)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    folds, attn, sm90, chained = counts(collective, fr, attention)
+    losses = [float(x) for x in losses]
+    out["sp"] = {"losses": losses, "fold_launches": folds,
+                 "attention_launches": attn, "sm90_launches": sm90}
+    log(f"train: sp step x {TRAIN_STEPS} on {{'sp': {SP}}}, batch {BATCH}x{SEQ}, "
+        f"lr {TRAIN_LR}: losses {losses}; ring_attention launches {attn} "
+        f"({sm90} sm90), fold launches {folds} ({n_tensors} parameter tensors + "
+        f"the loss, per step), chained folds {chained}")
+    if attn != TRAIN_STEPS * cfg.n_layers or sm90 != attn:
+        raise AssertionError(f"train step: {attn} attention launches, {sm90} sm90")
+    if folds != TRAIN_STEPS * (n_tensors + 1) or chained:
+        raise AssertionError(f"train step: {folds} folds, {chained} chained")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"train step: non-finite loss {losses}")
+    sp_params = p
+    del p
+
+    # step 0 against the dense single-device step, bfloat16
+    _, dense_loss = dense_step(tr, cfg, params, tokens[0], labels[0], TRAIN_LR, SP)
+    out["sp"]["dense_loss"] = dense_loss
+    out["sp"]["loss_err"] = abs(losses[0] - dense_loss)
+    log(f"train: step-0 loss sp {losses[0]} vs dense {dense_loss} (|diff| "
+        f"{out['sp']['loss_err']}, bound {TRAIN_LOSS_TOL})")
+    if out["sp"]["loss_err"] > TRAIN_LOSS_TOL:
+        raise AssertionError("train step: step-0 loss off the dense step's")
+
+    # one float32 sp step against the dense autograd step, TF32 off
+    cfg32 = tr.TransformerConfig(**FLAGSHIP, dtype=torch.float32)
+    params32 = float32_params(params)
+    step32, _ = tr.transformer_train_step(cfg32, xla.make_mesh({"sp": SP}),
+                                          lr=TRAIN_LR_F32)
+    got32, loss32 = step32(params32, tokens[0], labels[0])
+    want32, dloss32 = dense_step(tr, cfg32, params32, tokens[0], labels[0],
+                                 TRAIN_LR_F32, SP)
+    out["sp_f32"] = {"update_err": update_error(params32, got32, want32),
+                     "loss_err": abs(float(loss32) - dloss32)}
+    del got32, want32
+    log(f"train: float32 sp step vs the dense autograd step (TF32 off, lr "
+        f"{TRAIN_LR_F32}): largest update difference {out['sp_f32']['update_err']} "
+        f"of the update's size (bound {TRAIN_F32_TOL}), loss diff "
+        f"{out['sp_f32']['loss_err']}")
+    if out["sp_f32"]["update_err"] > TRAIN_F32_TOL:
+        raise AssertionError("float32 sp step off the dense step")
+
+    # the tp step: g forward, f backward, 4 L folds; then in float32 against
+    # the dense step, as the sp step above
+    tp_step, _ = tr.transformer_train_step(cfg, xla.make_mesh({"tp": SP}), lr=TRAIN_LR)
+    shards = tr.shard_params(params, cfg, SP)
+    reset_counts(collective, fr, ring, permute, attention)
+    _, loss_tp = tp_step(shards, tokens[0], labels[0])
+    torch.cuda.synchronize()
+    folds, attn, _, chained = counts(collective, fr, attention)
+    del shards
+    tp32, _ = tr.transformer_train_step(cfg32, xla.make_mesh({"tp": SP}),
+                                        lr=TRAIN_LR_F32)
+    got32, loss32 = tp32(tr.shard_params(params32, cfg32, SP), tokens[0], labels[0])
+    want32, dloss32 = dense_step(tr, cfg32, params32, tokens[0], labels[0],
+                                 TRAIN_LR_F32, 1)
+    out["tp"] = {"fold_launches": folds, "loss": float(loss_tp),
+                 "update_err_f32": update_error(params32, unshard_tp(tr, cfg32, got32),
+                                                want32),
+                 "loss_err_f32": abs(float(loss32) - dloss32)}
+    del params32, got32, want32
+    log(f"train: tp step on {{'tp': {SP}}}: loss {float(loss_tp)}, fold launches "
+        f"{folds}, attention {attn}, chained {chained}; float32 tp step vs the dense "
+        f"autograd step: largest update difference {out['tp']['update_err_f32']} "
+        f"of the update's size (bound {TRAIN_F32_TOL}), loss diff "
+        f"{out['tp']['loss_err_f32']}")
+    if folds != 4 * cfg.n_layers or chained or attn:
+        raise AssertionError(f"tp step: {folds} folds, {chained} chained, {attn} attn")
+    if out["tp"]["update_err_f32"] > TRAIN_F32_TOL or not np.isfinite(float(loss_tp)):
+        raise AssertionError("tp step off the dense step")
+
+    # DDP and FSDP: 4 rank threads, each the dense step's gradients on its
+    # own (2, 1024) quarter of the batch
+    torch.cuda.empty_cache()
+    start = flat_params(params)
+    per = BATCH // NRANKS
+    spans = {"ddp": [], "fsdp": [], "ddp_folds": [], "fsdp_folds": []}
+
+    def body():
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        ddp = DDPTrainer(start, comm, lr=TRAIN_LR, bucket_bytes=TRAIN_BUCKET_BYTES,
+                         device=device)
+        fsdp = FSDPTrainer(start, comm, lr=TRAIN_LR, device=device)
+        for s in range(TRAIN_TRAINER_STEPS):
+            model = {k: w.to(cfg.dtype).requires_grad_() for k, w in ddp.params.items()}
+            logits = tr.transformer_forward(cfg, nest_params(model, cfg.n_layers),
+                                            tokens[s][r * per:(r + 1) * per])
+            loss = tr._xent(logits, labels[s][r * per:(r + 1) * per])
+            grads = dict(zip(model, torch.autograd.grad(loss, list(model.values()))))
+            del model, logits, loss
+            for name, trainer in (("ddp", ddp), ("fsdp", fsdp)):
+                torch.cuda.synchronize()
+                MPI.Barrier(comm)
+                f0, t0 = fr.launches, time.perf_counter()
+                trainer.step((k, grads[k]) for k in reversed(list(grads)))
+                torch.cuda.synchronize()
+                MPI.Barrier(comm)
+                if r == 0:
+                    spans[name].append((time.perf_counter() - t0) * 1e3)
+                    spans[f"{name}_folds"].append(fr.launches - f0)
+            del grads
+        same = all(same_bits(ddp.params[k], fsdp.params[k]) for k in start)
+        return same, len(ddp.bucketer), ddp.opt_state_bytes(), fsdp.opt_state_bytes()
+
+    collective.chained_folds = 0
+    res = MPI.spmd_run(body, NRANKS, timeout=900)
+    chained = collective.chained_folds
+    same, nbuckets, ddp_bytes, fsdp_bytes = res[0]
+    out["trainers"] = {"bitwise_equal": all(x[0] for x in res), "buckets": nbuckets,
+                       "ddp_ms": spans["ddp"], "fsdp_ms": spans["fsdp"],
+                       "ddp_folds": spans["ddp_folds"], "fsdp_folds": spans["fsdp_folds"],
+                       "opt_state_bytes": [ddp_bytes, fsdp_bytes]}
+    log(f"train: DDP / FSDP on {NRANKS} rank threads, {TRAIN_TRAINER_STEPS} steps, "
+        f"bucket_bytes {TRAIN_BUCKET_BYTES}: {nbuckets} buckets, fold launches per "
+        f"step DDP {spans['ddp_folds']} FSDP {spans['fsdp_folds']}, chained "
+        f"{chained}; DDP == FSDP bitwise on every rank: "
+        f"{out['trainers']['bitwise_equal']}; opt_state_bytes DDP {ddp_bytes} "
+        f"FSDP {fsdp_bytes}; ms per step DDP {spans['ddp']} FSDP {spans['fsdp']} "
+        f"{where}")
+    if not out["trainers"]["bitwise_equal"]:
+        raise AssertionError("DDP and FSDP differ")
+    if min(spans["ddp_folds"]) < nbuckets or chained:
+        raise AssertionError("a DDP bucket left the fold kernel")
+    if fsdp_bytes * NRANKS != ddp_bytes:
+        raise AssertionError("FSDP's optimizer state is not 1/n of DDP's")
+
+    # times: the sp step, its device work, the attention backward
+    tok, lab = tokens[0], labels[0]
+    step_ms = time_ms(lambda: step(sp_params, tok, lab), iters=5, warmup=1)
+    sprof = device_profile(lambda: step(sp_params, tok, lab), logdir, "train_step", 2)
+    flops = step_flops(cfg)
+    bound_ms = flops / (PEAK_TFLOPS["bfloat16"] * 1e12) * 1e3
+    out["times"] = {"step_ms": step_ms, "tokens_per_s": BATCH * SEQ / (step_ms * 1e-3),
+                    "busy_ms": sprof["busy_ms"] / sprof["iters"],
+                    "window_ms": sprof["window_ms"] / sprof["iters"],
+                    "top_kernels": sprof["top_kernels_ms_per_request"],
+                    "bound_ms": bound_ms, "flops": flops}
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 12)
+    shape = (SP, BATCH * cfg.n_heads, SEQ // SP, cfg.head_dim)
+    q, k, v, dout = (torch.randn(shape, generator=gen, device=device).to(cfg.dtype)
+                     for _ in range(4))
+    d = cfg.head_dim
+    o = attention.attend(q, k, v, causal=True)
+    bwd_ms = time_ms(lambda: attention.attention_backward(
+        q, k, v, o, dout, causal=True, scale=d ** -0.5), iters=10)
+    fwd_ms = time_ms(lambda: attention.attend(q, k, v, causal=True), iters=10)
+    gathered = [x.view(SP, BATCH, cfg.n_heads, -1, d).permute(1, 2, 0, 3, 4)
+                .reshape(BATCH, cfg.n_heads, SEQ, d).contiguous().requires_grad_()
+                for x in (q, k, v)]
+    dgath = dout.view(SP, BATCH, cfg.n_heads, -1, d).permute(1, 2, 0, 3, 4) \
+        .reshape(BATCH, cfg.n_heads, SEQ, d).contiguous()
+
+    def sdpa_fwd_bwd():
+        F.scaled_dot_product_attention(*gathered, is_causal=True).backward(dgath)
+
+    sdpa_ms = time_ms(sdpa_fwd_bwd, iters=10)
+    out["times"].update({"attention_backward_ms": bwd_ms, "attention_forward_ms": fwd_ms,
+                         "sdpa_fwd_bwd_ms": sdpa_ms})
+    t = out["times"]
+    log(f"train: sp step {step_ms:.4f} ms (CUDA events, 5 steps), "
+        f"{t['tokens_per_s']:.1f} tokens/s; profiled 2 steps: device busy "
+        f"{t['busy_ms']:.4f} ms per step of a {t['window_ms']:.4f} ms window; bound "
+        f"{bound_ms:.4f} ms ({flops / 1e12:.3f} TFLOP at the bf16 spec, spec-sheet "
+        f"arithmetic) {where}")
+    log(f"train: device time per step by kernel (profiler): {t['top_kernels']}")
+    log(f"train: attention at {list(shape)} bf16 causal: backward (matmuls) "
+        f"{bwd_ms:.4f} ms per call, kernel forward {fwd_ms:.4f} ms; SDPA forward+"
+        f"backward on the gathered (8, 16, 1024, 64) {sdpa_ms:.4f} ms {where}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1254,11 +1585,7 @@ def main() -> int:
                    + [w for layer in params["layers"] for w in layer.values()])
     requests = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (REQUESTS, BATCH, SEQ)).astype(np.int64)
-    fr.reset_launches()
-    ring.reset_launches()
-    permute.reset_launches()
-    attention.reset_launches()
-    collective.chained_folds = 0
+    reset_counts(collective, fr, ring, permute, attention)
     t0 = time.perf_counter()
     served = serve(tr, cfg, params, requests, device)
     serve_s = time.perf_counter() - t0
@@ -1297,9 +1624,7 @@ def main() -> int:
     del served
     log(f"sp logits vs dense forward (bfloat16): {sp_checks}; next tokens "
         f"{next_tokens}")
-    params32 = {"embed": params["embed"].float(), "ln_f": params["ln_f"].float(),
-                "layers": [{k: w.float() for k, w in layer.items()}
-                           for layer in params["layers"]]}
+    params32 = float32_params(params)
     cfg32 = tr.TransformerConfig(**FLAGSHIP, dtype=torch.float32)
     tok0 = torch.from_numpy(requests[0]).to(device)
     f32_check = compare_logits(
@@ -1375,6 +1700,14 @@ def main() -> int:
     log(f"model path, device time per request by kernel (profiler): "
         f"{mprof['top_kernels_ms_per_request']}")
 
+    # 12. training at the flagship width
+    t0 = time.perf_counter()
+    train = train_phase(MPI, tr, xla, cfg, params, device, logdir, where)
+    log(f"training phase in {time.perf_counter() - t0:.1f} s")
+    trainers = train["trainers"]
+    train_folds = (train["sp"]["fold_launches"] + train["tp"]["fold_launches"]
+                   + sum(trainers["ddp_folds"]) + sum(trainers["fsdp_folds"]))
+
     def entry(name, t, source, replaces, launches, err, parity, **extra):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launches, "max_abs_err": err,
@@ -1401,7 +1734,7 @@ def main() -> int:
         library_ms_turns=new_times["collective_permute"]["library_ms_turns"]))
     kernels.append(entry(
         "ring_attention", new_times["ring_attention"], rel(attention.SOURCE_SM90),
-        attention.REPLACES, model_launches,
+        attention.REPLACES, model_launches + train["sp"]["attention_launches"],
         max(*attn_parity["max_abs_err"].values(),
             new_times["ring_attention"]["main_parity"]["max_abs_err"]),
         f"elementwise: {attention.TOLERANCE_NOTE}",
@@ -1416,8 +1749,14 @@ def main() -> int:
         path="model: transformer_forward(sp_axis='sp'), 3 requests",
         request_ms=request_ms, tokens_per_s=tokens_per_s, model_idle_share=idle,
         model_window_ms=mprof["window_ms"], model_busy_ms=mprof["busy_ms"],
-        sp_vs_dense=sp_checks, sp_vs_dense_f32=f32_check, tp_vs_single=tp_check))
+        sp_vs_dense=sp_checks, sp_vs_dense_f32=f32_check, tp_vs_single=tp_check,
+        train_launches=train["sp"]["attention_launches"],
+        train_backward_ms=train["times"]["attention_backward_ms"],
+        train_sdpa_fwd_bwd_ms=train["times"]["sdpa_fwd_bwd_ms"]))
     kernels[0]["tp_forward_launches"] = tp_folds
+    kernels[0]["launches"] += train_folds
+    kernels[0]["train_launches"] = train_folds
+    kernels[0]["train"] = train
     print(card, flush=True)         # as nvidia-smi gives it: name, power limit
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -409,3 +409,113 @@ def test_sp_transformer_forward_on_card():
     single = tr.transformer_forward(cfg, params, tokens)
     torch.testing.assert_close(sp.transpose(0, 1).reshape(single.shape), single,
                                atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,n,bh,t,d", [
+    (torch.bfloat16, 4, 8, 256, 64),     # the sm90 route, the flagship's t and d
+    (torch.bfloat16, 2, 3, 72, 40),
+    (torch.float32, 4, 4, 64, 32),       # the fma route
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_ring_attention_autograd_through_the_kernel_on_card(dtype, n, bh, t, d,
+                                                            causal):
+    """Gradients through the kernel's forward against the same backward
+    on the plain version's output: the two differ only through O (in
+    rowsum(dO * O)), so the bound is that of the forward, carried by
+    |dO| d into dS, with the backward's own bfloat16 roundings of P and dS
+    (2^-8 each) on top: 2^-5 of the gradient's largest magnitude in
+    bfloat16, 1e-4 in float32."""
+    from tpu_mpi_torch.kernels import attention
+    from tpu_mpi_torch.parallel import ring
+    dev = _card()
+    q, k, v = _attention_case(dev, n, bh, t, d, dtype, 7 * t + d)
+    g = torch.Generator(device=dev)
+    g.manual_seed(t)
+    dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    before = dict(attention.route_launches)
+    out = ring._RingAttention.apply(*leaves, causal, d ** -0.5)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    way = attention.route(dtype, d, True)
+    assert attention.route_launches[way] == before[way] + 1
+    plain = attention.ring_attention_plain(q, k, v, causal=causal, scale=d ** -0.5)
+    want = attention.attention_backward(q, k, v, plain, dout, causal=causal,
+                                        scale=d ** -0.5)
+    rel = 2.0 ** -5 if dtype == torch.bfloat16 else 1e-4
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.dtype == dtype and leaf.grad.shape == w.shape
+        err = float((leaf.grad.float() - w.float()).abs().max())
+        assert err <= rel * float(w.float().abs().max()), (err, float(w.abs().max()))
+
+
+@pytest.mark.cuda
+def test_sp_train_step_on_card():
+    """One float32 sp train step on the card (fma attention, folds on the
+    kernel) against the same step on the CPU."""
+    from tpu_mpi_torch import collective, xla
+    from tpu_mpi_torch.kernels import attention
+    from tpu_mpi_torch.models import transformer as tr
+    from tpu_mpi_torch.parallel import dp
+    dev = _card()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = tr.TransformerConfig(vocab=64, d_model=64, n_heads=4, n_layers=2,
+                               d_ff=128)
+    params = tr.transformer_init(torch.Generator().manual_seed(3), cfg, device="cpu")
+    tokens = torch.randint(0, 64, (2, 64), generator=torch.Generator().manual_seed(4))
+    labels = tokens.roll(-1, 1)
+    step, _ = tr.transformer_train_step(cfg, xla.make_mesh({"sp": 4}))
+    cpu_step, _ = tr.transformer_train_step(
+        cfg, xla.make_mesh({"sp": 4}, devices=[torch.device("cpu")]))
+    folds, attn, chained = fr.launches, attention.launches, collective.chained_folds
+    on_card = dp.tree_map(lambda p: p.to(dev), params)
+    new, loss = step(on_card, tokens.to(dev), labels.to(dev))
+    torch.cuda.synchronize()
+    assert fr.launches - folds == 2 + 6 * cfg.n_layers + 1
+    assert attention.launches - attn == cfg.n_layers
+    assert collective.chained_folds == chained
+    want, want_loss = cpu_step(params, tokens, labels)
+    assert abs(float(loss) - float(want_loss)) <= 1e-4
+    for got, w in zip(dp.leaves(new), dp.leaves(want)):
+        assert got.device.type == "cuda"
+        torch.testing.assert_close(got.cpu(), w, atol=1e-4, rtol=0)
+
+
+@pytest.mark.cuda
+def test_ddp_fsdp_on_card():
+    """DDP (overlap and control) and FSDP on 4 rank threads with float64
+    masters on the card: bitwise equal, every bucket folded by the kernel."""
+    import numpy as np
+    import tpu_mpi_torch as MPI
+    from tpu_mpi_torch import collective
+    from tpu_mpi_torch.train import DDPTrainer, FSDPTrainer, GradBucketer
+    dev = _card()
+    spec = {f"p{i}": np.random.default_rng(i).standard_normal(n)
+            for i, n in enumerate((3000, 50, 4000, 120))}
+
+    def body():
+        comm = MPI.COMM_WORLD
+        trainers = [DDPTrainer(spec, comm, bucket_bytes=8192),
+                    DDPTrainer(spec, comm, bucket_bytes=8192, overlap=False),
+                    FSDPTrainer(spec, comm)]
+        for s in range(3):
+            rng = np.random.default_rng(100 * s + comm.rank())
+            grads = {n: torch.from_numpy(rng.standard_normal(a.size)).float()
+                     for n, a in spec.items()}
+            for tr in trainers:
+                tr.step((n, grads[n].to(dev)) for n in reversed(list(spec)))
+        torch.cuda.synchronize()
+        return [{n: p.cpu() for n, p in tr.params.items()} for tr in trainers]
+
+    folds, chained = fr.launches, collective.chained_folds
+    outs = MPI.spmd_run(body, 4, timeout=300)
+    nbuckets = len(GradBucketer([(n, a.size) for n, a in reversed(spec.items())],
+                                8192, device=dev))
+    assert fr.launches - folds >= 2 * 3 * nbuckets + 3
+    assert collective.chained_folds == chained
+    for rank_out in outs:
+        for other in rank_out[1:]:
+            for n in spec:
+                assert torch.equal(rank_out[0][n].view(torch.int64),
+                                   other[n].view(torch.int64)), n

@@ -119,15 +119,14 @@ def test_column_row_parallel_matches():
     want = jax.jit(jax.shard_map(body, mesh=mesh,
                                  in_specs=(P(), P(None, "tp"), P("tp", None)),
                                  out_specs=P()))(x, w1, w2)
-    xs = torch.from_numpy(x).expand(4, 8, 16)
+    # the replicated activation and the psum'd output are held once
     w1s = torch.from_numpy(w1.reshape(16, 4, 8).transpose(1, 0, 2).copy())
     w2s = torch.from_numpy(w2.reshape(4, 8, 16).copy())
-    h = tpar.column_parallel(xs, w1s, axis="tp")
+    h = tpar.column_parallel(torch.from_numpy(x), w1s, axis="tp")
+    assert h.shape == (4, 8, 8)
     got = tpar.row_parallel(h, w2s, axis="tp")
-    assert got.shape == (4, 8, 16)
-    for r in range(4):
-        np.testing.assert_allclose(got[r].numpy(), np.asarray(want), rtol=0,
-                                   atol=1e-5)
+    assert got.shape == (8, 16)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=0, atol=1e-5)
 
 
 def test_column_parallel_bias_and_gathered_output():
@@ -146,7 +145,7 @@ def test_column_parallel_bias_and_gathered_output():
                                  out_specs=P(), check_vma=False))(x, w, b)
     ws = torch.from_numpy(w.reshape(8, 4, 3).transpose(1, 0, 2).copy())
     bs = torch.from_numpy(b.reshape(4, 3))
-    y = tpar.column_parallel(torch.from_numpy(x).expand(4, 3, 5, 8), ws, bs)
+    y = tpar.column_parallel(torch.from_numpy(x), ws, bs)
     got = tpar.all_gather_output(y, axis="tp")
     assert got.shape == (4, 3, 5, 12)
     for r in range(4):
@@ -284,7 +283,9 @@ def test_halo_exchange_of_several_axes_waits_for_the_topology_module():
 
 
 def test_exports_follow_the_jax_package():
-    for name in ["all_gather_output", "column_parallel", "row_parallel",
-                 "ring_attention", "heads_to_seq", "seq_to_heads",
-                 "moe_dispatch_combine", "pipeline_forward", "halo_exchange"]:
+    for name in ["allreduce_grads", "pmean_tree", "all_gather_output",
+                 "column_parallel", "row_parallel", "tp_identity_fwd_psum_bwd",
+                 "tp_psum_fwd_identity_bwd", "ring_attention", "heads_to_seq",
+                 "seq_to_heads", "moe_dispatch_combine", "pipeline_forward",
+                 "halo_exchange"]:
         assert hasattr(tpar, name) and hasattr(jpar, name), name

@@ -137,6 +137,59 @@ def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return (acc / l).to(cdt)
 
 
+def _mm32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Batched a @ b summed and returned in float32: bfloat16 operands on
+    the card go to the tensor cores with float32 sums and a float32 result
+    (as the kernel's wgmma), others are upcast."""
+    if a.dtype == torch.bfloat16 and a.is_cuda:
+        return torch.bmm(a, b, out_dtype=torch.float32)
+    return torch.matmul(a.float(), b.float())
+
+
+def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                       o: torch.Tensor, do: torch.Tensor, *, causal: bool,
+                       scale: float) -> tuple:
+    """The gradients (dq, dk, dv) of ring attention on stacked
+    (n, BH, t, d) blocks, from the forward's output ``o`` and its cotangent
+    ``do``: matmuls and elementwise ops, no kernel of its own.
+
+    The forward returns no row statistics, so each query block recomputes
+    its scores against the key blocks it sees (all of them, or under the
+    causal mask blocks 0..r) with the kernel's rounding: float32 scores
+    scaled in float32, -inf masks by global position. Then
+    P = softmax(S), dV = P^T dO, dS = P * (dO V^T - rowsum(dO * O)),
+    dQ = scale dS K and dK = scale dS^T Q. In bfloat16, P and dS are
+    rounded to bfloat16 for their products (as the forward rounds P before
+    P.V) and every product sums in float32."""
+    n, bh, t, d = q.shape
+    f32, cdt = torch.float32, q.dtype
+    glob = lambda x: x.transpose(0, 1).reshape(bh, n * t, d)  # noqa: E731
+    qg, kg, vg, dog = glob(q), glob(k), glob(v), glob(do)
+    rowdot = (dog.float() * glob(o).float()).sum(-1, keepdim=True)   # (bh, nt, 1)
+    dq = torch.empty(bh, n * t, d, dtype=f32, device=q.device)
+    dk = torch.zeros(bh, n * t, d, dtype=f32, device=q.device)
+    dv = torch.zeros(bh, n * t, d, dtype=f32, device=q.device)
+    tri = torch.ones(t, t, dtype=torch.bool, device=q.device).triu(1)
+    for r in range(n):
+        rows = slice(r * t, (r + 1) * t)
+        keys = slice(0, (r + 1) * t if causal else n * t)
+        qr, dor = qg[:, rows], dog[:, rows]
+        kk, vk = kg[:, keys], vg[:, keys]
+        s = _mm32(qr, kk.transpose(1, 2)) * scale
+        if causal:                       # the diagonal block: keys after the row
+            s[:, :, r * t:].masked_fill_(tri, -math.inf)
+        p = torch.softmax(s, dim=-1)
+        del s
+        dv[:, keys] += _mm32(p.to(cdt).transpose(1, 2), dor)
+        ds = p * (_mm32(dor, vk.transpose(1, 2)) - rowdot[:, rows])
+        del p
+        ds = ds.to(cdt)
+        dq[:, rows] = _mm32(ds, kk) * scale
+        dk[:, keys] += _mm32(ds.transpose(1, 2), qr) * scale
+    back = lambda x: x.view(bh, n, t, d).transpose(0, 1).to(cdt)  # noqa: E731
+    return back(dq), back(dk), back(dv)
+
+
 def allowed_error(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   want: torch.Tensor, *, causal: bool, scale: float) -> torch.Tensor:
     """The largest |kernel - plain| each output element may show (float32),

@@ -1,19 +1,25 @@
-"""Flagship model: a GPT-style transformer, forward — the port of the
-forward path of ``tpu_mpi/models/transformer.py``.
+"""Flagship model: a GPT-style transformer trained over one of DP, TP or SP
+— the port of ``tpu_mpi/models/transformer.py``.
 
 Pre-norm attention + FFN layers with RoPE by global position. Attention
 heads and FFN hidden units shard over a ``tp`` axis (Megatron
-column/row-parallel, :mod:`tpu_mpi_torch.parallel.tp`), or the sequence
-shards over an ``sp`` axis with exact ring attention
+column/row-parallel with the f/g pair, :mod:`tpu_mpi_torch.parallel.tp`),
+the sequence shards over an ``sp`` axis with exact ring attention
 (:mod:`tpu_mpi_torch.parallel.ring`, the ring-attention kernel on a CUDA
-tensor). The ranks of a mesh share one card and per-rank tensors are
-stacked, rank axis first.
+tensor), or the batch shards over a ``dp`` axis. The ranks of a mesh share
+one card and per-rank tensors are stacked, rank axis first; what is the
+same on every tp rank (the residual stream) is held once.
+
+:func:`transformer_train_step` builds the SGD step over a mesh of one live
+axis, differentiated by autograd: the per-rank gradients of the dp/sp
+ranks are summed with the fused fold kernel, one launch per parameter
+tensor, as the JAX step psums each leaf.
 
 Parameters are a plain dictionary of tensors shaped as the JAX package's
 pytree (``layers`` a list of per-layer dictionaries), so
 :func:`params_from_jax` carries a JAX model's weights across unchanged.
-The train steps, with the backward of attention and of the f/g operators,
-and the pipelined MoE and 4-axis variants come with later slices.
+Steps over two live axes at once and the pipelined MoE and 4-axis
+variants wait for the multi-axis mesh (ROADMAP Queue A #8).
 """
 
 from __future__ import annotations
@@ -26,8 +32,9 @@ import torch
 import torch.nn.functional as F
 
 from ..buffers import resolve_device
+from ..parallel import dp as _dp
 from ..parallel.ring import ring_attention
-from ..parallel.tp import column_parallel, row_parallel
+from ..parallel.tp import _per_rank_matmul, column_parallel, row_parallel
 from ..xla.mesh import _TOPOLOGY
 
 
@@ -138,9 +145,32 @@ def params_from_jax(params_np: Mapping[str, Any], cfg: TransformerConfig,
     }
 
 
+def _per_rank_scale(scale: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """A norm scale for x: held once (d,), or stacked per rank (n, d) and
+    viewed to broadcast over x's (n, ..., d)."""
+    if scale.dim() == 1:
+        return scale
+    return scale.view((scale.shape[0],) + (1,) * (x.dim() - 2) + (scale.shape[-1],))
+
+
+def _matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """x @ w for a weight held once (d_in, d_out), or rank r's x times its
+    own w for a weight stacked per rank (n, d_in, d_out)."""
+    return x @ w if w.dim() == 2 else _per_rank_matmul(x, w)
+
+
+def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
+    """Rows of the embedding for tokens; a stacked (n, V, d) embedding
+    looks rank r's tokens up in its own copy."""
+    if embed.dim() == 2:
+        return embed[tokens]
+    ranks = torch.arange(embed.shape[0], device=tokens.device)
+    return embed[ranks.view((-1,) + (1,) * (tokens.dim() - 1)), tokens]
+
+
 def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     var = x.float().square().mean(-1, keepdim=True)
-    return (x * torch.rsqrt(var + 1e-6)).to(x.dtype) * scale
+    return (x * torch.rsqrt(var + 1e-6)).to(x.dtype) * _per_rank_scale(scale, x)
 
 
 def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
@@ -156,6 +186,19 @@ def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
     return out.to(x.dtype)
 
 
+def _sp_positions(n: int, t: int, device: Any) -> torch.Tensor:
+    """Global positions of n stacked sequence blocks of t: (n, 1, 1, t)."""
+    ranks = torch.arange(n, device=device)[:, None]
+    return (ranks * t + torch.arange(t, device=device)).view(n, 1, 1, t)
+
+
+def _tp_size(cfg: TransformerConfig, params: dict) -> int:
+    n = params["layers"][0]["w_qkv"].shape[0] if params["layers"] else 1
+    if cfg.n_heads % n:
+        raise ValueError(f"n_heads={cfg.n_heads} must be divisible by tp size {n}")
+    return n
+
+
 def transformer_forward(cfg: TransformerConfig, params: dict,
                         tokens: torch.Tensor, *, tp_axis: Optional[str] = None,
                         sp_axis: Optional[str] = None) -> torch.Tensor:
@@ -167,50 +210,55 @@ def transformer_forward(cfg: TransformerConfig, params: dict,
       positions ``r*t_local ..``; returns the stacked (n, b, t_local, V).
     - ``tp_axis``: tokens (b, t) replicated, params from
       :func:`shard_params`; returns the stacked (n, b, t, V), every rank's
-      the same.
+      the same (one tensor, viewed n times).
     One mesh axis at a time: both raise NotImplementedError."""
     if tp_axis is not None and sp_axis is not None:
         raise NotImplementedError(_TOPOLOGY)
-    dev = tokens.device
-    x = params["embed"][tokens]
     t = tokens.shape[-1]
     if sp_axis is not None:
-        n = tokens.shape[0]
-        ranks = torch.arange(n, device=dev)[:, None]
-        positions = (ranks * t + torch.arange(t, device=dev)).view(n, 1, 1, t)
+        positions = _sp_positions(tokens.shape[0], t, tokens.device)
     else:
-        positions = torch.arange(t, device=dev)
-    if tp_axis is not None:
-        n = params["layers"][0]["w_qkv"].shape[0] if params["layers"] else 1
-        if cfg.n_heads % n:
-            raise ValueError(f"n_heads={cfg.n_heads} must be divisible by tp "
-                             f"size {n}")
-        x = x.unsqueeze(0).expand((n,) + tuple(x.shape))
+        positions = torch.arange(t, device=tokens.device)
+    logits = _logits(cfg, params, tokens, positions, tp_axis=tp_axis,
+                     sp_axis=sp_axis)
+    if tp_axis is None:
+        return logits
+    n = _tp_size(cfg, params)
+    return logits.unsqueeze(0).expand((n,) + tuple(logits.shape))
+
+
+def _logits(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
+            positions: torch.Tensor, *, tp_axis: Optional[str],
+            sp_axis: Optional[str]) -> torch.Tensor:
+    """The forward at its native layout: held once under tp, per rank
+    under sp (and for per-rank params, stacked (n, ...))."""
+    x = _embed(params["embed"], tokens)
     for layer in params["layers"]:
         x = _attn_ffn_block(cfg, layer, x, positions, tp_axis=tp_axis,
                             sp_axis=sp_axis)
     x = _rms_norm(x, params["ln_f"])
-    return (x @ params["embed"].T).to(torch.float32)
+    return _matmul(x, params["embed"].transpose(-1, -2)).to(torch.float32)
 
 
 def _attn_ffn_block(cfg: TransformerConfig, layer: dict, x: torch.Tensor,
                     positions: torch.Tensor, *, tp_axis: Optional[str],
                     sp_axis: Optional[str]) -> torch.Tensor:
-    """One transformer layer (pre-norm attention + FFN) on x (..., b, t, d),
-    with a leading rank axis under tp or sp."""
-    lead = tuple(x.shape[:-3])
+    """One transformer layer (pre-norm attention + FFN) on x (..., b, t, d):
+    held once under tp (the heads and FFN units per rank in between), with
+    a leading rank axis under sp. A layer's weights may be stacked per
+    rank, (n, ...), to take per-rank gradients."""
     b, t, _ = x.shape[-3:]
-    tp = 1 if tp_axis is None else x.shape[0]
-    h_local = cfg.n_heads // tp
     dh = cfg.head_dim
-    L = len(lead)
 
     # -- attention --
     y = _rms_norm(x, layer["ln1"])
     if tp_axis is not None:
-        qkv = column_parallel(y, layer["w_qkv"], axis=tp_axis)
+        qkv = column_parallel(y, layer["w_qkv"], axis=tp_axis)    # (n, b, t, 3d/n)
     else:
-        qkv = y @ layer["w_qkv"]                               # (..., b, t, 3d/tp)
+        qkv = _matmul(y, layer["w_qkv"])                          # (..., b, t, 3d)
+    lead = tuple(qkv.shape[:-3])
+    L = len(lead)
+    h_local = qkv.shape[-1] // (3 * dh)
     # w_qkv columns are packed per head ([head][q|k|v][dh]), so a
     # contiguous tp column shard holds whole heads
     qkv = qkv.reshape(lead + (b, t, h_local, 3, dh)).transpose(L + 1, L + 2)
@@ -228,7 +276,7 @@ def _attn_ffn_block(cfg: TransformerConfig, layer: dict, x: torch.Tensor,
     if tp_axis is not None:
         x = x + row_parallel(o, layer["w_proj"], axis=tp_axis)
     else:
-        x = x + o @ layer["w_proj"]
+        x = x + _matmul(o, layer["w_proj"])
 
     # -- feed-forward (jax.nn.gelu's default is the tanh approximation) --
     y = _rms_norm(x, layer["ln2"])
@@ -237,5 +285,76 @@ def _attn_ffn_block(cfg: TransformerConfig, layer: dict, x: torch.Tensor,
                       approximate="tanh")
         x = x + row_parallel(hmid, layer["w_out"], axis=tp_axis)
     else:
-        x = x + F.gelu(y @ layer["w_in"], approximate="tanh") @ layer["w_out"]
+        hmid = F.gelu(_matmul(y, layer["w_in"]), approximate="tanh")
+        x = x + _matmul(hmid, layer["w_out"])
     return x
+
+
+def _xent(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Mean next-token cross-entropy of logits (..., V) against labels."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = logp.gather(-1, labels.long()[..., None])[..., 0]
+    return -ll.mean()
+
+
+def transformer_train_step(cfg: TransformerConfig, mesh, lr: float = 1e-2, *,
+                           dp_axis: str = "dp", tp_axis: str = "tp",
+                           sp_axis: str = "sp"):
+    """Build the SGD train step over ``mesh``: batch over ``dp_axis``,
+    heads and FFN units over ``tp_axis`` or the sequence over ``sp_axis``,
+    whichever one of them the mesh carries (an axis the mesh lacks has size
+    1; two live axes raise NotImplementedError).
+
+    Returns (step, param_specs): ``step(params, tokens, labels) -> (params,
+    loss)`` with tokens/labels the global (batch, seq) integer tensors and
+    params laid out as on that mesh's forward (:func:`shard_params` under
+    tp, as :func:`transformer_init` gives them otherwise). As in the JAX
+    step, each rank's loss is the mean over its own tokens, the dp/sp ranks'
+    gradients are summed (the fused fold kernel, one launch per parameter
+    tensor), tp gradients come out whole from the f/g pair, the update is
+    ``(p - lr * g).to(p.dtype)`` and the loss is the ranks' mean."""
+    specs = transformer_param_specs(cfg, tp_axis)
+    names = (dp_axis, tp_axis, sp_axis)
+    if not any(a in mesh.axis_names for a in names):
+        raise ValueError(f"mesh axes {mesh.axis_names} name none of {names}")
+    live = [a for a in names if a in mesh.axis_names and mesh.axis_size(a) > 1]
+    if len(live) > 1:
+        raise NotImplementedError(_TOPOLOGY)
+    axis = live[0] if live else None
+    n = mesh.axis_size(axis) if axis else 1
+
+    def sgd(params, grads):
+        new = [(p - lr * g).to(p.dtype) for p, g in zip(_dp.leaves(params), grads)]
+        return _dp.unflatten(params, new)
+
+    def tp_step(params, tokens, labels):
+        _tp_size(cfg, params)
+        own = _dp.tree_map(lambda p: p.detach().requires_grad_(), params)
+        positions = torch.arange(tokens.shape[-1], device=tokens.device)
+        loss = _xent(_logits(cfg, own, tokens, positions, tp_axis=tp_axis,
+                             sp_axis=None), labels)
+        grads = torch.autograd.grad(loss, _dp.leaves(own))
+        return sgd(params, grads), loss.detach()
+
+    def ranked_step(params, tokens, labels):
+        b, t = tokens.shape
+        if axis == sp_axis:
+            if t % n:
+                raise ValueError(f"sequence {t} does not split over {n} sp ranks")
+            cut = lambda x: x.view(b, n, t // n).transpose(0, 1)   # noqa: E731
+            positions = _sp_positions(n, t // n, tokens.device)
+        else:
+            if b % n:
+                raise ValueError(f"batch {b} does not split over {n} dp ranks")
+            cut = lambda x: x.view(n, b // n, t)                    # noqa: E731
+            positions = torch.arange(t, device=tokens.device)
+        ranked = _dp.replicate_tree(params, n)
+        logits = _logits(cfg, ranked, cut(tokens), positions, tp_axis=None,
+                         sp_axis=sp_axis if axis == sp_axis else None)
+        losses = torch.stack([_xent(lg, lb) for lg, lb in zip(logits, cut(labels))])
+        grads = torch.autograd.grad(losses.sum(), _dp.leaves(ranked))
+        grads = _dp.allreduce_grads(list(grads), axis=axis or sp_axis, mean=False)
+        loss = _dp.pmean_tree(losses.detach(), axis=axis or sp_axis)[0]
+        return sgd(params, [g[0] for g in grads]), loss
+
+    return (tp_step if axis == tp_axis else ranked_step), specs

@@ -1,11 +1,12 @@
 """Parallelism strategies over the in-graph tier — the port of
-``tpu_mpi/parallel`` (forward; the train-side pieces, ``dp.py`` and the
-f/g operators of ``tp.py``, come with the training slice).
+``tpu_mpi/parallel``.
 
 Every function takes stacked per-rank tensors, rank axis first, as
-:mod:`tpu_mpi_torch.xla` does:
+:mod:`tpu_mpi_torch.xla` does (what tp holds the same on every rank is
+held once):
 
-- tensor parallel (tp.py)      <- psum through the fused fold kernel
+- data parallel (dp.py)        <- gradient psum through the fused fold kernel
+- tensor parallel (tp.py)      <- the f/g pair, psum through the fused fold kernel
 - sequence parallel (ring.py, ulysses.py) <- the ring-attention kernel /
   the pairwise all-to-all kernel
 - expert parallel (ep.py)      <- padded all-to-all with capacity masks
@@ -13,7 +14,9 @@ Every function takes stacked per-rank tensors, rank axis first, as
 - halo exchange (halo.py)      <- neighbour exchange (permute kernel)
 """
 
-from .tp import all_gather_output, column_parallel, row_parallel
+from .dp import allreduce_grads, pmean_tree
+from .tp import (all_gather_output, column_parallel, row_parallel,
+                 tp_identity_fwd_psum_bwd, tp_psum_fwd_identity_bwd)
 from .ring import ring_attention
 from .ulysses import heads_to_seq, seq_to_heads, ulysses_attention
 from .ep import moe_dispatch_combine

@@ -14,15 +14,40 @@ scale multiplies float32 scores (the JAX function pre-scales q in its
 dtype), masked keys are -inf (it adds -1e30 and zeroes p below -5e29), and
 its n = 1 branch is a plain softmax in the input dtype. The two compute the
 same function and are held to a tolerance, not to bits.
+
+The function is differentiable: a ``torch.autograd.Function`` whose
+backward is ``attention.attention_backward`` (matmuls recomputing P for
+each query block; the JAX package's gradient is XLA's autodiff of its
+ring, with no kernel of its own).
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
 
 from ..kernels import attention as _attention
+
+
+class _RingAttention(torch.autograd.Function):
+    """Kernel (or plain schedule) forward, matmul backward, on stacked
+    contiguous (n, BH, t, d) blocks."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale):
+        out = _attention.attend(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.causal, ctx.scale = causal, scale
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        grads = _attention.attention_backward(q, k, v, out, dout.contiguous(),
+                                              causal=ctx.causal, scale=ctx.scale)
+        return (*grads, None, None)
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -32,14 +57,16 @@ def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     q, k, v: stacked (n, batch, heads, block_len, head_dim) — rank r's
     local sequence block is row r, and it holds global block r. Returns the
-    stacked local output blocks (same shape as q). ``axis`` names the mesh
-    axis, as in the JAX signature; the rank axis is dim 0."""
+    stacked local output blocks (same shape as q); gradients flow back to
+    q, k and v in their own shapes. ``axis`` names the mesh axis, as in the
+    JAX signature; the rank axis is dim 0."""
     if not isinstance(axis, str):
         raise NotImplementedError("ring attention runs over one mesh axis")
     if q.dim() != 5:
         raise ValueError(f"ring_attention takes stacked (n, b, h, t, d) blocks, "
                          f"got shape {tuple(q.shape)}")
     n, b, h, t, d = q.shape
+    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
     flat = [x.reshape(n, b * h, t, d).contiguous() for x in (q, k, v)]
-    out = _attention.attend(*flat, causal=causal, scale=scale)
+    out = _RingAttention.apply(*flat, bool(causal), scale)
     return out.view(n, b, h, t, d)
