@@ -96,6 +96,29 @@ fatal on failure:
    bound, the attention backward per call against SDPA's forward+backward
    on the gathered (8, 16, 1024, 64), ms per DDP and FSDP step.
 
+13. point-to-point and Cartesian topology on 4 rank threads: (a) the
+   float32[2^26] operands of phase 4 (and bfloat16 and int32 [2^24]
+   messages from the seed) through a ring ``Sendrecv`` of raw tensors and
+   of ``DeviceBuffer``s, ``Isend``/``Irecv`` + ``Waitall``, 3
+   ``Send_init``/``Recv_init`` rounds and an 8-partition
+   ``Psend_init``/``Precv_init`` exchange: every received tensor on cuda
+   and bitwise equal to what was sent, no raw receive sharing a sender's
+   storage, the DeviceBuffer receives sharing the sender's tensor and
+   keeping it after the sender's cell write; then ms per ring round (raw
+   against the 4 GiB it moves at the spec rate and at the copy control's
+   rate; DeviceBuffer, which moves none), µs per 8-byte round trip of a
+   CUDA tensor and of a numpy array, ms per 256 MiB CUDA tensor sent as an
+   object; (b) ``examples/06-jacobi.py`` at 16384 x 16384 float32 over
+   ``Cart_create(comm, 1, [4], [False], False)``, 50 sweeps of two halo
+   ``Sendrecv`` and ``Allreduce(res, MPI.MAX, cart)`` of a one-element CUDA
+   tensor: the grid and every residual bitwise equal to the same sweeps on
+   the whole grid in one thread, exactly 50 fold launches and no chained
+   fold; then ms per sweep (wall clock and CUDA events), device busy per
+   sweep under the profiler and the host's share; (c)
+   ``Neighbor_allgather``/``Neighbor_alltoall`` on a 2 x 2 non-periodic
+   Cart with 1 MiB blocks, bitwise against the plain gather, PROC_NULL
+   slots zero or untouched.
+
 Card comparisons run with TF32 off and bfloat16 reduced-precision
 reductions off (``torch.backends.cuda.matmul``), set at the start.
 
@@ -163,6 +186,17 @@ TRAIN_LOSS_TOL = 0.02
 # eight layers; at lr 1 the update stands clear of the parameter's own
 # float32 rounding
 TRAIN_LR_F32, TRAIN_F32_TOL = 1.0, 1e-3
+# phase 13: point-to-point and Cartesian topology on rank threads
+P2P_SIDE = 1 << 24          # the bfloat16 and int32 messages, elements
+P2P_PARTS = 8
+P2P_ROUNDS = 3              # Send_init / Recv_init rounds
+P2P_RING_ITERS = 10         # timed ring rounds (median)
+PINGPONG = 1000             # 8-byte round trips
+OBJECT_ITERS = 3            # 256 MiB object send/recv (median)
+JACOBI_N = 16384            # global grid JACOBI_N x JACOBI_N float32, 1 GiB
+JACOBI_SWEEPS = 50
+JACOBI_TIMED = 20
+NEIGHBOR_COUNT = 1 << 18    # float32 blocks of 1 MiB
 
 
 def log(msg: str) -> None:
@@ -801,14 +835,7 @@ def device_profile(fn, logdir: str, name: str, iters: int = 3) -> dict:
     prof.export_chrome_trace(trace)
     with open(trace) as f:
         events = json.load(f).get("traceEvents", [])
-    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
-                   for e in events if e.get("ph") == "X"
-                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
-    busy, end = 0.0, -1.0
-    for lo, hi in spans:
-        if hi > end:
-            busy += hi - max(lo, end)
-            end = hi
+    busy = busy_union_us(events)
     attn = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
             and "ring_attention_sm90_kernel" in e.get("name", "")]
     by_name: dict = {}
@@ -1381,6 +1408,435 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str) -> d
     return out
 
 
+# ---------------------------------------------------------------------------
+# 13. point-to-point and Cartesian topology
+# ---------------------------------------------------------------------------
+
+def busy_union_us(events) -> float:
+    """The device's busy time in a Chrome trace: the union of its kernel,
+    memcpy and memset spans (µs)."""
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"]))
+                   for e in events if e.get("ph") == "X"
+                   and e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset"))
+    busy, end = 0.0, -1.0
+    for lo, hi in spans:
+        if hi > end:
+            busy += hi - max(lo, end)
+            end = hi
+    return busy
+
+
+def p2p_operands(host: list) -> tuple:
+    """Each rank's bfloat16 (raw bits) and int32 messages, from SEED; the
+    float32 messages are the host path's operands."""
+    rng = np.random.default_rng(SEED + 13)
+    bf16 = []
+    for _ in host:
+        bits = rng.integers(0, 1 << 16, P2P_SIDE, dtype=np.uint16)
+        bits[(bits & 0x7F80) == 0x7F80] &= 0x807F       # no NaN or inf
+        bf16.append(bits)
+    ints = [rng.integers(-(1 << 20), 1 << 20, P2P_SIDE, dtype=np.int32)
+            for _ in host]
+    return bf16, ints
+
+
+def p2p_exchange(MPI, host: list, device) -> dict:
+    """Phase 13a: every point-to-point lane at the main path's size on
+    len(host) rank threads, checked on the card: a ring Sendrecv of raw
+    tensors and of DeviceBuffers, Isend/Irecv + Waitall, P2P_ROUNDS
+    persistent rounds, a partitioned exchange of P2P_PARTS partitions.
+    Every received tensor must be on the card and bitwise equal to what
+    was sent; no received raw tensor may share storage with any sender's
+    tensor; the DeviceBuffer receive shares the sender's tensor (zero
+    copy), and a sender's write after the Wait reaches no receiver."""
+    import torch
+    n = len(host)
+    bf16, ints = p2p_operands(host)
+    sent_ptrs: dict = {}
+    cell_ptrs: dict = {}
+
+    def ptr(t):
+        return t.untyped_storage().data_ptr()
+
+    def expect(what, got, want):
+        if got.device.type != torch.device(device).type:
+            raise AssertionError(f"{what} received on {got.device}")
+        if not same_bits(got, want):
+            raise AssertionError(f"{what}: received tensor differs from the "
+                                 f"one sent (max_abs_err {max_abs_err(got, want)})")
+
+    def body():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        nxt, prv = (r + 1) % n, (r - 1) % n
+        x = torch.from_numpy(host[r]).to(device, copy=True)
+        xb = MPI.from_numpy(bf16[r], device, torch.bfloat16)
+        xi = torch.from_numpy(ints[r]).to(device, copy=True)
+        want = torch.from_numpy(host[prv]).to(device, copy=True)
+        want_b = MPI.from_numpy(bf16[prv], device, torch.bfloat16)
+        want_i = torch.from_numpy(ints[prv]).to(device, copy=True)
+        # raw tensors: the sender's snapshot and the receive copy
+        y = torch.empty_like(x)
+        st = MPI.Sendrecv(x, nxt, 0, y, prv, 0, comm)
+        if (st.source, st.count) != (prv, x.numel()):
+            raise AssertionError(f"Sendrecv status {st}")
+        expect("ring Sendrecv, raw", y, want)
+        # DeviceBuffers: zero copy, the cells copy on write
+        dx = MPI.DeviceBuffer(x.clone(), device=device)
+        dy = MPI.DeviceBuffer(torch.zeros_like(x), device=device)
+        MPI.Sendrecv(dx, nxt, 1, dy, prv, 1, comm)
+        expect("ring Sendrecv, DeviceBuffer", dy.value, want)
+        # Isend / Irecv + Waitall
+        yb, yi = torch.empty_like(xb), torch.empty_like(xi)
+        MPI.Waitall([MPI.Irecv(yb, prv, 2, comm), MPI.Irecv(yi, prv, 3, comm),
+                     MPI.Isend(xb, nxt, 2, comm), MPI.Isend(xi, nxt, 3, comm)])
+        expect("Irecv bfloat16", yb, want_b)
+        expect("Irecv int32", yi, want_i)
+        # persistent rounds: the send buffer changes between rounds
+        sbuf, rbuf = xi.clone(), torch.empty_like(xi)
+        reqs = [MPI.Recv_init(rbuf, prv, 4, comm), MPI.Send_init(sbuf, nxt, 4, comm)]
+        for k in range(P2P_ROUNDS):
+            sbuf.add_(1)
+            MPI.Startall(reqs)
+            MPI.Waitall(reqs)
+            expect(f"persistent round {k}", rbuf, want_i + (k + 1))
+        # partitioned: each partition snapshotted at its Pready
+        z = torch.empty_like(x)
+        rreq = MPI.Precv_init(z, P2P_PARTS, prv, 5, comm)
+        sreq = MPI.Psend_init(x, P2P_PARTS, nxt, 5, comm)
+        MPI.Startall([rreq, sreq])
+        for i in reversed(range(P2P_PARTS)):
+            MPI.Pready(sreq, i)
+        MPI.Waitall([sreq, rreq])
+        expect("partitioned", z, want)
+        # no received raw tensor shares storage with any rank's sent tensor;
+        # the DeviceBuffer receive holds the sender's tensor
+        sent_ptrs[r] = {ptr(t) for t in (x, xb, xi, sbuf)}
+        cell_ptrs[r] = ptr(dx.value)
+        MPI.Barrier(comm)
+        sent = set().union(*sent_ptrs.values())
+        aliased = [name for name, t in (("y", y), ("yb", yb), ("yi", yi),
+                                        ("rbuf", rbuf), ("z", z))
+                   if ptr(t) in sent]
+        if aliased:
+            raise AssertionError(f"rank {r}: {aliased} share a sender's storage")
+        shares = ptr(dy.value) == cell_ptrs[prv]
+        MPI.Barrier(comm)
+        # writes after the Wait: raw in place, DeviceBuffer through its cell
+        x.add_(1.0)
+        dx.fill(-1.0)
+        torch.cuda.synchronize()
+        MPI.Barrier(comm)
+        expect("raw receive after the sender's write", y, want)
+        expect("DeviceBuffer receive after the sender's cell write", dy.value,
+               want)
+        MPI.Finalize()
+        return shares
+
+    shares = MPI.spmd_run(body, n, timeout=600)
+    if not all(shares):
+        raise AssertionError(f"a DeviceBuffer receive copied: {shares}")
+    return {"ranks": n, "dtypes": ["float32", "bfloat16", "int32"],
+            "float32_elems": int(host[0].size), "side_elems": P2P_SIDE,
+            "partitions": P2P_PARTS, "persistent_rounds": P2P_ROUNDS}
+
+
+def p2p_times(MPI, host: list, device) -> dict:
+    """Phase 13a's times, rank 0's wall clock between barriers that follow
+    a device synchronise: ms per ring Sendrecv round of the float32[2^26]
+    tensors, raw and as DeviceBuffers (median of P2P_RING_ITERS); µs per
+    round trip of an 8-byte CUDA tensor and of an 8-byte numpy array
+    between ranks 0 and 1 (PINGPONG round trips); ms to send and receive a
+    float32[2^26] CUDA tensor as an object (median of OBJECT_ITERS)."""
+    import torch
+    n = len(host)
+
+    def between_barriers(comm, fn) -> float:
+        torch.cuda.synchronize()
+        MPI.Barrier(comm)
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        MPI.Barrier(comm)
+        return time.perf_counter() - t0
+
+    def body():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        nxt, prv = (r + 1) % n, (r - 1) % n
+        x = torch.from_numpy(host[r]).to(device, copy=True)
+        out = {}
+        for name, a, b in (
+                ("raw", x, torch.empty_like(x)),
+                ("devicebuffer", MPI.DeviceBuffer(x.clone(), device=device),
+                 MPI.DeviceBuffer(torch.zeros_like(x), device=device))):
+            ts = [between_barriers(comm, lambda: MPI.Sendrecv(a, nxt, 0, b, prv,
+                                                              0, comm))
+                  for _ in range(WARMUP + P2P_RING_ITERS)]
+            out[f"ring_{name}_ms"] = float(np.median(ts[WARMUP:])) * 1e3
+        for name, make in (
+                ("cuda", lambda: torch.zeros(1, dtype=torch.float64, device=device)),
+                ("numpy", lambda: np.zeros(1))):
+            a, b = make(), make()
+
+            def pingpong():
+                for _ in range(PINGPONG):
+                    if r == 0:
+                        MPI.Send(a, 1, 7, comm)
+                        MPI.Recv(b, 1, 7, comm)
+                    elif r == 1:
+                        MPI.Recv(b, 0, 7, comm)
+                        MPI.Send(b, 0, 7, comm)
+
+            out[f"roundtrip_8B_{name}_us"] = between_barriers(comm, pingpong) \
+                / PINGPONG * 1e6
+        want0 = torch.from_numpy(host[0]).to(device, copy=True) if r == 1 else None
+        got: list = []
+
+        def object_message():
+            if r == 0:
+                MPI.send(x, 1, 8, comm)
+            elif r == 1:
+                got.append(MPI.recv(0, 8, comm)[0])
+
+        ts = []
+        for _ in range(OBJECT_ITERS):
+            ts.append(between_barriers(comm, object_message))
+            if got and (got[-1].device != want0.device
+                        or not same_bits(got.pop(), want0)):
+                raise AssertionError("object message: the tensor differs or "
+                                     "came back elsewhere")
+        out["object_256MiB_ms"] = float(np.median(ts)) * 1e3
+        MPI.Finalize()
+        return out
+
+    return MPI.spmd_run(body, n, timeout=600)[0]
+
+
+def jacobi_sweep(u, rows: int):
+    """One five-point update of a slab's rows 1..rows: the new rows and
+    their largest change, a one-element tensor."""
+    new = u[1:rows + 1].clone()
+    new[:, 1:-1] = 0.25 * (u[:rows, 1:-1] + u[2:, 1:-1]
+                           + u[1:rows + 1, :-2] + u[1:rows + 1, 2:])
+    return new, (new - u[1:rows + 1]).abs().max().reshape(1)
+
+
+def jacobi(MPI, device, n: int, nranks: int, sweeps: int,
+           logdir=None) -> list:
+    """Phase 13b: examples/06-jacobi.py on the card, ``sweeps`` sweeps with
+    no early stop. ``nranks`` rank threads over ``Cart_create(comm, 1,
+    [nranks], [False], False)``; each holds a (n/nranks + 2, n) float32
+    slab; a sweep is two halo ``Sendrecv`` over ``Cart_shift``, the
+    five-point update in torch, and ``Allreduce(res, MPI.MAX, cart)`` of a
+    one-element CUDA tensor. Per rank: its slab, its residuals, the wall
+    time and (rank 0) the CUDA-event time of the sweeps; with ``logdir``,
+    under ``MPI.profile_trace``."""
+    import contextlib
+    import torch
+    rows = n // nranks
+
+    def body():
+        MPI.Init()
+        cart = MPI.Cart_create(MPI.COMM_WORLD, 1, [nranks], [False], False)
+        up, down = MPI.Cart_shift(cart, 0, 1)
+        u = torch.zeros(rows + 2, n, device=device)
+        if MPI.Comm_rank(cart) == 0:
+            u[0] = 1.0                       # the fixed hot top edge
+        res = []
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        MPI.Barrier(cart)
+        trace = MPI.profile_trace(logdir) if logdir else contextlib.nullcontext()
+        with trace:
+            t0 = time.perf_counter()
+            start.record()
+            for _ in range(sweeps):
+                MPI.Sendrecv(u[1], up, 0, u[rows + 1], down, 0, cart)
+                MPI.Sendrecv(u[rows], down, 1, u[0], up, 1, cart)
+                new, local = jacobi_sweep(u, rows)
+                u[1:rows + 1] = new
+                res.append(MPI.Allreduce(local, MPI.MAX, cart))
+            # after the last Allreduce every rank's sweeps are on the stream
+            stop.record()
+            torch.cuda.synchronize()
+            MPI.Barrier(cart)
+            wall = time.perf_counter() - t0
+        MPI.Finalize()
+        return u[1:rows + 1], torch.cat(res), wall, start.elapsed_time(stop)
+
+    return MPI.spmd_run(body, nranks, timeout=600)
+
+
+def jacobi_whole(device, n: int, sweeps: int) -> tuple:
+    """The same sweeps on the whole grid in one thread."""
+    import torch
+    u = torch.zeros(n + 2, n, device=device)
+    u[0] = 1.0
+    res = []
+    for _ in range(sweeps):
+        new, r = jacobi_sweep(u, n)
+        u[1:n + 1] = new
+        res.append(r)
+    return u[1:n + 1], torch.cat(res)
+
+
+def check_jacobi(out: list, whole: tuple) -> None:
+    import torch
+    grid, residuals = whole
+    got = torch.cat([u for u, _, _, _ in out])
+    if got.device != grid.device or not same_bits(got, grid):
+        raise AssertionError(f"Jacobi grid differs from the one-thread sweeps "
+                             f"(max_abs_err {max_abs_err(got, grid)})")
+    for r, (_, res, _, _) in enumerate(out):
+        if not same_bits(res, residuals):
+            raise AssertionError(f"rank {r}'s Jacobi residuals differ from the "
+                                 f"one-thread sweeps: {res.tolist()[:4]} vs "
+                                 f"{residuals.tolist()[:4]}")
+
+
+def neighbors(MPI, device) -> dict:
+    """Phase 13c: ``Neighbor_allgather`` and ``Neighbor_alltoall`` on a 2 x 2
+    non-periodic Cart with 1 MiB float32 blocks on the card, allocating and
+    into a caller's buffer pre-filled with -7, against the plain gather of
+    each neighbour's block, bitwise; PROC_NULL slots are zeros (allocating)
+    or keep the -7 fill."""
+    import torch
+    c = NEIGHBOR_COUNT
+    rng = np.random.default_rng(SEED + 14)
+    blocks = [rng.standard_normal(c, dtype=np.float32) for _ in range(4)]
+    a2a = [rng.standard_normal(4 * c, dtype=np.float32) for _ in range(4)]
+
+    def body():
+        MPI.Init()
+        cart = MPI.Cart_create(MPI.COMM_WORLD, [2, 2], [False, False], False)
+        r = MPI.Comm_rank(cart)
+        nbrs = [*MPI.Cart_shift(cart, 0, 1), *MPI.Cart_shift(cart, 1, 1)]
+        send = torch.from_numpy(blocks[r]).to(device, copy=True)
+        send2 = torch.from_numpy(a2a[r]).to(device, copy=True)
+        fill = torch.full((4 * c,), -7.0, device=device)
+        outs = {"allgather": MPI.Neighbor_allgather(send, cart),
+                "alltoall": MPI.Neighbor_alltoall(send2, c, cart)}
+        into = {"allgather": fill.clone(), "alltoall": fill.clone()}
+        MPI.Neighbor_allgather(send, into["allgather"], cart)
+        MPI.Neighbor_alltoall(send2, into["alltoall"], c, cart)
+        for name in outs:
+            got, got_into = outs[name], into[name].view(4, c)
+            if got.device != send.device or tuple(got.shape) != (4, c):
+                raise AssertionError(f"Neighbor_{name}: {got.shape} on {got.device}")
+            for i, nb in enumerate(nbrs):
+                if nb == MPI.PROC_NULL:
+                    want, want_into = torch.zeros(c, device=device), fill[:c]
+                else:
+                    src = blocks[nb] if name == "allgather" else \
+                        a2a[nb][(i ^ 1) * c:((i ^ 1) + 1) * c]
+                    want = want_into = torch.from_numpy(src).to(device, copy=True)
+                if not (same_bits(got[i], want) and same_bits(got_into[i], want_into)):
+                    raise AssertionError(f"rank {r} Neighbor_{name} slot {i} "
+                                         f"(neighbour {nb}) differs")
+        MPI.Finalize()
+        return sum(nb == MPI.PROC_NULL for nb in nbrs)
+
+    nulls = MPI.spmd_run(body, 4, timeout=600)
+    return {"grid": [2, 2], "block_bytes": 4 * c, "proc_null_slots": sum(nulls)}
+
+
+def p2p_phase(MPI, collective, fr, host: list, device, caps: dict,
+              copy_gbps: float, logdir: str, where: str) -> dict:
+    """Phase 13: (a) point-to-point at the main path's size, (b) the Jacobi
+    halo loop at JACOBI_N, (c) the neighbourhood collectives; checks, then
+    times. Returns the numbers for the kernels line; the Jacobi loop's
+    fold launches under ``jacobi_launches``."""
+    import torch
+    t0 = time.perf_counter()
+    fr.reset_launches()
+    collective.chained_folds = 0
+    exch = p2p_exchange(MPI, host, device)
+    t_exch = time.perf_counter() - t0
+    if fr.launches or collective.chained_folds:
+        raise AssertionError(f"point-to-point launched {fr.launches} folds")
+    log(f"13a point-to-point on {exch['ranks']} rank threads, float32[2^26] "
+        f"raw and DeviceBuffer ring Sendrecv, Isend/Irecv bfloat16 and int32 "
+        f"[2^24], {P2P_ROUNDS} Send_init/Recv_init rounds, {P2P_PARTS} "
+        f"partitions: every received tensor on cuda and bitwise equal to what "
+        f"was sent; no raw receive shares a sender's storage; the DeviceBuffer "
+        f"receives share the sender's tensor and keep it after the sender's "
+        f"cell write; raw receives unchanged by the sender's write in place "
+        f"({t_exch:.1f} s)")
+    t1 = time.perf_counter()
+    times = p2p_times(MPI, host, device)
+    t_times = time.perf_counter() - t1
+    raw_bytes = 4 * host[0].nbytes * len(host)   # snapshot + receive copy, r+w
+    raw_bound = raw_bytes / (caps["hbm_gbps"] * 1e9) * 1e3
+    raw_copy = raw_bytes / (copy_gbps * 1e9) * 1e3
+    log(f"13a ring Sendrecv round, {len(host)} ranks x float32[2^26]: raw "
+        f"{times['ring_raw_ms']:.4f} ms (moves {raw_bytes} bytes: bound "
+        f"{raw_bound:.4f} ms at {caps['hbm_gbps']:.0f} GB/s spec, "
+        f"{raw_copy:.4f} ms at this run's copy rate); DeviceBuffer "
+        f"{times['ring_devicebuffer_ms']:.4f} ms (moves 0 bytes: the cells "
+        f"rebind; all host hand-off); median of {P2P_RING_ITERS} {where}")
+    log(f"13a 8-byte round trip: CUDA tensor {times['roundtrip_8B_cuda_us']:.2f} "
+        f"us, numpy {times['roundtrip_8B_numpy_us']:.2f} us ({PINGPONG} round "
+        f"trips); send/recv of a 256 MiB CUDA tensor as an object "
+        f"{times['object_256MiB_ms']:.2f} ms (through host bytes) {where} "
+        f"({t_times:.1f} s)")
+
+    nranks = len(host)
+    t1 = time.perf_counter()
+    fr.reset_launches()
+    collective.chained_folds = 0
+    out = jacobi(MPI, device, JACOBI_N, nranks, JACOBI_SWEEPS)
+    folds, chained = fr.launches, collective.chained_folds
+    if folds != JACOBI_SWEEPS or chained:
+        raise AssertionError(f"Jacobi: {folds} fold launches and {chained} "
+                             f"chained folds for {JACOBI_SWEEPS} sweeps")
+    check_jacobi(out, jacobi_whole(device, JACOBI_N, JACOBI_SWEEPS))
+    first, last = out[0][1][0].item(), out[0][1][-1].item()
+    del out
+    log(f"13b Jacobi {JACOBI_N}x{JACOBI_N} float32 on a 1-d Cart of {nranks} "
+        f"rank threads, {JACOBI_SWEEPS} sweeps: grid and every residual bitwise "
+        f"equal to the one-thread sweeps; {folds} fold launches, 0 chained; "
+        f"residual {first} -> {last} ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    timed = jacobi(MPI, device, JACOBI_N, nranks, JACOBI_TIMED)
+    wall_ms = max(w for _, _, w, _ in timed) / JACOBI_TIMED * 1e3
+    event_ms = timed[0][3] / JACOBI_TIMED
+    del timed
+    jdir = os.path.join(logdir, "jacobi")
+    jacobi(MPI, device, JACOBI_N, nranks, JACOBI_TIMED, logdir=jdir)
+    trace = max((os.path.join(jdir, f) for f in os.listdir(jdir)),
+                key=os.path.getmtime)
+    with open(trace) as f:
+        busy_ms = busy_union_us(json.load(f).get("traceEvents", [])) / 1e3 \
+            / JACOBI_TIMED
+    sweep_bound = 2 * (JACOBI_N + 2) * JACOBI_N * 4 / (caps["hbm_gbps"] * 1e9) * 1e3
+    host_share = 1 - busy_ms / wall_ms if busy_ms else None
+    log(f"13b Jacobi per sweep ({JACOBI_TIMED} sweeps): wall {wall_ms:.4f} ms, "
+        f"CUDA events {event_ms:.4f} ms, device busy {busy_ms:.4f} ms under the "
+        f"profiler (host share {host_share}); bound {sweep_bound:.4f} ms (the "
+        f"grid read and written once) {where} ({time.perf_counter() - t1:.1f} s)")
+    t1 = time.perf_counter()
+    nb = neighbors(MPI, device)
+    log(f"13c Neighbor_allgather and Neighbor_alltoall on a 2x2 non-periodic "
+        f"Cart, 1 MiB float32 blocks on cuda: bitwise equal to the plain gather; "
+        f"{nb['proc_null_slots']} PROC_NULL slots zero (allocating) or "
+        f"untouched (caller's buffer) ({time.perf_counter() - t1:.1f} s)")
+    torch.cuda.empty_cache()
+    seconds = time.perf_counter() - t0
+    log(f"phase 13 in {seconds:.1f} s")
+    return {"jacobi_launches": folds, "exchange": exch, "times": times,
+            "ring_raw_bytes": raw_bytes, "ring_raw_bound_ms": raw_bound,
+            "ring_raw_copy_control_ms": raw_copy,
+            "jacobi": {"n": JACOBI_N, "ranks": nranks, "sweeps": JACOBI_SWEEPS,
+                       "sweep_wall_ms": wall_ms, "sweep_event_ms": event_ms,
+                       "sweep_busy_ms": busy_ms, "host_share": host_share,
+                       "sweep_bound_ms": sweep_bound},
+            "neighbors": nb, "seconds": seconds}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1753,8 +2209,13 @@ def main() -> int:
         train_launches=train["sp"]["attention_launches"],
         train_backward_ms=train["times"]["attention_backward_ms"],
         train_sdpa_fwd_bwd_ms=train["times"]["sdpa_fwd_bwd_ms"]))
+    # 13. point-to-point and Cartesian topology on the rank threads
+    p2p = p2p_phase(MPI, collective, fr, host, device, caps, copy_gbps, logdir,
+                    where)
     kernels[0]["tp_forward_launches"] = tp_folds
-    kernels[0]["launches"] += train_folds
+    kernels[0]["launches"] += train_folds + p2p["jacobi_launches"]
+    kernels[0]["jacobi_launches"] = p2p["jacobi_launches"]
+    kernels[0]["p2p"] = p2p
     kernels[0]["train_launches"] = train_folds
     kernels[0]["train"] = train
     print(card, flush=True)         # as nvidia-smi gives it: name, power limit

@@ -519,3 +519,159 @@ def test_ddp_fsdp_on_card():
             for n in spec:
                 assert torch.equal(rank_out[0][n].view(torch.int64),
                                    other[n].view(torch.int64)), n
+
+
+# ---------------------------------------------------------------------------
+# Point-to-point and Cartesian topology on CUDA tensors
+# ---------------------------------------------------------------------------
+
+def _p2p_ring(dev, wrap, n=4, count=4099):
+    """A ring Sendrecv of ``wrap``-ped CUDA tensors on n rank threads; each
+    rank returns what it sent, what it received and the two tensors."""
+    import numpy as np
+    import tpu_mpi_torch as MPI
+    data = [np.random.default_rng(r).standard_normal(count).astype(np.float32)
+            for r in range(n)]
+
+    def body():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        x = wrap(torch.from_numpy(data[r]).to(dev))
+        y = wrap(torch.zeros(count, device=dev))
+        MPI.Sendrecv(x, (r + 1) % n, 0, y, (r - 1) % n, 0, comm)
+        xt = x.value if isinstance(x, MPI.DeviceBuffer) else x
+        yt = y.value if isinstance(y, MPI.DeviceBuffer) else y
+        MPI.Finalize()
+        return x, y, xt, yt
+
+    return data, MPI.spmd_run(body, n, timeout=120)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tensor", "devicebuffer"])
+def test_sendrecv_ring_on_card(kind):
+    """Raw tensors arrive as private copies on the card; DeviceBuffers
+    share the sender's tensor under copy-on-write, and a later write through
+    the sender's cell does not reach the receiver."""
+    import numpy as np
+    import tpu_mpi_torch as MPI
+    dev = _card()
+    wrap = (lambda t: t) if kind == "tensor" else \
+        (lambda t: MPI.DeviceBuffer(t, device=dev))
+    data, res = _p2p_ring(dev, wrap)
+    n = len(res)
+    sent = {xt.untyped_storage().data_ptr() for _, _, xt, _ in res}
+    for r, (_, _, _, yt) in enumerate(res):
+        assert yt.device.type == "cuda"
+        assert np.array_equal(yt.cpu().numpy(), data[(r - 1) % n])
+        if kind == "tensor":
+            assert yt.untyped_storage().data_ptr() not in sent
+        else:
+            assert yt is res[(r - 1) % n][2]
+    for x, _, _, _ in res:
+        if kind == "tensor":
+            x.fill_(3.0)
+        else:
+            x.fill(3.0)
+    torch.cuda.synchronize()
+    for r, (_, y, _, _) in enumerate(res):
+        got = y if kind == "tensor" else y.value
+        assert np.array_equal(got.cpu().numpy(), data[(r - 1) % n])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tensor", "devicebuffer"])
+def test_partitioned_exchange_on_card(kind):
+    """8 partitions, each filled and marked ready in turn, land on the card
+    bitwise; a strided raw tensor is refused before any partition moves."""
+    import tpu_mpi_torch as MPI
+    dev = _card()
+    parts, plen = 8, 1025
+    want = torch.randn(parts * plen, generator=torch.Generator().manual_seed(8))
+
+    def body():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        out = None
+        if MPI.Comm_rank(comm) == 0:
+            src = torch.zeros(parts * plen, device=dev)
+            buf = src if kind == "tensor" else MPI.DeviceBuffer(src, device=dev)
+            req = MPI.Psend_init(buf, parts, 1, 5, comm)
+            MPI.Start(req)
+            for i in range(parts):
+                sl = slice(i * plen, (i + 1) * plen)
+                if kind == "tensor":
+                    src[sl] = want[sl].to(dev)
+                else:
+                    buf[sl] = want[sl].to(dev)
+                MPI.Pready(req, i)
+            MPI.Wait(req)
+        else:
+            dst = torch.zeros(parts * plen, device=dev)
+            buf = dst if kind == "tensor" else MPI.DeviceBuffer(dst, device=dev)
+            with pytest.raises(MPI.MPIError, match="contiguous"):
+                MPI.Precv_init(torch.zeros(parts * plen, 2, device=dev)[:, 0],
+                               parts, 0, 5, comm)
+            req = MPI.Precv_init(buf, parts, 0, 5, comm)
+            MPI.Start(req)
+            MPI.Wait(req)
+            out = (dst if kind == "tensor" else buf.value)
+        MPI.Finalize()
+        return out
+
+    got = MPI.spmd_run(body, 2, timeout=120)[1]
+    assert got.device.type == "cuda"
+    assert torch.equal(got.cpu(), want)
+
+
+@pytest.mark.cuda
+def test_jacobi_halo_loop_on_card():
+    """The Jacobi halo loop on 4 rank threads over a 1-d Cart, slabs on the
+    card: the gathered grid and every sweep's residual bitwise equal to the
+    same sweeps on the whole grid in one thread; one fold launch a sweep."""
+    import tpu_mpi_torch as MPI
+    from tpu_mpi_torch import collective
+    dev = _card()
+    n, size, sweeps = 512, 4, 20
+    rows = n // size
+
+    def sweep(u, m):
+        new = u[1:m + 1].clone()
+        new[:, 1:-1] = 0.25 * (u[:m, 1:-1] + u[2:, 1:-1]
+                               + u[1:m + 1, :-2] + u[1:m + 1, 2:])
+        return new, (new - u[1:m + 1]).abs().max().reshape(1)
+
+    def body():
+        MPI.Init()
+        cart = MPI.Cart_create(MPI.COMM_WORLD, 1, [size], [False], False)
+        up, down = MPI.Cart_shift(cart, 0, 1)
+        u = torch.zeros(rows + 2, n, device=dev)
+        if MPI.Comm_rank(cart) == 0:
+            u[0] = 1.0
+        res = []
+        for _ in range(sweeps):
+            MPI.Sendrecv(u[1], up, 0, u[rows + 1], down, 0, cart)
+            MPI.Sendrecv(u[rows], down, 1, u[0], up, 1, cart)
+            new, local = sweep(u, rows)
+            u[1:rows + 1] = new
+            res.append(MPI.Allreduce(local, MPI.MAX, cart))
+        MPI.Finalize()
+        return u[1:rows + 1], torch.cat(res)
+
+    folds, chained = fr.launches, collective.chained_folds
+    out = MPI.spmd_run(body, size, timeout=120)
+    assert fr.launches - folds == sweeps
+    assert collective.chained_folds == chained
+    grid = torch.zeros(n + 2, n, device=dev)
+    grid[0] = 1.0
+    want = []
+    for _ in range(sweeps):
+        new, r = sweep(grid, n)
+        grid[1:n + 1] = new
+        want.append(r)
+    got = torch.cat([u for u, _ in out])
+    assert got.device.type == "cuda"
+    assert torch.equal(got, grid[1:n + 1])
+    for _, res in out:
+        assert torch.equal(res, torch.cat(want))

@@ -1,10 +1,12 @@
 """tpu_mpi_torch: the PyTorch and CUDA port of tpu_mpi.
 
-This first slice carries the host path of the MPI.jl-shaped API
-(MPI.jl src/MPI.jl): ranks are threads of one controller process
-that share one CUDA device; collectives rendezvous through the host engine
-with zero-copy placement; and the rank-ordered reduction fold runs as one
-hand-written CUDA kernel (:mod:`tpu_mpi_torch.kernels.fused_reduce`).
+It carries the host path of the MPI.jl-shaped API (MPI.jl src/MPI.jl):
+ranks are threads of one controller process that share one CUDA device;
+collectives rendezvous through the host engine with zero-copy placement,
+and the rank-ordered reduction fold runs as one hand-written CUDA kernel
+(:mod:`tpu_mpi_torch.kernels.fused_reduce`); point-to-point messages go
+through the host matching engine, and Cartesian communicators give them
+their neighbours.
 The main path:
 
     MPI.Init(); comm = MPI.COMM_WORLD
@@ -35,7 +37,8 @@ from .environment import (Finalize, Finalized, Init, Initialized, Wtime,
 from .comm import COMM_SELF, COMM_WORLD, Comm, Comm_dup, Comm_rank, Comm_size
 
 # Object model
-from .buffers import DeviceBuffer, IN_PLACE, from_numpy, to_numpy
+from .buffers import (Buffer, Buffer_send, DeviceBuffer, IN_PLACE, from_numpy,
+                      to_numpy)
 from .operators import (BAND, BOR, BXOR, LAND, LOR, LXOR, MAX, MIN, Op, PROD,
                         SUM)
 
@@ -43,7 +46,23 @@ from .operators import (BAND, BOR, BXOR, LAND, LOR, LXOR, MAX, MIN, Op, PROD,
 from .collective import (Allreduce, Allreduce_init, Barrier, Bcast, Reduce,
                          Reduce_scatter, Reduce_scatter_block)
 from .overlap import PersistentCollRequest
-from .pointtopoint import Start, Status, Wait
+
+# Point-to-point (src/pointtopoint.jl)
+from .pointtopoint import (Cancel, Get_count, Get_error, Get_source, Get_tag,
+                           Iprobe, Irecv, Isend, Isendrecv, Isendrecv_replace,
+                           Parrived, PartitionedRequest, Pready, Pready_range,
+                           Precv_init, Prequest, Probe, Psend_init, Recv,
+                           Recv_init, Request, REQUEST_NULL, Send, Send_init,
+                           Sendrecv, Sendrecv_replace, Start, Startall,
+                           Status, STATUS_EMPTY, Test, Testall, Testany,
+                           Testsome, Wait, Waitall, Waitany, Waitsome, irecv,
+                           isend, recv, send)
+from .error import TruncationError
+
+# Topology (src/topology.jl) + MPI-3 neighbourhood collectives
+from .topology import (Cart_coords, Cart_create, Cart_get, Cart_rank,
+                       Cart_shift, Cart_sub, CartComm, Cartdim_get,
+                       Dims_create, Neighbor_allgather, Neighbor_alltoall)
 
 from . import testing
 

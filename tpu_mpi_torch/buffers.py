@@ -39,18 +39,42 @@ another stream owns that ordering.
 Operands carried across: :func:`from_numpy` and :func:`to_numpy` move
 arrays between numpy and torch, bfloat16 as its raw 16 bits in a
 ``uint16`` array (numpy has no bfloat16).
+
+Send snapshots: :func:`to_wire` copies a host array or a raw tensor into
+a private snapshot and marks it (:func:`is_wire_snapshot`), so a send of
+a snapshot (``Sendrecv_replace`` makes one) posts it without a second
+copy. numpy's own flags cannot say "private" and a tensor has no flag at
+all, so the mark is explicit: a registry keyed by ``id`` whose values are
+weak references to the marked arrays and tensors, so an entry dies with
+its object and a recycled id never matches. A ``DeviceBuffer``'s tensor
+is never marked: its cell still holds it.
 """
 
 from __future__ import annotations
 
+import weakref
 from typing import Any, Optional
 
 import numpy as np
 import torch
 
-from .datatypes import torch_dtype
+from .datatypes import Datatype, to_datatype, torch_dtype
 from . import error as _ec
 from .error import MPIError
+
+_wire_snapshots: "weakref.WeakValueDictionary[int, Any]" = \
+    weakref.WeakValueDictionary()
+
+
+def _mark_wire_snapshot(arr: Any) -> Any:
+    _wire_snapshots[id(arr)] = arr
+    return arr
+
+
+def is_wire_snapshot(arr: Any) -> bool:
+    """True iff ``arr`` is a private copy minted by :func:`to_wire` (a host
+    array or a tensor no user can hold an alias of)."""
+    return _wire_snapshots.get(id(arr)) is arr
 
 
 class _InPlace:
@@ -213,6 +237,33 @@ class DeviceBuffer:
         return f"DeviceBuffer({self.value!r})"
 
 
+class Buffer:
+    """(data, count, datatype) communication operand (src/buffers.jl:78-91)."""
+
+    def __init__(self, data: Any, count: Optional[int] = None,
+                 datatype: Optional[Datatype] = None):
+        self.data = data
+        arr = extract_array(data)
+        if arr is None:
+            raise MPIError(f"not a communication buffer: {type(data).__name__}",
+                           code=_ec.ERR_BUFFER)
+        self.count = count if count is not None else _numel(arr)
+        self.datatype = datatype if datatype is not None else to_datatype(arr.dtype)
+
+    @property
+    def array(self):
+        return extract_array(self.data)
+
+
+def Buffer_send(x: Any) -> Buffer:
+    """Normalize any send operand, incl. scalars (src/buffers.jl:125)."""
+    if isinstance(x, Buffer):
+        return x
+    if np.isscalar(x) or isinstance(x, (int, float, complex, bool, np.generic)):
+        return Buffer(np.asarray(x))
+    return Buffer(x)
+
+
 def extract_array(x: Any):
     """The underlying numpy array or torch tensor of an operand, or None.
 
@@ -245,6 +296,16 @@ def assert_minlength(buf: Any, count: int) -> None:
     @assert_minlength (src/buffers.jl:25-31)."""
     n = element_count(buf)
     assert n >= count, f"buffer has {n} elements, needs at least {count}"
+
+
+def is_writable(x: Any) -> bool:
+    """Whether a receive can land in ``x``: a cell, a writeable host array,
+    or a raw tensor (written in place)."""
+    if isinstance(x, (DeviceBuffer, torch.Tensor)):
+        return True
+    if isinstance(x, np.ndarray):
+        return x.flags.writeable
+    return False
 
 
 def write_flat(dest: Any, src: Any, count: Optional[int] = None) -> Any:
@@ -288,6 +349,39 @@ def write_flat(dest: Any, src: Any, count: Optional[int] = None) -> Any:
     raise MPIError(f"cannot write into {type(dest).__name__}", code=_ec.ERR_BUFFER)
 
 
+def write_range(buf: Any, off: int, new: Any) -> None:
+    """Write 1-d ``new`` into the flat element range [off, off+len(new)) of
+    ``buf``: a partitioned receive's partition, a neighbour's block. A
+    DeviceBuffer copies on write and rebinds; a host array is written in
+    place (strided views through ``.flat``); a raw tensor is written in
+    place and must be contiguous, as for :func:`write_flat`."""
+    if isinstance(buf, DeviceBuffer):
+        v = buf.value
+        flat = v.reshape(-1).clone()              # copy on write
+        src = as_tensor(new, v.dtype, v.device).reshape(-1)
+        flat[off:off + src.numel()] = src
+        buf.value = flat.view(v.shape)
+        return
+    if isinstance(buf, torch.Tensor):
+        if not buf.is_contiguous():
+            raise MPIError("partial write into a non-contiguous tensor",
+                           code=_ec.ERR_BUFFER)
+        src = as_tensor(new, buf.dtype, buf.device).reshape(-1)
+        buf.view(-1)[off:off + src.numel()].copy_(src)
+        return
+    arr = extract_array(buf)
+    if arr is None:
+        raise MPIError(f"cannot write into {type(buf).__name__}",
+                       code=_ec.ERR_BUFFER)
+    src = to_numpy(new).reshape(-1)
+    if arr.flags.c_contiguous:
+        arr.reshape(-1)[off:off + src.size] = src
+    else:
+        # .flat is a logical C-order view whatever the strides;
+        # reshape(-1) of a strided view would copy and drop the write
+        arr.flat[off:off + src.size] = src
+
+
 def clone_like(x: Any, value: Any) -> Any:
     """An operand of the same registry kind as x holding ``value``, on x's
     device. A DeviceBuffer result may share ``value`` (cells copy on
@@ -314,21 +408,20 @@ def to_wire(x: Any, count: Optional[int] = None) -> Any:
     those flags, and a flat view of a private copy would defeat it.
     """
     if isinstance(x, DeviceBuffer):
-        arr = x.value
-    elif isinstance(x, torch.Tensor):
+        return _flat_tensor(x.value, count)
+    if isinstance(x, torch.Tensor):
         arr = x.detach().clone(memory_format=torch.contiguous_format)
-    else:
-        src = np.asarray(x)
-        if count is None:
-            arr = np.ascontiguousarray(src)
-            return arr.copy() if arr is src else arr
-        out = np.ravel(src)           # view (contiguous) or owning copy
-        if out.size != count:
-            out = out[:count]
-        if out.base is not None or out is src:
-            out = out.copy()          # the single snapshot copy
-        return out
-    return _flat_tensor(arr, count)
+        return _mark_wire_snapshot(_flat_tensor(arr, count))
+    src = np.asarray(x)
+    if count is None:
+        arr = np.ascontiguousarray(src)
+        return _mark_wire_snapshot(arr.copy() if arr is src else arr)
+    out = np.ravel(src)           # view (contiguous) or owning copy
+    if out.size != count:
+        out = out[:count]
+    if out.base is not None or out is src:
+        out = out.copy()          # the single snapshot copy
+    return _mark_wire_snapshot(out)
 
 
 def _flat_tensor(arr: torch.Tensor, count: Optional[int]) -> torch.Tensor:

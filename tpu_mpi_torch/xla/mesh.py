@@ -9,9 +9,9 @@ on a one-card host every rank shares the card; a stacked tensor lives on
 ``Mesh.device``. The default devices are the CUDA cards; a CPU mesh is had
 only by asking for it (``devices=[torch.device("cpu")]``).
 
-One mesh axis is carried in this slice. Meshes of several axes and the
-Cartesian-communicator bridge come with the topology module (ROADMAP
-Queue A #8).
+One mesh axis is carried here; a 1-d Cartesian communicator maps onto it
+(``CartComm.device_mesh``). Meshes of several axes come later (ROADMAP
+Queue A #8b).
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from typing import Mapping, Optional, Sequence, Union
 
 import torch
 
-_TOPOLOGY = ("meshes of more than one axis come with the port's topology "
-             "module (ROADMAP Queue A #8)")
+_TOPOLOGY = ("meshes of more than one axis come with a later slice of the "
+             "port (ROADMAP Queue A #8b)")
 
 
 def local_device_count() -> int:
@@ -95,9 +95,11 @@ def comm_mesh(comm, axis: str = "comm", devices=None) -> Mesh:
     """A mesh over a host communicator's ranks, in its rank order, so that
     in-graph rank r is the communicator's rank r. Each rank lives where its
     world rank's device is (``device_for``), or, with ``devices``, on
-    ``devices[world_rank % len(devices)]``."""
+    ``devices[world_rank % len(devices)]``. A Cartesian communicator goes
+    through ``CartComm.device_mesh`` (1-d grids only)."""
     if getattr(comm, "dims", None) is not None:
-        raise NotImplementedError(_TOPOLOGY)
+        # a Cartesian communicator: its 1-d grid is the mesh; more axes raise
+        return comm.device_mesh((axis,), devices=devices)
     if devices is None:
         ctx = comm.ctx
         devs = [ctx.device_for(w) for w in comm.group]
