@@ -119,6 +119,27 @@ fatal on failure:
    Cart with 1 MiB blocks, bitwise against the plain gather, PROC_NULL
    slots zero or untouched.
 
+14. one-sided RMA, MPI-IO and checkpoints on 4 rank threads: (a) windows
+   over the float32[2^26] operands of phase 4, once as raw CUDA tensors
+   and once as ``DeviceBuffer``s: a fence epoch of Puts of 2^24-element
+   blocks into the right neighbour's window and one of Gets from the left
+   neighbour's, an int32 Accumulate SUM from every rank into rank 0, a
+   float32 Accumulate one origin per epoch against the plain fold, 1000
+   ``Fetch_and_op`` SUMs a rank on rank 0's int64 counter (4000, every
+   fetched value once), the dynamic window of test_fetch_and_op_dynamic on
+   raw CUDA tensors: all bitwise, one fold launch per CUDA accumulate and
+   none chained; then ms per Put and Get epoch against the bytes bound, us
+   per 8-byte Put, Get and Fetch_and_op, ms per 8-byte Put into a 256 MiB
+   DeviceBuffer window (the cell copies on write); (b) ``write_at_all`` of
+   each rank's CUDA tensor into one 1 GiB file and ``read_at_all`` back into
+   fresh CUDA tensors, bitwise, and a strided vector-view read of 1 MiB a
+   rank, bitwise, with write and read GB/s; (c) phase 12's ``DDPTrainer``
+   and ``FSDPTrainer`` at the flagship width: save after step 1, a fresh
+   trainer on the same 4 ranks loads and takes step 2 (bitwise the
+   uninterrupted step 2), a 2-rank trainer loads the 4-rank file (bitwise
+   the saved state), with save and load seconds and GB/s. Every file lives
+   in a temporary directory and is deleted in any case.
+
 Card comparisons run with TF32 off and bfloat16 reduced-precision
 reductions off (``torch.backends.cuda.matmul``), set at the start.
 
@@ -197,6 +218,14 @@ JACOBI_N = 16384            # global grid JACOBI_N x JACOBI_N float32, 1 GiB
 JACOBI_SWEEPS = 50
 JACOBI_TIMED = 20
 NEIGHBOR_COUNT = 1 << 18    # float32 blocks of 1 MiB
+# phase 14: one-sided RMA, MPI-IO and checkpoints
+RMA_BLOCK = 1 << 24         # float32 elements a rank Puts or Gets an epoch
+RMA_INT = 1 << 24           # int32 Accumulate windows, elements
+FETCHES = 1000              # Fetch_and_op SUMs a rank on rank 0's counter
+RMA_EPOCH_ITERS = 5         # timed Put and Get epochs (median)
+RMA_SMALL_ITERS = 200       # timed 8-byte ops on raw-tensor windows
+RMA_CELL_ITERS = 20         # ... on DeviceBuffer windows (copy on write)
+IO_STRIDED = 1 << 18        # float32 elements a rank reads through a strided view
 
 
 def log(msg: str) -> None:
@@ -599,6 +628,17 @@ def bound(nbytes: int, flops: int, caps: dict) -> tuple:
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
+def turns(kernel, library, readings: int = 3) -> dict:
+    """Kernel and library call timed in turns (kernel, library, ...),
+    ``readings`` of each: the medians, and every reading for the spread."""
+    ks, ls = [], []
+    for _ in range(readings):
+        ks.append(time_ms(kernel))
+        ls.append(time_ms(library))
+    return {"ms": float(np.median(ks)), "library_ms": float(np.median(ls)),
+            "ms_turns": ks, "library_ms_turns": ls}
+
+
 def ring_times(ring, xs, shards, caps: dict) -> dict:
     """Each ring kernel at the in-graph path's shapes: kernel, plain and
     library times (ms) and the bound. ``xs`` is (n, count) float32,
@@ -610,17 +650,20 @@ def ring_times(ring, xs, shards, caps: dict) -> dict:
         "ring_allreduce": {
             "ms": time_ms(lambda: ring.ring_allreduce(xs, "sum")),
             "plain_ms": time_ms(lambda: ring.ring_allreduce_plain(xs, operator.add)),
-            # no one call writes n replicas: the bare reduction is a lower
-            # yardstick
-            "library_ms": time_ms(lambda: xs.sum(0)),
-            "library_call": "xs.sum(0), lower yardstick (writes no replicas)",
+            # the same n replicas in PyTorch calls; the bare reduction,
+            # which writes no replicas, is the floor beside it
+            "library_ms": time_ms(
+                lambda: xs.sum(0, keepdim=True).expand(n, -1).contiguous()),
+            "library_call": "xs.sum(0, keepdim=True).expand(n, -1).contiguous()",
+            "floor_ms": time_ms(lambda: xs.sum(0)),
+            "floor_call": "xs.sum(0) (writes no replicas)",
             "bound": bound(2 * n * count * size, (n - 1) * count, caps),
         },
         "ring_reduce_scatter": {
-            "ms": time_ms(lambda: ring.ring_reduce_scatter(xs, "sum")),
+            **turns(lambda: ring.ring_reduce_scatter(xs, "sum"),
+                    lambda: xs.view(n, n, per).sum(0)),
             "plain_ms": time_ms(lambda: ring.ring_reduce_scatter_plain(
                 xs, operator.add)),
-            "library_ms": time_ms(lambda: xs.view(n, n, per).sum(0)),
             "library_call": "xs.view(n, n, per).sum(0)",
             "bound": bound((n + 1) * count * size, (n - 1) * count, caps),
         },
@@ -1342,6 +1385,7 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str) -> d
 
     collective.chained_folds = 0
     res = MPI.spmd_run(body, NRANKS, timeout=900)
+    release_world_plans()
     chained = collective.chained_folds
     same, nbuckets, ddp_bytes, fsdp_bytes = res[0]
     out["trainers"] = {"bitwise_equal": all(x[0] for x in res), "buckets": nbuckets,
@@ -1837,6 +1881,565 @@ def p2p_phase(MPI, collective, fr, host: list, device, caps: dict,
             "neighbors": nb, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# 14. one-sided RMA, MPI-IO and checkpoints
+# ---------------------------------------------------------------------------
+
+def _val(x):
+    """A window's tensor: a raw tensor itself, a cell's current value."""
+    return getattr(x, "value", x)
+
+
+def rma_operands(host: list) -> dict:
+    """14a's seeded inputs beside the host path's float32[2^26] windows:
+    the int32 windows and origins of the concurrent Accumulate, and the
+    float32 origins of the one-origin-per-epoch Accumulate."""
+    rng = np.random.default_rng(SEED + 14)
+    n = len(host)
+    ints = [rng.integers(-(1 << 20), 1 << 20, RMA_INT, dtype=np.int32)
+            for _ in range(n + 1)]
+    floats = [rng.standard_normal(RMA_BLOCK).astype(np.float32) for _ in range(n)]
+    return {"int_start": ints[0], "int_origins": ints[1:], "float_origins": floats}
+
+
+def rma_checks(MPI, host: list, ops: dict, device, kind: str) -> dict:
+    """14a on ``kind`` windows ('tensor': raw CUDA tensors, written in
+    place; 'devicebuffer': cells that copy on write) over 4 rank threads,
+    every check bitwise: a fence epoch of Puts of a RMA_BLOCK block into
+    the right neighbour's window, a fence epoch of Gets from the left
+    neighbour's; an int32 Accumulate SUM from every rank into rank 0; a
+    float32 Accumulate, one origin per epoch, against the plain fold;
+    FETCHES Fetch_and_op SUMs per rank on rank 0's int64 counter, which
+    must end at n * FETCHES with every fetched value distinct; for raw
+    tensors also test_fetch_and_op_dynamic's dynamic window."""
+    import torch
+    from tpu_mpi_torch.kernels import fused_reduce as fr
+    n, B = len(host), RMA_BLOCK
+    wrap = (lambda t: t) if kind == "tensor" else \
+        (lambda t: MPI.DeviceBuffer(t, device=device))
+    fold_want = fr.fused_multi_reduce_plain(
+        [torch.from_numpy(host[0][B:2 * B]).to(device)]
+        + [torch.from_numpy(o).to(device) for o in ops["float_origins"]], "SUM")
+    int_want = fr.fused_multi_reduce_plain(
+        [torch.from_numpy(ops["int_start"]).to(device)]
+        + [torch.from_numpy(o).to(device) for o in ops["int_origins"]], "SUM")
+
+    def expect(what, got, want):
+        if got.device.type != torch.device(device).type or not same_bits(got, want):
+            raise AssertionError(f"14a {kind}: {what} differs")
+
+    def body():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        right, left = (r + 1) % n, (r - 1) % n
+        main = wrap(torch.from_numpy(host[r]).to(device))
+        win = MPI.Win_create(main, comm)
+        origin = torch.from_numpy(host[r][:B]).to(device)
+        MPI.Win_fence(0, win)
+        MPI.Put(origin, B, right, 2 * B, win)
+        MPI.Win_fence(0, win)
+        back = torch.empty(B, dtype=torch.float32, device=device)
+        MPI.Get(back, B, left, 2 * B, win)
+        MPI.Win_fence(0, win)
+        expect("Get from the left neighbour", back,
+               torch.from_numpy(host[(r - 2) % n][:B]).to(device))
+        want = torch.from_numpy(host[r]).to(device)
+        want[2 * B:3 * B] = torch.from_numpy(host[left][:B]).to(device)
+        expect("window after the Put epoch", _val(main), want)
+        del want, back
+        # float32: one origin per fence epoch, so the order is fixed
+        facc = torch.from_numpy(ops["float_origins"][r]).to(device)
+        for o in range(n):
+            if o == r:
+                MPI.Accumulate(facc, B, 0, B, MPI.SUM, win)
+            MPI.Win_fence(0, win)
+        if r == 0:
+            expect("float32 Accumulate", _val(main)[B:2 * B], fold_want)
+        # int32: every origin in one epoch, any order
+        ibuf = wrap(torch.from_numpy(ops["int_start"]).to(device))
+        iwin = MPI.Win_create(ibuf, comm)
+        MPI.Win_fence(0, iwin)
+        MPI.Accumulate(torch.from_numpy(ops["int_origins"][r]).to(device),
+                       RMA_INT, 0, 0, MPI.SUM, iwin)
+        MPI.Win_fence(0, iwin)
+        if r == 0:
+            expect("int32 Accumulate from every rank", _val(ibuf), int_want)
+        # the shared counter
+        counter = wrap(torch.zeros(1, dtype=torch.int64, device=device))
+        cwin = MPI.Win_create(counter, comm)
+        fetched = torch.empty(FETCHES, dtype=torch.int64, device=device)
+        one = torch.ones(1, dtype=torch.int64, device=device)
+        MPI.Win_fence(0, cwin)
+        for i in range(FETCHES):
+            MPI.Fetch_and_op(one, fetched[i:i + 1], 0, 0, MPI.SUM, cwin)
+        MPI.Win_fence(0, cwin)
+        total = int(_val(counter).item()) if r == 0 else None
+        dynamic = dynamic_window(MPI, comm, device) if kind == "tensor" else None
+        for w in (win, iwin, cwin):
+            w.free()
+        MPI.Finalize()
+        return total, fetched.cpu(), dynamic
+
+    out = MPI.spmd_run(body, n, timeout=600)
+    total = out[0][0]
+    seen = torch.cat([f for _, f, _ in out]).sort().values
+    if total != n * FETCHES or not torch.equal(seen, torch.arange(n * FETCHES)):
+        raise AssertionError(f"14a {kind}: counter {total}, fetched values not "
+                             f"0..{n * FETCHES - 1} once each")
+    return {"counter": total, "dynamic": out[0][2]}
+
+
+def dynamic_window(MPI, comm, device) -> list:
+    """tests/test_onesided.py::test_fetch_and_op_dynamic on raw CUDA
+    tensors: addresses from Get_address shared through a static window,
+    Fetch_and_op REPLACE at byte addresses."""
+    import torch
+    r, n = MPI.Comm_rank(comm), MPI.Comm_size(comm)
+    buf = torch.full((n,), r, dtype=torch.int64, device=device)
+    if MPI.Get_address(buf) != buf.data_ptr():
+        raise AssertionError("Get_address of a CUDA tensor is not its data_ptr")
+    win = MPI.Win_create_dynamic(comm)
+    MPI.Win_attach(win, buf)
+    address_buf = np.zeros(1, dtype=np.int64)
+    address_win = MPI.Win_create(address_buf, comm)
+    MPI.Win_lock(MPI.LOCK_EXCLUSIVE, r, 0, address_win)
+    address_buf[0] = MPI.Get_address(buf)
+    MPI.Win_unlock(r, address_win)
+    MPI.Barrier(comm)
+    seen = []
+    if r == 0:
+        received = np.zeros(1, dtype=np.int64)
+        to_send = np.zeros(1, dtype=np.int64)
+        for t in range(n):
+            address = np.zeros(1, dtype=np.int64)
+            MPI.Win_lock(MPI.LOCK_EXCLUSIVE, t, 0, address_win)
+            MPI.Get(address, t, address_win)
+            MPI.Win_flush(t, address_win)
+            to_send[0] = t + 5
+            MPI.Win_lock(MPI.LOCK_EXCLUSIVE, t, 0, win)
+            MPI.Fetch_and_op(to_send, received, t, int(address[0]) + t * 8,
+                             MPI.REPLACE, win)
+            MPI.Win_flush(t, win)
+            seen.append(int(received[0]))
+            MPI.Win_unlock(t, win)
+            MPI.Win_unlock(t, address_win)
+        if seen != list(range(n)):
+            raise AssertionError(f"dynamic window fetched {seen}")
+    MPI.Barrier(comm)
+    if int(buf[r].item()) != r + 5:
+        raise AssertionError("dynamic window: the REPLACE did not land")
+    MPI.Barrier(comm)
+    MPI.Win_detach(win, buf)
+    win.free()
+    address_win.free()
+    return seen
+
+
+def rma_times(MPI, host: list, device, kind: str) -> dict:
+    """Times on ``kind`` windows over host's float32[2^26]: ms per Put
+    epoch and per Get epoch (each rank moves RMA_BLOCK elements; fences
+    included, ending in a device synchronise; median of RMA_EPOCH_ITERS),
+    then rank 0 alone: us per 8-byte Put, Get and Fetch_and_op into rank
+    1's windows (RMA_SMALL_ITERS each, ending in a synchronise)."""
+    import torch
+    n, B = len(host), RMA_BLOCK
+    wrap = (lambda t: t) if kind == "tensor" else \
+        (lambda t: MPI.DeviceBuffer(t, device=device))
+    small = RMA_SMALL_ITERS if kind == "tensor" else RMA_CELL_ITERS
+
+    def body():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        win = MPI.Win_create(wrap(torch.from_numpy(host[r]).to(device)), comm)
+        counter = wrap(torch.zeros(1, dtype=torch.int64, device=device))
+        cwin = MPI.Win_create(counter, comm)
+        origin = torch.from_numpy(host[r][:B]).to(device)
+        back = torch.empty(B, dtype=torch.float32, device=device)
+
+        def epoch(fn):
+            torch.cuda.synchronize()
+            MPI.Barrier(comm)
+            t0 = time.perf_counter()
+            MPI.Win_fence(0, win)
+            fn()
+            MPI.Win_fence(0, win)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            MPI.Barrier(comm)
+            return dt * 1e3
+
+        put = [epoch(lambda: MPI.Put(origin, B, (r + 1) % n, 2 * B, win))
+               for _ in range(RMA_EPOCH_ITERS + 1)][1:]
+        get = [epoch(lambda: MPI.Get(back, B, (r - 1) % n, 2 * B, win))
+               for _ in range(RMA_EPOCH_ITERS + 1)][1:]
+        out = {"put_epoch_ms": put, "get_epoch_ms": get}
+        MPI.Barrier(comm)
+        if r == 0:
+            x2 = torch.ones(2, dtype=torch.float32, device=device)
+            y2 = torch.empty(2, dtype=torch.float32, device=device)
+            one = torch.ones(1, dtype=torch.int64, device=device)
+            got = torch.empty(1, dtype=torch.int64, device=device)
+            ops = {"put_8B": lambda: MPI.Put(x2, 2, 1, 8, win),
+                   "get_8B": lambda: MPI.Get(y2, 2, 1, 8, win),
+                   "fetch_and_op_8B": lambda: MPI.Fetch_and_op(
+                       one, got, 1, 0, MPI.SUM, cwin)}
+            for name, fn in ops.items():
+                fn()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(small):
+                    fn()
+                torch.cuda.synchronize()
+                out[f"{name}_us"] = (time.perf_counter() - t0) / small * 1e6
+        MPI.Barrier(comm)
+        win.free()
+        cwin.free()
+        MPI.Finalize()
+        return out
+
+    out = MPI.spmd_run(body, n, timeout=600)
+    res = dict(out[0])
+    res["put_epoch_ms"] = float(np.median([max(o["put_epoch_ms"][i] for o in out)
+                                           for i in range(RMA_EPOCH_ITERS)]))
+    res["get_epoch_ms"] = float(np.median([max(o["get_epoch_ms"][i] for o in out)
+                                           for i in range(RMA_EPOCH_ITERS)]))
+    res["small_iters"] = small
+    return res
+
+
+def io_phase(MPI, host: list, device, where: str) -> dict:
+    """14b: each rank's float32[2^26] CUDA tensor written with write_at_all
+    at rank x 256 MiB of one 1 GiB file in a temporary directory, read back
+    with read_at_all into fresh CUDA tensors, bitwise; then a strided
+    vector-filetype view read of IO_STRIDED elements (1 MiB) a rank, as
+    tests/test_io.py::test_io_strided_filetype reads, bitwise. The file is
+    deleted in any case."""
+    import shutil
+    import tempfile
+    import torch
+    n = len(host)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_io_")
+    path = os.path.join(tmp, "main.bin")
+
+    def body():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        x = torch.from_numpy(host[r]).to(device)
+        fh = MPI.File.open(comm, path, read=True, write=True, create=True)
+        try:
+            MPI.File.set_view(fh, 0, MPI.FLOAT32, MPI.FLOAT32)
+            torch.cuda.synchronize()
+            MPI.Barrier(comm)
+            t0 = time.perf_counter()
+            MPI.File.write_at_all(fh, r * x.numel(), x)
+            t1 = time.perf_counter()
+            MPI.File.sync(fh)
+            t2 = time.perf_counter()
+            size = MPI.File.get_size(fh)
+            back = torch.empty_like(x)
+            MPI.Barrier(comm)
+            t3 = time.perf_counter()
+            MPI.File.read_at_all(fh, r * x.numel(), back)
+            torch.cuda.synchronize()
+            MPI.Barrier(comm)
+            t4 = time.perf_counter()
+            if back.device.type != torch.device(device).type or not same_bits(back, x):
+                raise AssertionError(f"14b: rank {r} read back other bits")
+            del back
+            ft = MPI.Types.create_resized(
+                MPI.Types.create_vector(1, 1, n, MPI.FLOAT32), 0, n * 4)
+            MPI.File.set_view(fh, r * 4, MPI.FLOAT32, ft)
+            strided = torch.empty(IO_STRIDED, dtype=torch.float32, device=device)
+            MPI.Barrier(comm)
+            t5 = time.perf_counter()
+            MPI.File.read_at_all(fh, 0, strided)
+            torch.cuda.synchronize()
+            t6 = time.perf_counter()
+            want = np.ascontiguousarray(host[0][r::n][:IO_STRIDED])
+            if not same_bits(strided, torch.from_numpy(want).to(device)):
+                raise AssertionError(f"14b: rank {r} strided view read differs")
+        finally:
+            fh.close()
+        MPI.Finalize()
+        return {"size": size, "write_s": t1 - t0, "sync_s": t2 - t1,
+                "read_s": t4 - t3, "strided_s": t6 - t5}
+
+    try:
+        out = MPI.spmd_run(body, n, timeout=900)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    total = sum(h.nbytes for h in host)
+    if out[0]["size"] != total:
+        raise AssertionError(f"14b: file of {out[0]['size']} bytes")
+    write_s = max(o["write_s"] for o in out)
+    sync_s = max(o["sync_s"] for o in out)
+    read_s = max(o["read_s"] for o in out)
+    strided_s = max(o["strided_s"] for o in out)
+    res = {"file_bytes": total, "write_s": write_s, "sync_s": sync_s,
+           "read_s": read_s, "write_gbps": total / write_s / 1e9,
+           "write_sync_gbps": total / (write_s + sync_s) / 1e9,
+           "read_gbps": total / read_s / 1e9,
+           "staged_bytes": {"write": total, "read": total},
+           "strided_elems": IO_STRIDED, "strided_ms": strided_s * 1e3}
+    log(f"14b MPI-IO, {n} ranks x float32[2^26] CUDA tensors, one {total}-byte "
+        f"file: write_at_all {write_s:.4f} s ({res['write_gbps']:.3f} GB/s; with "
+        f"the sync {res['write_sync_gbps']:.3f} GB/s), read_at_all into fresh "
+        f"CUDA tensors {read_s:.4f} s ({res['read_gbps']:.3f} GB/s, bitwise); "
+        f"host staging {total} bytes each way (count x itemsize, no more); "
+        f"strided vector-view read of {IO_STRIDED} float32 a rank "
+        f"{strided_s * 1e3:.2f} ms, bitwise {where}")
+    return res
+
+
+def ckpt_grads(names: list, shapes: dict, step: int, rank: int, device):
+    """Seeded float32 gradients on the card, in reverse-layer order, made
+    lazily (each trainer copies one in before the next is drawn)."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 1400 + 10 * step + rank)
+    return ((k, torch.randn(shapes[k], generator=gen, device=device))
+            for k in reversed(names))
+
+
+def release_world_plans() -> None:
+    """Drop the persistent-plan registrations a finished ``spmd_run`` left
+    under its COMM_WORLD's id (0 in every run), and collect: both packages
+    keep registrations until ``Comm.free``, which COMM_WORLD never gets
+    (ROADMAP Queue C), and a DDP trainer sits in reference cycles, so its
+    buckets and masters would otherwise stay on the card until the cyclic
+    collector happens to run. Called between runs, when no world is live."""
+    import gc
+    import torch
+    from tpu_mpi_torch import overlap
+    overlap.registry.release(0)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ckpt_parts(tr) -> list:
+    """A trainer's replicated state as flat float64 views: the params, then
+    DDP's momentum (FSDP: its one padded param flat)."""
+    if hasattr(tr, "_mom"):
+        return [tr._flat[k] for k in tr.order] + [tr._mom[k] for k in tr.order]
+    return [tr._flat]
+
+
+def same_parts(parts: list, flat, chunk: int = 1 << 25) -> bool:
+    """Whether the views ``parts``, end to end, equal ``flat`` bitwise,
+    compared ``chunk`` elements at a time (four rank threads compare at
+    once; a whole-state comparison would copy gigabytes each)."""
+    off = 0
+    for part in parts:
+        for lo in range(0, part.numel(), chunk):
+            piece = part[lo:lo + chunk]
+            if not same_bits(piece, flat[off + lo:off + lo + piece.numel()]):
+                return False
+        off += part.numel()
+    return off == flat.numel()
+
+
+def ckpt_round(MPI, Trainer, start: dict, device, path: str, kw: dict) -> dict:
+    """14c for one trainer class at the flagship width: take step 1, save,
+    take step 2 (the uninterrupted run); a fresh trainer on the same
+    NRANKS loads, takes step 2 and must equal it bitwise; a trainer on
+    half the ranks loads the same file and must hold the saved state
+    bitwise (the momentum re-cut for FSDP)."""
+    import torch
+    names = list(start)
+    shapes = {k: tuple(v.shape) for k, v in start.items()}
+    saved, after = {}, {}
+
+    def timed(comm, fn):
+        torch.cuda.synchronize()
+        MPI.Barrier(comm)
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        MPI.Barrier(comm)
+        return res, time.perf_counter() - t0
+
+    def shard(tr):
+        return tr._mshard.clone() if hasattr(tr, "_mshard") else None
+
+    def uninterrupted():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        tr = Trainer(start, comm, device=device, **kw)
+        tr.step(ckpt_grads(names, shapes, 1, r, device))
+        _, save_s = timed(comm, lambda: tr.save(path))
+        # the replicated state once (rank 0's), every rank's momentum shard
+        saved[r] = (torch.cat(ckpt_parts(tr)) if r == 0 else None, shard(tr))
+        tr.step(ckpt_grads(names, shapes, 2, r, device))
+        after[r] = (torch.cat(ckpt_parts(tr)) if r == 0 else None, shard(tr))
+        del tr
+        MPI.Finalize()
+        return save_s
+
+    def resumed():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        tr = Trainer(start, comm, device=device, **kw)
+        step, load_s = timed(comm, lambda: tr.load(path))
+        tr.step(ckpt_grads(names, shapes, 2, r, device))
+        mine = shard(tr)
+        ok = step == 1 and same_parts(ckpt_parts(tr), after[0][0]) and (
+            mine is None or same_bits(mine, after[r][1]))
+        del tr, mine
+        MPI.Finalize()
+        return load_s, ok
+
+    def resharded():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        tr = Trainer(start, comm, device=device, **kw)
+        step, load_s = timed(comm, lambda: tr.load(path))
+        mine = shard(tr)
+        ok = step == 1 and same_parts(ckpt_parts(tr), saved[0][0])
+        if mine is not None:      # the writers' momentum, re-cut for this world
+            moms = torch.cat([saved[q][1] for q in range(NRANKS)])
+            m = mine.numel()
+            ok = ok and same_bits(mine, moms[r * m:(r + 1) * m])
+            del moms
+        del tr, mine
+        MPI.Finalize()
+        return load_s, ok
+
+    from tpu_mpi_torch import collective
+    from tpu_mpi_torch.kernels import fused_reduce as fr
+    f0, c0 = fr.launches, collective.chained_folds
+    try:
+        save_s = max(MPI.spmd_run(uninterrupted, NRANKS, timeout=900))
+        file_bytes = os.path.getsize(path)
+        release_world_plans()
+        res = MPI.spmd_run(resumed, NRANKS, timeout=900)
+        folds, chained = fr.launches - f0, collective.chained_folds - c0
+        after.clear()
+        release_world_plans()
+        half = MPI.spmd_run(resharded, NRANKS // 2, timeout=900)
+    finally:
+        saved.clear()
+        after.clear()
+        if os.path.exists(path):
+            os.remove(path)
+        release_world_plans()
+    load_s, reshard_s = max(s for s, _ in res), max(s for s, _ in half)
+    return {"file_bytes": file_bytes, "save_s": save_s,
+            "save_gbps": file_bytes / save_s / 1e9,
+            "load_s": load_s, "load_gbps": file_bytes / load_s / 1e9,
+            "reshard_load_s": reshard_s,
+            "reshard_load_gbps": file_bytes / reshard_s / 1e9,
+            "resume_bitwise": all(ok for _, ok in res),
+            "reshard_bitwise": all(ok for _, ok in half),
+            "fold_launches": folds, "chained_folds": chained}
+
+
+def ckpt_phase(MPI, start: dict, device, where: str) -> dict:
+    """14c: the phase-12 trainers' checkpoint round trip at the flagship
+    width, DDP then FSDP, each file in a temporary directory deleted
+    after its round."""
+    import shutil
+    import tempfile
+    from tpu_mpi_torch.train import DDPTrainer, FSDPTrainer
+    n_params = sum(int(v.numel()) for v in start.values())
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+    out = {"params": n_params}
+    try:
+        for name, cls, kw in (
+                ("ddp", DDPTrainer, {"lr": TRAIN_LR, "bucket_bytes": TRAIN_BUCKET_BYTES}),
+                ("fsdp", FSDPTrainer, {"lr": TRAIN_LR})):
+            t = ckpt_round(MPI, cls, start, device, os.path.join(tmp, f"{name}.ckpt"), kw)
+            out[name] = t
+            log(f"14c {name.upper()} checkpoint at {n_params} parameters (float64 "
+                f"masters + momentum, a {t['file_bytes']}-byte file): save "
+                f"{t['save_s']:.3f} s ({t['save_gbps']:.3f} GB/s), load on "
+                f"{NRANKS} ranks {t['load_s']:.3f} s ({t['load_gbps']:.3f} GB/s of "
+                f"file; every rank reads every shard), resume step 2 bitwise "
+                f"{t['resume_bitwise']}; {NRANKS // 2}-rank reshard load "
+                f"{t['reshard_load_s']:.3f} s ({t['reshard_load_gbps']:.3f} GB/s), "
+                f"bitwise {t['reshard_bitwise']}; fold launches in the steps "
+                f"{t['fold_launches']}, chained {t['chained_folds']} {where}")
+            if not (t["resume_bitwise"] and t["reshard_bitwise"]):
+                raise AssertionError(f"14c {name}: a restored state differs")
+            if t["chained_folds"] or not t["fold_launches"]:
+                raise AssertionError(f"14c {name}: the steps left the fold kernel")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    return out
+
+
+def rma_io_ckpt_phase(MPI, collective, fr, host: list, start: dict, device,
+                      caps: dict, where: str) -> dict:
+    """Phase 14: (a) one-sided RMA over raw CUDA tensors and DeviceBuffers,
+    (b) MPI-IO at 1 GiB, (c) the trainers' checkpoints at the flagship
+    width; checks, then times. The fold launches of (a)'s checked runs go
+    to the kernels line as ``rma_launches``, (c)'s as ``ckpt_train_launches``."""
+    import torch
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    mem0 = torch.cuda.memory_allocated()
+    n, B = len(host), RMA_BLOCK
+    ops = rma_operands(host)
+    out = {"rma": {}}
+    fr.reset_launches()
+    collective.chained_folds = 0
+    for kind in ("tensor", "devicebuffer"):
+        f0 = fr.launches
+        checks = rma_checks(MPI, host, ops, device, kind)
+        launches = fr.launches - f0
+        expected = 2 * n + n * FETCHES
+        if launches != expected or collective.chained_folds:
+            raise AssertionError(f"14a {kind}: {launches} fold launches for "
+                                 f"{expected} CUDA accumulates, "
+                                 f"{collective.chained_folds} chained")
+        out["rma"][kind] = {"launches": launches, "counter": checks["counter"]}
+        log(f"14a RMA on {kind} windows, {n} rank threads x float32[2^26]: Put "
+            f"and Get epochs of {B} elements a rank, int32 Accumulate from every "
+            f"rank, float32 Accumulate one origin per epoch (== the plain fold), "
+            f"{FETCHES} Fetch_and_op a rank (counter {checks['counter']}, every "
+            f"fetched value once): all bitwise; {launches} fold launches = one per "
+            f"CUDA accumulate, 0 chained"
+            + (f"; dynamic window on raw CUDA tensors fetched {checks['dynamic']}"
+               if checks["dynamic"] is not None else ""))
+    rma_launches = fr.launches
+    release_world_plans()
+    epoch_bytes = 2 * n * B * 4          # every rank's block read and written once
+    epoch_bound = epoch_bytes / (caps["hbm_gbps"] * 1e9) * 1e3
+    for kind in ("tensor", "devicebuffer"):
+        t = rma_times(MPI, host, device, kind)
+        t["epoch_bytes"], t["epoch_bound_ms"] = epoch_bytes, epoch_bound
+        out["rma"][kind]["times"] = t
+        release_world_plans()
+        log(f"14a {kind} windows: Put epoch {t['put_epoch_ms']:.4f} ms, Get epoch "
+            f"{t['get_epoch_ms']:.4f} ms (median of {RMA_EPOCH_ITERS}, fences "
+            f"included; bound {epoch_bound:.4f} ms for {epoch_bytes} bytes at "
+            f"{caps['hbm_gbps']:.0f} GB/s); rank 0 alone, 8 bytes: Put "
+            f"{t['put_8B_us']:.2f} us, Get {t['get_8B_us']:.2f} us, Fetch_and_op "
+            f"{t['fetch_and_op_8B_us']:.2f} us ({t['small_iters']} each) {where}")
+    cell = out["rma"]["devicebuffer"]["times"]["put_8B_us"] / 1e3
+    log(f"14a an 8-byte Put into a 256 MiB DeviceBuffer window: {cell:.4f} ms "
+        f"(the cell copies on write: {2 * host[0].nbytes} bytes moved) {where}")
+    out["rma"]["devicebuffer_put_8B_ms"] = cell
+    out["io"] = io_phase(MPI, host, device, where)
+    release_world_plans()
+    fr.reset_launches()
+    collective.chained_folds = 0
+    out["ckpt"] = ckpt_phase(MPI, start, device, where)
+    out["rma_launches"] = rma_launches
+    out["ckpt_train_launches"] = (out["ckpt"]["ddp"]["fold_launches"]
+                                  + out["ckpt"]["fsdp"]["fold_launches"])
+    out["seconds"] = time.perf_counter() - t0
+    out["device_bytes"] = {"at_start": mem0, "peak": torch.cuda.max_memory_allocated()}
+    log(f"phase 14 in {out['seconds']:.1f} s; device memory allocated at its "
+        f"start {mem0 / 2**30:.2f} GiB, peak {out['device_bytes']['peak'] / 2**30:.2f} GiB")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1968,6 +2571,10 @@ def main() -> int:
             f"GB/s, {gbps / copy_gbps:.3f} of the copy), bound {t['bound'][0]:.4f} "
             f"ms ({t['bound'][1]}), plain {t['plain_ms']:.4f} ms, "
             f"{t['library_call']} {t['library_ms']:.4f} ms {where}")
+    log(f"ring_allreduce floor {rings['ring_allreduce']['floor_call']} "
+        f"{rings['ring_allreduce']['floor_ms']:.4f} ms; ring_reduce_scatter in "
+        f"turns: kernel {rings['ring_reduce_scatter']['ms_turns']} ms, library "
+        f"{rings['ring_reduce_scatter']['library_ms_turns']} ms {where}")
     log(f"host-lane MPI.Allreduce float32[2^26] x {NRANKS} ranks: "
         f"{host_ms:.4f} ms/op, algbw {algbw:.1f} GB/s {where}")
     if prof["fold_spans"]:
@@ -2018,6 +2625,8 @@ def main() -> int:
             "parity": "bitwise",
             "parity_cases": ring_parity["cases"][name],
             "copy_gbps": copy_gbps,
+            **{k: t[k] for k in ("floor_ms", "floor_call", "ms_turns",
+                                 "library_ms_turns") if k in t},
         })
 
     # 8. the new kernels against their plain versions
@@ -2212,8 +2821,15 @@ def main() -> int:
     # 13. point-to-point and Cartesian topology on the rank threads
     p2p = p2p_phase(MPI, collective, fr, host, device, caps, copy_gbps, logdir,
                     where)
+    # 14. one-sided RMA, MPI-IO and the trainers' checkpoints
+    rma = rma_io_ckpt_phase(MPI, collective, fr, host, flat_params(params), device,
+                            caps, where)
     kernels[0]["tp_forward_launches"] = tp_folds
-    kernels[0]["launches"] += train_folds + p2p["jacobi_launches"]
+    kernels[0]["launches"] += (train_folds + p2p["jacobi_launches"]
+                               + rma["rma_launches"] + rma["ckpt_train_launches"])
+    kernels[0]["rma_launches"] = rma["rma_launches"]
+    kernels[0]["ckpt_train_launches"] = rma["ckpt_train_launches"]
+    kernels[0]["rma_io_ckpt"] = rma
     kernels[0]["jacobi_launches"] = p2p["jacobi_launches"]
     kernels[0]["p2p"] = p2p
     kernels[0]["train_launches"] = train_folds

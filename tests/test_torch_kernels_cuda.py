@@ -675,3 +675,120 @@ def test_jacobi_halo_loop_on_card():
     assert torch.equal(got, grid[1:n + 1])
     for _, res in out:
         assert torch.equal(res, torch.cat(want))
+
+
+# ---------------------------------------------------------------------------
+# One-sided RMA and MPI-IO on CUDA tensors
+# ---------------------------------------------------------------------------
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tensor", "devicebuffer"])
+def test_accumulate_folds_on_card(kind):
+    """Each CUDA Accumulate and Fetch_and_op is one fold launch, the old
+    values first, bitwise against the plain fold; none chained."""
+    import numpy as np
+    import tpu_mpi_torch as MPI
+    from tpu_mpi_torch import collective
+    dev = _card()
+    rng = np.random.default_rng(3)
+    start = torch.from_numpy(rng.standard_normal(5000).astype(np.float32)).to(dev)
+    origins = [torch.from_numpy(rng.standard_normal(5000).astype(np.float32)).to(dev)
+               for _ in range(4)]
+    wrap = (lambda t: t) if kind == "tensor" else MPI.DeviceBuffer
+
+    def body():
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        buf = wrap(start.clone())
+        counter = wrap(torch.zeros(1, dtype=torch.int64, device=dev))
+        win, cwin = MPI.Win_create(buf, comm), MPI.Win_create(counter, comm)
+        MPI.Win_fence(0, win)
+        for o in range(4):
+            if o == r:
+                MPI.Accumulate(origins[o], 5000, 0, 0, MPI.SUM, win)
+            MPI.Win_fence(0, win)
+        got = torch.zeros(1, dtype=torch.int64, device=dev)
+        one = torch.ones(1, dtype=torch.int64, device=dev)
+        for _ in range(10):
+            MPI.Win_lock(MPI.LOCK_EXCLUSIVE, 0, 0, cwin)
+            MPI.Fetch_and_op(one, got, 0, 0, MPI.SUM, cwin)
+            MPI.Win_unlock(0, cwin)
+        MPI.Win_fence(0, cwin)
+        out = (buf.value if kind == "devicebuffer" else buf).clone()
+        cnt = (counter.value if kind == "devicebuffer" else counter).item()
+        win.free()
+        cwin.free()
+        return out, cnt
+
+    folds, chained = fr.launches, collective.chained_folds
+    outs = MPI.spmd_run(body, 4, timeout=120)
+    assert fr.launches - folds == 4 + 40
+    assert collective.chained_folds == chained
+    want = fr.fused_multi_reduce_plain([start] + origins, "SUM")
+    assert outs[0][0].is_cuda and torch.equal(outs[0][0], want)
+    assert outs[0][1] == 40
+
+
+@pytest.mark.cuda
+def test_dynamic_window_on_card_tensors():
+    """Get_address of a CUDA raw tensor is its data_ptr, and a dynamic
+    window resolves it (test_fetch_and_op_dynamic on the card)."""
+    import tpu_mpi_torch as MPI
+    dev = _card()
+
+    def body():
+        comm = MPI.COMM_WORLD
+        rank, n = MPI.Comm_rank(comm), MPI.Comm_size(comm)
+        buf = torch.full((n,), rank, dtype=torch.int64, device=dev)
+        assert MPI.Get_address(buf) == buf.data_ptr()
+        win = MPI.Win_create_dynamic(comm)
+        MPI.Win_attach(win, buf)
+        addrs = MPI.Allgather(torch.tensor([MPI.Get_address(buf)]), comm)
+        MPI.Win_fence(0, win)
+        if rank == 0:
+            got = torch.zeros(1, dtype=torch.int64, device=dev)
+            for r in range(n):
+                MPI.Win_lock(MPI.LOCK_EXCLUSIVE, r, 0, win)
+                MPI.Fetch_and_op(torch.tensor([r + 5], device=dev), got, r,
+                                 int(addrs[r]) + 8 * r, MPI.REPLACE, win)
+                MPI.Win_unlock(r, win)
+                assert got.item() == r
+        MPI.Win_fence(0, win)
+        assert buf[rank].item() == rank + 5
+        MPI.Win_detach(win, buf)
+        win.free()
+
+    MPI.spmd_run(body, 4, timeout=120)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["tensor", "devicebuffer"])
+def test_read_at_all_into_card_tensors(kind, tmp_path):
+    """write_at_all of CUDA tensors and read_at_all back into fresh CUDA
+    tensors, bitwise; a raw tensor is filled in place."""
+    import numpy as np
+    import tpu_mpi_torch as MPI
+    dev = _card()
+    path = str(tmp_path / "f.bin")
+    data = [torch.from_numpy(np.random.default_rng(r).standard_normal(4097)
+                             .astype(np.float32)).to(dev) for r in range(4)]
+    wrap = (lambda t: t) if kind == "tensor" else MPI.DeviceBuffer
+
+    def body():
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        fh = MPI.File.open(comm, path, read=True, write=True, create=True)
+        try:
+            MPI.File.set_view(fh, 0, MPI.FLOAT32, MPI.FLOAT32)
+            MPI.File.write_at_all(fh, r * 4097, wrap(data[r]))
+            back = wrap(torch.zeros(4097, device=dev))
+            ptr = MPI.Get_address(back)
+            MPI.File.read_at_all(fh, ((r + 1) % 4) * 4097, back)
+            t = back.value if kind == "devicebuffer" else back
+            assert t.is_cuda and torch.equal(t, data[(r + 1) % 4])
+            return MPI.Get_address(back) == ptr
+        finally:
+            fh.close()
+
+    in_place = MPI.spmd_run(body, 4, timeout=120)
+    assert in_place == [kind == "tensor"] * 4

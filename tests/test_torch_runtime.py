@@ -154,6 +154,39 @@ def test_port_sources_import_no_jax_and_no_tpu_mpi():
     assert not bad, bad
 
 
+def _public_exports(init: Path) -> set:
+    """The public names a package's ``__init__`` binds at top level: what
+    it imports from its modules, assigns, and defines."""
+    names = set()
+    for node in ast.parse(init.read_text()).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names.update(a.asname or a.name for a in node.names)
+        elif isinstance(node, ast.Assign):
+            names.update(t.id for t in node.targets if isinstance(t, ast.Name))
+        elif isinstance(node, (ast.FunctionDef, ast.ClassDef)):
+            names.add(node.name)
+    return {n for n in names if not n.startswith("_")}
+
+
+# Names of tpu_mpi's namespace the port does not bind yet, with the ROADMAP
+# Queue A item that brings each (or the port's counterpart).
+WAITING = {
+    "install_tpurun": "#9: the launcher",
+    "has_tpu": "no counterpart: has_cuda",
+}
+
+
+def test_top_level_namespace_matches_the_jax_package():
+    """Read by AST, so no jax is imported here: the port binds every public
+    name of tpu_mpi's namespace apart from the explicit waiting list."""
+    want = _public_exports(REPO / "tpu_mpi" / "__init__.py")
+    got = _public_exports(REPO / "tpu_mpi_torch" / "__init__.py")
+    assert want - got == set(WAITING)
+    assert got - want == {"has_cuda", "from_numpy", "to_numpy", "testing"}
+    for name in want - set(WAITING):
+        assert hasattr(MPI, name), name
+
+
 def test_import_with_jax_blocked():
     code = (
         "import sys\n"

@@ -194,12 +194,145 @@ def test_make_trainer_honours_shard_state_config(monkeypatch):
     tconfig.load(refresh=True)
 
 
-@pytest.mark.parametrize("cls", [DDPTrainer, FSDPTrainer])
-def test_checkpoints_wait_for_the_checkpoint_module(cls, tmp_path):
+# -- checkpoint resume / reshard ---------------------------------------------
+
+PAIRS = {"ddp": (DDPTrainer, jtrain.DDPTrainer),
+         "fsdp": (FSDPTrainer, jtrain.FSDPTrainer)}
+
+
+def _state_bits(tr):
+    """Params, then the optimizer state, as bytes (momentum flats for DDP,
+    the momentum shard for FSDP)."""
+    mom = tr._mom.values() if hasattr(tr, "_mom") else [tr._mshard]
+    return (_bits(tr.params),
+            [np.asarray(m, dtype=np.float64).tobytes() for m in mom])
+
+
+@pytest.mark.parametrize("kind", list(PAIRS))
+def test_checkpoint_resume_bitwise(kind, tmp_path):
+    """Save after 2 steps, load into a fresh trainer, take 3 more: the
+    same bits as 5 uninterrupted steps (tests/test_train.py:158-182)."""
+    cls = PAIRS[kind][0]
+    path = str(tmp_path / "train.ckpt")
+
     def body():
+        comm = MPI.COMM_WORLD
+        ref = cls(_spec(), comm, device="cpu")
+        for s in range(5):
+            _feed(ref, s)
+        two = cls(_spec(), comm, device="cpu")
+        for s in range(2):
+            _feed(two, s)
+        two.save(path)
+        resumed = cls(_spec(), comm, device="cpu")
+        ptrs = [p.data_ptr() for p in resumed.params.values()]
+        assert resumed.load(path) == 2
+        assert [p.data_ptr() for p in resumed.params.values()] == ptrs
+        for s in range(2, 5):
+            _feed(resumed, s)
+        return _state_bits(ref) == _state_bits(resumed)
+
+    assert _run(body) == [True] * NRANKS
+
+
+@pytest.mark.parametrize("kind", list(PAIRS))
+def test_checkpoint_reshards_4_to_2(kind, tmp_path):
+    """A 4-rank checkpoint loaded by a 2-rank trainer: the params equal the
+    saved ones, the optimizer state is the saved global state re-cut, and
+    the next step equals the JAX package's trainer doing the same."""
+    cls, jcls = PAIRS[kind]
+    path = str(tmp_path / "train.ckpt")
+
+    def save_body():
         tr = cls(_spec(), MPI.COMM_WORLD, device="cpu")
-        for call in (tr.save, tr.load):
-            with pytest.raises(NotImplementedError, match="Queue A #8"):
-                call(str(tmp_path / "ckpt"))
+        for s in range(3):
+            _feed(tr, s)
+        tr.save(path)
+        return _state_bits(tr)
+
+    saved = _run(save_body)
+
+    def load_body(M, make, as_tensor):
+        def body():
+            tr = make(_spec(), M.COMM_WORLD)
+            assert tr.load(path) == 3
+            before = _state_bits(tr)
+            _feed(tr, 3, as_tensor)
+            return before, _state_bits(tr)
+        return body
+
+    got = MPI.testing.run_spmd(load_body(MPI, lambda p, c: cls(p, c, device="cpu"),
+                                         True), 2, timeout=TIMEOUT)
+    want = JMPI.testing.run_spmd(load_body(JMPI, jcls, False), 2, timeout=TIMEOUT)
+    assert got == want
+    for r in range(2):
+        assert got[r][0][0] == saved[0][0]          # params as saved
+    if kind == "ddp":
+        assert got[0][0][1] == saved[0][1]          # replicated momentum
+    else:                                           # momentum re-cut 4 -> 2
+        full = b"".join(saved[r][1][0] for r in range(NRANKS))
+        half = len(full) // 2
+        assert [got[r][0][1][0] for r in range(2)] == [full[:half], full[half:]]
+
+
+@pytest.mark.parametrize("kind", list(PAIRS))
+@pytest.mark.parametrize("writer", ["jax", "torch"])
+def test_checkpoint_crosses_between_the_packages(kind, writer, tmp_path):
+    """A checkpoint written by one package's trainer resumes in the other's
+    with the bits of the writer's own uninterrupted run; for the same state
+    the two packages write the same file."""
+    cls, jcls = PAIRS[kind]
+    paths = {"jax": str(tmp_path / "jax.ckpt"), "torch": str(tmp_path / "t.ckpt")}
+
+    def body(M, make, as_tensor, save_to=None, load_from=None):
+        def run():
+            tr = make(_spec(), M.COMM_WORLD)
+            if load_from is not None:
+                assert tr.load(load_from) == 2
+            start = 2 if load_from is not None else 0
+            for s in range(start, 4):
+                _feed(tr, s, as_tensor)
+                if s == 1 and save_to is not None:
+                    tr.save(save_to)
+            return _state_bits(tr)
+        return run
+
+    port = lambda p, c: cls(p, c, device="cpu")   # noqa: E731
+    jrun, trun = JMPI.testing.run_spmd, MPI.testing.run_spmd
+    ref_j = jrun(body(JMPI, jcls, False, save_to=paths["jax"]), NRANKS, timeout=TIMEOUT)
+    ref_t = trun(body(MPI, port, True, save_to=paths["torch"]), NRANKS, timeout=TIMEOUT)
+    assert ref_j == ref_t
+    with open(paths["jax"], "rb") as f, open(paths["torch"], "rb") as g:
+        assert f.read() == g.read()
+    if writer == "jax":
+        got = trun(body(MPI, port, True, load_from=paths["jax"]), NRANKS,
+                   timeout=TIMEOUT)
+    else:
+        got = jrun(body(JMPI, jcls, False, load_from=paths["torch"]), NRANKS,
+                   timeout=TIMEOUT)
+    assert got == ref_j
+
+
+def test_ddp_save_stages_only_its_slice(monkeypatch, tmp_path):
+    """Each DDP rank stages to host its own slice of the packed state,
+    cut as np.array_split cuts it (the JAX package packs the whole state on
+    every rank first)."""
+    from tpu_mpi_torch.train import ddp as tddp
+    staged = []
+    real = tddp.stage_range
+
+    def spy(segs, lo, hi):
+        staged.append((lo, hi))
+        return real(segs, lo, hi)
+
+    monkeypatch.setattr(tddp, "stage_range", spy)
+
+    def body():
+        DDPTrainer(_spec(), MPI.COMM_WORLD, device="cpu").save(
+            str(tmp_path / "d.ckpt"))
 
     _run(body)
+    total = 2 * 1136
+    bounds = np.cumsum([0] + [len(a) for a in np.array_split(np.zeros(total), NRANKS)])
+    assert sorted(staged) == [(int(bounds[r]), int(bounds[r + 1]))
+                              for r in range(NRANKS)]

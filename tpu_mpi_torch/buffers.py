@@ -86,6 +86,8 @@ class _InPlace:
 
 IN_PLACE = _InPlace()
 
+BUFFER_NULL = None
+
 
 def is_torch_tensor(x: Any) -> bool:
     return isinstance(x, torch.Tensor)
@@ -93,6 +95,12 @@ def is_torch_tensor(x: Any) -> bool:
 
 def _numel(a: Any) -> int:
     return int(a.numel()) if isinstance(a, torch.Tensor) else int(np.size(a))
+
+
+def itemsize(a: Any) -> int:
+    """Bytes per element of a tensor or a host array."""
+    return int(a.element_size()) if isinstance(a, torch.Tensor) \
+        else int(a.dtype.itemsize)
 
 
 def resolve_device(device: Any = None) -> torch.device:
@@ -382,6 +390,22 @@ def write_range(buf: Any, off: int, new: Any) -> None:
         arr.flat[off:off + src.size] = src
 
 
+def resolve_attached(attached, addr: int, who: Any):
+    """Resolve a dynamic-window byte address against an attach list of
+    (base_addr, nbytes, buf) entries -> (buf, tensor or array, element
+    offset) (src/onesided.jl:109-121 addressing contract). The base
+    address is the one :func:`~tpu_mpi_torch.datatypes.Get_address` gave
+    at attach time, so a ``DeviceBuffer`` cell rebound by a write since
+    keeps resolving; the offset counts elements of the buffer's value."""
+    addr = int(addr)
+    for (base_addr, nbytes, buf) in attached:
+        if base_addr <= addr < base_addr + nbytes:
+            arr = extract_array(buf)
+            return buf, arr, int((addr - base_addr) // itemsize(arr))
+    raise MPIError(f"address {addr:#x} not attached on rank {who}",
+                   code=_ec.ERR_WIN)
+
+
 def clone_like(x: Any, value: Any) -> Any:
     """An operand of the same registry kind as x holding ``value``, on x's
     device. A DeviceBuffer result may share ``value`` (cells copy on
@@ -478,3 +502,12 @@ def pinned_wire_view(x: Any, count: int) -> Optional[np.ndarray]:
         return None
     flat = x.reshape(-1)
     return flat if flat.size == count else flat[:count]
+
+
+# The reference's dispatch unions (src/buffers.jl:1-11) as isinstance()
+# tuples; bool subclasses int, so test bools before the integer union.
+MPIInteger = (int, np.int8, np.uint8, np.int16, np.uint16,
+              np.int32, np.uint32, np.int64, np.uint64)
+MPIFloatingPoint = (float, np.float32, np.float64, np.float16)
+MPIComplex = (complex, np.complex64, np.complex128)
+MPIDatatype = (bool, np.bool_) + MPIInteger + MPIFloatingPoint + MPIComplex

@@ -243,27 +243,30 @@ def _fused_reduce_candidate(op: Op, arrs: Sequence[Any]) -> Optional[str]:
     return _kernel_op(op, a0.dtype)
 
 
-def _tensor_fold(arrs: Sequence[Any], op: Op):
+def _tensor_fold(arrs: Sequence[Any], op: Op, out: Optional[Any] = None):
     """The fold of tensor contributions (counterpart of the JAX package's
     ``_jitted_fold``): the fused kernel when :func:`_fused_reduce_candidate`
     admits the operands, else the chained PyTorch fold, counted in
     ``chained_folds``. Host numpy contributions beside tensors are moved to
-    the first tensor's device first. Returns None when no operand is a
+    the first tensor's device first. ``out``, when given, receives the
+    result (it may be the first operand itself: the RMA accumulate folds
+    into the target range in place). Returns None when no operand is a
     tensor (the host fold applies)."""
     first = next((a for a in arrs if is_torch_tensor(a)), None)
     if first is None:
         return None
     arrs = [a if is_torch_tensor(a) else as_tensor(a, device=first.device)
             for a in arrs]
-    if len(arrs) == 1:
+    if len(arrs) == 1 and out is None:
         return arrs[0]
     kop = _fused_reduce_candidate(op, arrs)
     if kop is not None:
-        return _fused.fused_multi_reduce(arrs, kop)
+        return _fused.fused_multi_reduce(arrs, kop, out=out)
     global chained_folds
     with _chained_lock:
         chained_folds += 1
-    return functools.reduce(op, arrs)
+    res = functools.reduce(op, arrs)
+    return res if out is None else out.copy_(res)
 
 
 def _reduce_arrays(arrs: Sequence[Any], op: Op,

@@ -323,7 +323,13 @@ def _coalesce(blocks: list[tuple[int, np.dtype, int]]) -> list[tuple[int, np.dty
 
 
 def Get_address(obj: Any) -> int:
-    """Address of a buffer (src/datatypes.jl:321-325)."""
+    """Address of a buffer (src/datatypes.jl:321-325): a tensor's
+    ``data_ptr()`` (on the CPU and on CUDA alike), a ``DeviceBuffer``'s
+    tensor's — stable while nothing writes the cell, which rebinds on
+    write — and a host array's data pointer."""
+    value = getattr(obj, "value", obj)      # a DeviceBuffer's tensor
+    if isinstance(value, torch.Tensor):
+        return int(value.data_ptr())
     arr = np.asarray(obj)
     return arr.__array_interface__["data"][0]
 

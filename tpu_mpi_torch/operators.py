@@ -172,13 +172,26 @@ def is_elementwise(op: Op) -> bool:
 def acc_combine(old: Any, incoming: Any, op: Op):
     """MPI accumulate semantics for a target range: the new target values,
     or None to leave the target unchanged (NO_OP). The single owner of the
-    REPLACE/NO_OP dispatch used by both the in-process path
-    (onesided._apply_op) and the cross-process wire engine
-    (_rma_wire.ProcWinState.apply_acc)."""
-    if op is REPLACE:
-        return np.asarray(incoming, dtype=old.dtype)
+    REPLACE/NO_OP dispatch of ``onesided._apply_op``.
+
+    A numpy ``old`` gives a fresh array. A tensor ``old`` (the target range
+    itself, a contiguous view) is written IN PLACE and returned: REPLACE
+    copies the origin in, and every other op is the two-operand rank-ordered
+    fold ``op(old, incoming)`` through the Allreduce fold's candidate check
+    — one launch of the fused fold kernel on a CUDA tensor for a predefined
+    op it takes, else the chained fold (counted in
+    ``collective.chained_folds``)."""
     if op is NO_OP:
         return None
+    if _is_torch(old):
+        from .buffers import as_tensor
+        from .collective import _tensor_fold
+        inc = as_tensor(incoming, old.dtype, old.device).reshape(-1)
+        if op is REPLACE:
+            return old.copy_(inc)
+        return _tensor_fold([old, inc.contiguous()], op, out=old)
+    if op is REPLACE:
+        return np.asarray(incoming, dtype=old.dtype)
     return np.asarray(op(old, np.asarray(incoming, dtype=old.dtype)))
 
 # Function → builtin Op dispatch (src/operators.jl:39-45 maps + * min max & | ⊻).

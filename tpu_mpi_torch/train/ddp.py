@@ -24,8 +24,10 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Iterable, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
+from .. import checkpoint as _ckpt
 from .. import config as _config
 from .. import perfvars as _pv
 from ..buffers import as_tensor, resolve_device
@@ -36,9 +38,6 @@ from ..pointtopoint import Start, Wait
 from .bucketer import GradBucketer
 
 __all__ = ["DDPTrainer", "arm_bucket"]
-
-CHECKPOINT = ("trainer checkpoints wait for the port's checkpoint.py and "
-              "io.py (ROADMAP Queue A #8)")
 
 
 def arm_bucket(send: Any, recv: Any, comm) -> object:
@@ -53,6 +52,32 @@ def masters(params: Dict[str, Any], device: torch.device) -> Dict[str, torch.Ten
     the caller's tensors or arrays)."""
     return {name: as_tensor(p, torch.float64, device).clone()
             for name, p in params.items()}
+
+
+def stage_range(segs: Sequence[torch.Tensor], lo: int, hi: int) -> np.ndarray:
+    """Elements [lo, hi) of the concatenation of the flat tensors ``segs``,
+    staged to one host array piece by piece (nothing else is copied)."""
+    host = torch.empty(hi - lo, dtype=segs[0].dtype)
+    off = 0
+    for seg in segs:
+        a, b = max(lo, off), min(hi, off + seg.numel())
+        if a < b:
+            host[a - lo:b - lo].copy_(seg[a - off:b - off])
+        off += seg.numel()
+    return host.numpy()
+
+
+def fill_range(segs: Sequence[torch.Tensor], lo: int, vals: np.ndarray) -> None:
+    """Copy ``vals`` into elements [lo, lo + vals.size) of the concatenation
+    of the flat tensors ``segs``, in place (the inverse of
+    :func:`stage_range`)."""
+    src = torch.from_numpy(vals)
+    hi, off = lo + vals.size, 0
+    for seg in segs:
+        a, b = max(lo, off), min(hi, off + seg.numel())
+        if a < b:
+            seg[a - off:b - off].copy_(src[a - lo:b - lo])
+        off += seg.numel()
 
 
 class DDPTrainer:
@@ -163,8 +188,46 @@ class DDPTrainer:
         rank — the quantity FSDP shards 1/nranks."""
         return sum(m.numel() * m.element_size() for m in self._mom.values())
 
+    # -- checkpoint / reshard ----------------------------------------------
+
+    def _state(self) -> List[torch.Tensor]:
+        """The packed global state, params then momentum, as flat views."""
+        return ([self._flat[n] for n in self.order]
+                + [self._mom[n] for n in self.order])
+
     def save(self, path: str) -> None:
-        raise NotImplementedError(CHECKPOINT)
+        """Collectively checkpoint params + momentum + step, sharded
+        1/nranks: rank r writes slice r of the packed global state, as
+        ``np.array_split`` cuts it — the JAX package's file for the same
+        state. Only this rank's slice is staged to host. Any later world
+        can :meth:`load` it back."""
+        total = sum(t.numel() for t in self._state())
+        size, rank = self.comm.size(), self.comm.rank()
+        q, r = divmod(total, size)
+        lo = rank * q + min(rank, r)
+        mine = stage_range(self._state(), lo, lo + q + (rank < r))
+        _ckpt.save_sharded(
+            path, {"step": np.array([self.step_count], dtype=np.int64),
+                   "state": mine}, self.comm)
 
     def load(self, path: str) -> int:
-        raise NotImplementedError(CHECKPOINT)
+        """Restore from :meth:`save`, resharding when the writer world
+        differs from this one: every rank reads ALL shards, one at a
+        time, into its masters in place. Returns the restored step count."""
+        segs = self._state()
+        total = sum(t.numel() for t in segs)
+        off = 0
+        for s in range(_ckpt.shard_count(path, self.comm)):
+            shard = _ckpt.load_sharded(path, self.comm, shard=s)
+            part = shard["state"]
+            if off + part.size > total:
+                raise ValueError(f"checkpoint state exceeds the trainer's "
+                                 f"{total} elements")
+            fill_range(segs, off, part)
+            off += part.size
+            self.step_count = int(shard["step"][0])
+        if off != total:
+            raise ValueError(
+                f"checkpoint state has {off} elements, trainer needs {total}")
+        _pv.note_train(reshards=1)
+        return self.step_count

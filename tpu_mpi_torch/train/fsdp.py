@@ -24,14 +24,16 @@ from __future__ import annotations
 import time
 from typing import Any, Dict, Iterable, List, Tuple
 
+import numpy as np
 import torch
 
+from .. import checkpoint as _ckpt
 from .. import perfvars as _pv
 from ..buffers import IN_PLACE, resolve_device
 from ..collective import Allgather, Bcast, Reduce_scatter_block
 from ..operators import SUM
 from .bucketer import _flat_grad
-from .ddp import CHECKPOINT, masters
+from .ddp import fill_range, masters
 
 __all__ = ["FSDPTrainer"]
 
@@ -102,8 +104,41 @@ class FSDPTrainer:
         ~1/nranks of the DDP equivalent."""
         return self._mshard.numel() * self._mshard.element_size()
 
+    # -- checkpoint / reshard ----------------------------------------------
+
     def save(self, path: str) -> None:
-        raise NotImplementedError(CHECKPOINT)
+        """Checkpoint this rank's OWN slice of params + momentum (the
+        natural ZeRO sharding: no gather, no replication)."""
+        _ckpt.save_sharded(
+            path, {"step": np.array([self.step_count], dtype=np.int64),
+                   "params": self._my_slice,
+                   "mom": self._mshard,
+                   "n": np.array([self._n], dtype=np.int64)}, self.comm)
 
     def load(self, path: str) -> int:
-        raise NotImplementedError(CHECKPOINT)
+        """Restore from :meth:`save`, resharding across a different world
+        size: each writer shard's params land in the full flat, and the
+        part of its momentum inside this rank's slice in the momentum
+        shard, in place, one shard at a time. Writers may have padded to
+        another multiple: only the first n elements are state, the rest
+        is zero."""
+        lo = self.comm.rank() * self._shard
+        self._flat.zero_()
+        self._mshard.zero_()
+        poff = 0
+        for s in range(_ckpt.shard_count(path, self.comm)):
+            shard = _ckpt.load_sharded(path, self.comm, shard=s)
+            n = int(shard["n"][0])
+            if n != self._n:
+                raise ValueError(
+                    f"checkpoint holds {n} params, trainer has {self._n}")
+            params, mom = shard["params"], shard["mom"]
+            keep = max(0, min(params.size, n - poff))
+            fill_range([self._flat], poff, params[:keep])
+            a, b = max(lo, poff), min(lo + self._shard, poff + keep)
+            if a < b:
+                fill_range([self._mshard], a - lo, mom[a - poff:b - poff])
+            poff += params.size
+            self.step_count = int(shard["step"][0])
+        _pv.note_train(reshards=1)
+        return self.step_count
