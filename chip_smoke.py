@@ -1,7 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke check of tpu_mpi_torch, the PyTorch/CUDA port.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--against LABEL=DIR ...]
+
+(``--against`` also times, in phase 6's turns, the ``ring_reduce_scatter``
+kernel of the tree at DIR: a checkout of an earlier commit, whose kernel
+entry takes no route argument.)
 
 Needs one CUDA card (an H100 is what the port targets) and ``nvcc``; it
 imports torch, numpy and the port, never jax or tpu_mpi. Phases, each
@@ -12,11 +16,13 @@ fatal on failure:
    (sm_90a), one nvcc per source, all started together;
 3. kernels against their plain PyTorch versions on the card, bitwise
    (floats compared as raw bits, NaN positions as masks), over every dtype
-   and op each kernel takes with NaN and signed-zero inputs for MAX/MIN:
+   and op each kernel takes (uint16, uint32 and uint64 among them, as
+   random bits) with NaN and signed-zero inputs for MAX/MIN:
    the fused fold at n in {2, 4, 5, 17} and sizes 1, 127, 4097, 2^26+3;
    the three ring kernels at n in {2, 4, 5, 8} and per-rank sizes 1, 127,
-   4097, 8229, 2^26+3 (reduce-scatter and allgather on shards of
-   ceil(size/n)); non-contiguous operands must raise;
+   4097, 8229, 4198400, 2^26+3 (reduce-scatter and allgather on shards of
+   ceil(size/n)), the reduce-scatter kernel on both its routes (staged
+   and direct); non-contiguous operands must raise;
 4. host main path: ``spmd_run`` on 4 rank threads — Init, COMM_WORLD, a
    ``DeviceBuffer`` of float32[2^26] per rank from a numpy seed, repeated
    ``MPI.Allreduce(x, y, MPI.SUM, comm)`` (the repeats arm the auto-arm
@@ -30,11 +36,15 @@ fatal on failure:
    (4, 2^24) shards and ``ring_allgather`` back, and ``xla.allreduce``,
    ``xla.reduce_scatter``, ``xla.allgather`` — every result bitwise equal
    to its plain version and on cuda, every ring kernel's launch count
-   rising, the callable-ring and chained-fold counts still;
+   rising (every reduce-scatter on the staged route), the callable-ring
+   and chained-fold counts still;
 6. times with CUDA events at the main paths' shapes: each kernel, its
    bound, its plain version, one PyTorch call computing the same function
    as the library yardstick (timed only; the port never calls it), a 1 GiB
    ``copy_`` bandwidth control, and the host-lane ``MPI.Allreduce`` per op;
+   ``ring_reduce_scatter`` in turns with ``xs.view(n, n, per).sum(0)`` and
+   with its own direct route, ``ring_allgather`` in turns with
+   ``expand(n, -1).contiguous()`` and ``repeat(n, 1)``;
 7. build: ``permute.cu``, ``ring_attention.cu`` and
    ``ring_attention_sm90.cu`` join phase 2's parallel build;
 8. the new kernels against their plain versions: the permute and
@@ -170,9 +180,13 @@ PARITY_SIZES = (1, 127, 4097)
 BIG_SIZE = (1 << 26) + 3
 BIG_NS = (4, 17)
 RING_NS = (2, 4, 5, 8)
-RING_SIZES = (1, 127, 4097, 8229, BIG_SIZE)
+# 4198400 gives blocks of whole 16-byte words at every n and dtype, so the
+# reduce-scatter kernel takes its staged route over many tiles
+RING_SIZES = (1, 127, 4097, 8229, 4198400, BIG_SIZE)
 DTYPES = ("float32", "float64", "float16", "bfloat16", "int8", "int16",
           "int32", "int64", "uint8", "bool")
+# phase 3 also folds the unsigned types torch itself does not fold
+FOLD_DTYPES = DTYPES + ("uint16", "uint32", "uint64")
 ALL_OPS = ("SUM", "PROD", "MAX", "MIN", "BAND", "BOR", "BXOR")
 PERMUTE_NS = (2, 4, 5, 8)
 # odd sizes take the narrow words; 4096 elements (and shards of them) the
@@ -257,10 +271,14 @@ def _int_view(t):
 
 def same_bits(a, b) -> bool:
     """Bitwise equality; for floats, NaN positions must match and every
-    other element must match bit for bit (so +0 and -0 differ)."""
+    other element must match bit for bit (so +0 and -0 differ). Unsigned
+    types wider than a byte compare as their signed views (torch has no
+    compare kernels for them)."""
     import torch
     if a.shape != b.shape or a.dtype != b.dtype:
         return False
+    if a.dtype in (torch.uint16, torch.uint32, torch.uint64):
+        return bool(torch.equal(a.view(_int_view(a)), b.view(_int_view(b))))
     if not a.dtype.is_floating_point:
         return bool(torch.equal(a, b))
     na, nb = torch.isnan(a), torch.isnan(b)
@@ -273,6 +291,8 @@ def same_bits(a, b) -> bool:
 
 def max_abs_err(a, b) -> float:
     import torch
+    if a.dtype in (torch.uint16, torch.uint32, torch.uint64):
+        return 0.0 if same_bits(a, b) else float("inf")
     if not a.dtype.is_floating_point:
         return float((a.to(torch.float64) - b.to(torch.float64)).abs().max())
     keep = ~(torch.isnan(a) | torch.isnan(b))
@@ -284,8 +304,12 @@ def max_abs_err(a, b) -> float:
 def operands(dtype, n: int, size: int, device, gen):
     """n seeded operands of one dtype, stacked to (n, size): normal floats,
     integers across the whole range of the narrow types (so SUM and PROD
-    wrap), 0/1 bools."""
+    wrap), random bits of the unsigned types, 0/1 bools."""
     import torch
+    if dtype in (torch.uint16, torch.uint32, torch.uint64):
+        width = torch.empty((), dtype=dtype).element_size()
+        return torch.randint(0, 256, (n, size * width), generator=gen,
+                             device=device, dtype=torch.uint8).view(dtype)
     if dtype.is_floating_point:
         return torch.randn(n, size, generator=gen, device=device,
                            dtype=torch.float32).to(dtype)
@@ -314,7 +338,7 @@ def check_parity(fr, device, sizes=PARITY_SIZES, ns=PARITY_NS,
     import torch
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED)
-    dtypes = [getattr(torch, d) for d in DTYPES]
+    dtypes = [getattr(torch, d) for d in FOLD_DTYPES]
     cases, worst = 0, 0.0
 
     def one(xs, op, what):
@@ -368,6 +392,7 @@ def check_ring_parity(MPI, ring, device, ns=RING_NS, sizes=RING_SIZES) -> dict:
     gen.manual_seed(SEED + 1)
     cases = dict.fromkeys(ring.REPLACES, 0)
     worst = dict.fromkeys(ring.REPLACES, 0.0)
+    ring.reset_launches()
 
     def one(name, got, want, what):
         torch.cuda.synchronize()
@@ -387,7 +412,7 @@ def check_ring_parity(MPI, ring, device, ns=RING_NS, sizes=RING_SIZES) -> dict:
                 ring.ring_reduce_scatter_plain(blocks, combine),
                 f"{name} {what}")
 
-    for dname in DTYPES:
+    for dname in FOLD_DTYPES:
         dtype = getattr(torch, dname)
         ops = [op for op in ALL_OPS if ring.supports(op, dtype)]
         for size in sizes:
@@ -417,7 +442,10 @@ def check_ring_parity(MPI, ring, device, ns=RING_NS, sizes=RING_SIZES) -> dict:
             pass
         else:
             raise AssertionError("a non-contiguous stacked tensor did not raise")
-    return {"cases": cases, "max_abs_err": worst}
+    routes = dict(ring.route_launches)
+    if min(routes.values()) < 1:
+        raise AssertionError(f"a reduce-scatter route went untested: {routes}")
+    return {"cases": cases, "max_abs_err": worst, "routes": routes}
 
 
 # ---------------------------------------------------------------------------
@@ -628,24 +656,53 @@ def bound(nbytes: int, flops: int, caps: dict) -> tuple:
     return max(bytes_ms, ops_ms), "bytes" if bytes_ms >= ops_ms else "operations"
 
 
-def turns(kernel, library, readings: int = 3) -> dict:
-    """Kernel and library call timed in turns (kernel, library, ...),
-    ``readings`` of each: the medians, and every reading for the spread."""
-    ks, ls = [], []
-    for _ in range(readings):
-        ks.append(time_ms(kernel))
-        ls.append(time_ms(library))
-    return {"ms": float(np.median(ks)), "library_ms": float(np.median(ls)),
-            "ms_turns": ks, "library_ms_turns": ls}
+def turns(kernel, library, readings: int = 3, others: dict = None) -> dict:
+    """Kernel and library call timed in turns, ``readings`` of each, and of
+    each of ``others`` (name -> call), the order reversed every other turn
+    (kernel, library, others..., then back): the medians, and every reading
+    for the spread (``<name>_ms`` and ``<name>_ms_turns`` for the others)."""
+    calls = {"": kernel, "library_": library, **{f"{k}_": f for k, f in
+                                                  (others or {}).items()}}
+    got = {k: [] for k in calls}
+    order = list(calls)
+    for i in range(readings):
+        for k in (order if i % 2 == 0 else order[::-1]):
+            got[k].append(time_ms(calls[k]))
+    out = {}
+    for k, ms in got.items():
+        out[f"{k}ms"] = float(np.median(ms))
+        out[f"{k}ms_turns"] = ms
+    return out
 
 
-def ring_times(ring, xs, shards, caps: dict) -> dict:
+def reduce_scatter_from(lib, xs):
+    """``ring_reduce_scatter(xs, "sum")`` through another tree's build of
+    ``ring.cu`` whose entry takes no route (the form before the staged
+    route), uncounted."""
+    from tpu_mpi_torch.kernels import _build
+    from tpu_mpi_torch.kernels.fold_ops import DTYPE_CODE, OP_CODE
+    n = xs.shape[0]
+    out = xs.new_empty((n, xs.shape[1] // n))
+    _build.call(lib.fn("tmt_ring_reduce_scatter"), xs.device, "ring_reduce_scatter",
+                xs.data_ptr(), out.data_ptr(), n, out.shape[1],
+                DTYPE_CODE[xs.dtype], OP_CODE["SUM"])
+    return out
+
+
+def ring_times(ring, xs, shards, caps: dict, against: dict) -> dict:
     """Each ring kernel at the in-graph path's shapes: kernel, plain and
     library times (ms) and the bound. ``xs`` is (n, count) float32,
-    ``shards`` (n, count / n)."""
+    ``shards`` (n, count / n). ``against`` maps a label to another tree's
+    ``ring.cu`` library, whose reduce-scatter kernel joins the turns
+    (after a bitwise check against this tree's)."""
     n, count = xs.shape
     size = xs.element_size()
     per = count // n
+    want = ring.ring_reduce_scatter(xs, "sum")
+    for label, lib in against.items():
+        if not same_bits(reduce_scatter_from(lib, xs), want):
+            raise AssertionError(f"ring_reduce_scatter of {label} != this tree's")
+    del want
     return {
         "ring_allreduce": {
             "ms": time_ms(lambda: ring.ring_allreduce(xs, "sum")),
@@ -660,18 +717,29 @@ def ring_times(ring, xs, shards, caps: dict) -> dict:
             "bound": bound(2 * n * count * size, (n - 1) * count, caps),
         },
         "ring_reduce_scatter": {
+            # the kernel's direct route (16-byte loads, no staging) on the
+            # same tiles, and other trees' kernels, in the same turns
             **turns(lambda: ring.ring_reduce_scatter(xs, "sum"),
-                    lambda: xs.view(n, n, per).sum(0)),
+                    lambda: xs.view(n, n, per).sum(0),
+                    others={"direct": lambda: ring._reduce_scatter_kernel(
+                        xs, "SUM", per, via="direct"),
+                        **{label: (lambda lib=lib: reduce_scatter_from(lib, xs))
+                           for label, lib in against.items()}}),
+            "staged_tile": ring.staged_tile(n, xs.dtype),
             "plain_ms": time_ms(lambda: ring.ring_reduce_scatter_plain(
                 xs, operator.add)),
             "library_call": "xs.view(n, n, per).sum(0)",
             "bound": bound((n + 1) * count * size, (n - 1) * count, caps),
         },
         "ring_allgather": {
-            "ms": time_ms(lambda: ring.ring_allgather(shards)),
+            # the same n copies in one PyTorch call: expand's copy, with
+            # repeat (a slower form of the same function) beside it
+            **turns(lambda: ring.ring_allgather(shards),
+                    lambda: shards.reshape(1, -1).expand(n, -1).contiguous(),
+                    others={"repeat": lambda: shards.reshape(1, -1).repeat(n, 1)}),
             "plain_ms": time_ms(lambda: ring.ring_allgather_plain(shards)),
-            "library_ms": time_ms(lambda: shards.reshape(1, -1).repeat(n, 1)),
-            "library_call": "shards.reshape(1, -1).repeat(n, 1)",
+            "library_call": "shards.reshape(1, -1).expand(n, -1).contiguous()",
+            "repeat_call": "shards.reshape(1, -1).repeat(n, 1)",
             "bound": bound((n + n * n) * per * size, 0, caps),
         },
     }
@@ -2205,16 +2273,17 @@ def ckpt_grads(names: list, shapes: dict, step: int, rank: int, device):
 
 
 def release_world_plans() -> None:
-    """Drop the persistent-plan registrations a finished ``spmd_run`` left
-    under its COMM_WORLD's id (0 in every run), and collect: both packages
-    keep registrations until ``Comm.free``, which COMM_WORLD never gets
-    (ROADMAP Queue C), and a DDP trainer sits in reference cycles, so its
-    buckets and masters would otherwise stay on the card until the cyclic
-    collector happens to run. Called between runs, when no world is live."""
+    """Between runs, when no world is live: hold ``spmd_run`` to releasing
+    the persistent-plan registrations of its run (the DDP trainers'
+    buckets among them) when it returns, then collect, since a DDP trainer
+    sits in reference cycles and its buckets and masters would otherwise
+    stay on the card until the cyclic collector happens to run."""
     import gc
     import torch
     from tpu_mpi_torch import overlap
-    overlap.registry.release(0)
+    left = overlap.registry.stats()["registrations"]
+    if left:
+        raise AssertionError(f"{left} plan registrations outlived their run")
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2440,7 +2509,36 @@ def rma_io_ckpt_phase(MPI, collective, fr, host: list, start: dict, device,
     return out
 
 
+def against_libraries(ring, _build, specs: list) -> dict:
+    """``--against LABEL=DIR``: LABEL -> the reduce-scatter entry of the
+    ``ring.cu`` of the tree at DIR (a checkout of another commit), built
+    beside this tree's kernels."""
+    import ctypes
+    from pathlib import Path
+
+    def bind(lib):
+        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+        lib.tmt_ring_reduce_scatter.argtypes = [p, p, i, i64, i, i, p]
+        lib.tmt_ring_reduce_scatter.restype = ctypes.c_int
+
+    libs = {}
+    for spec in specs:
+        label, _, tree = spec.partition("=")
+        source = Path(tree).resolve() / "tpu_mpi_torch" / "csrc" / "ring.cu"
+        if not label or not source.exists():
+            raise SystemExit(f"chip_smoke: --against LABEL=DIR, no {source}")
+        libs[label] = _build.Library(f"ring_{label}", source, bind)
+    return libs
+
+
 def main() -> int:
+    import argparse
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--against", action="append", default=[], metavar="LABEL=DIR",
+        help="also time the ring_reduce_scatter kernel of the tree at DIR "
+             "(a checkout of another commit) in phase 6's turns")
+    args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -2471,8 +2569,9 @@ def main() -> int:
     where = f"[{card}]"
 
     t0 = time.perf_counter()
+    against = against_libraries(ring, _build, args.against)
     libs = (fr.LIBRARY, ring.LIBRARY, permute.LIBRARY, attention.LIBRARY,
-            attention.LIBRARY_SM90)
+            attention.LIBRARY_SM90, *against.values())
     built = _build.build_all(libs)
     for lib in libs:
         lib.load()
@@ -2485,7 +2584,8 @@ def main() -> int:
         f"({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     ring_parity = check_ring_parity(MPI, ring, device)
-    log(f"ring kernels == plain, bitwise, on {ring_parity['cases']} cases "
+    log(f"ring kernels == plain, bitwise, on {ring_parity['cases']} cases, "
+        f"reduce-scatter launches by route {ring_parity['routes']} "
         f"({time.perf_counter() - t0:.1f} s)")
 
     # host main path
@@ -2518,6 +2618,7 @@ def main() -> int:
     t0 = time.perf_counter()
     graph = ingraph_path(MPI, xla, xs)
     graph_folds, graph_rings = fr.launches, dict(ring.launches)
+    graph_routes = dict(ring.route_launches)
     callables, chained = ring.callable_rings, collective.chained_folds
     log(f"in-graph path on {mesh}: {len(graph)} calls in "
         f"{time.perf_counter() - t0:.2f} s; ring launches {graph_rings}, fold "
@@ -2525,6 +2626,9 @@ def main() -> int:
         f"{chained}")
     if min(graph_rings.values()) < 1 or graph_folds < 2:
         raise AssertionError("the in-graph path did not launch every kernel")
+    if graph_routes["staged"] != graph_rings["ring_reduce_scatter"]:
+        raise AssertionError(f"an in-graph reduce-scatter left the staged route: "
+                             f"{graph_routes}")
     if callables or chained:
         raise AssertionError("an in-graph reduction left its kernel")
     graph_err = check_ingraph(ring, fr, xs, graph)
@@ -2552,7 +2656,7 @@ def main() -> int:
     lib_ms = time_ms(lambda: torch.stack(xl).sum(0))
     nbytes = (len(xl) + 1) * xl[0].numel() * xl[0].element_size()
     bound_ms, bound_by = bound(nbytes, (len(xl) - 1) * xl[0].numel(), caps)
-    rings = ring_times(ring, xs, shards, caps)
+    rings = ring_times(ring, xs, shards, caps, against)
     del xl, rows, out, xs, shards
     host_ms = host_lane_ms(MPI, host, device)
     algbw = N_MAIN * 4 / (host_ms * 1e-3) / 1e9
@@ -2571,10 +2675,17 @@ def main() -> int:
             f"GB/s, {gbps / copy_gbps:.3f} of the copy), bound {t['bound'][0]:.4f} "
             f"ms ({t['bound'][1]}), plain {t['plain_ms']:.4f} ms, "
             f"{t['library_call']} {t['library_ms']:.4f} ms {where}")
+    rs, ag = rings["ring_reduce_scatter"], rings["ring_allgather"]
     log(f"ring_allreduce floor {rings['ring_allreduce']['floor_call']} "
         f"{rings['ring_allreduce']['floor_ms']:.4f} ms; ring_reduce_scatter in "
-        f"turns: kernel {rings['ring_reduce_scatter']['ms_turns']} ms, library "
-        f"{rings['ring_reduce_scatter']['library_ms_turns']} ms {where}")
+        f"turns (staged tile {rs['staged_tile']} elements): kernel "
+        f"{rs['ms_turns']} ms, library {rs['library_ms_turns']} ms"
+        + "".join(f", {label} {rs[label + '_ms_turns']} ms"
+                  for label in ("direct", *against))
+        + f" {where}")
+    log(f"ring_allgather in turns: kernel {ag['ms_turns']} ms, "
+        f"{ag['library_call']} {ag['library_ms_turns']} ms, {ag['repeat_call']} "
+        f"{ag['repeat_ms_turns']} ms {where}")
     log(f"host-lane MPI.Allreduce float32[2^26] x {NRANKS} ranks: "
         f"{host_ms:.4f} ms/op, algbw {algbw:.1f} GB/s {where}")
     if prof["fold_spans"]:
@@ -2625,8 +2736,13 @@ def main() -> int:
             "parity": "bitwise",
             "parity_cases": ring_parity["cases"][name],
             "copy_gbps": copy_gbps,
-            **{k: t[k] for k in ("floor_ms", "floor_call", "ms_turns",
-                                 "library_ms_turns") if k in t},
+            **({"launches_by_route": graph_routes,
+                "parity_launches_by_route": ring_parity["routes"]}
+               if name == "ring_reduce_scatter" else {}),
+            **{k: v for k, v in t.items() if k.endswith("_turns")
+               or k in ("floor_ms", "floor_call", "staged_tile", "repeat_ms",
+                        "repeat_call", "direct_ms")
+               or k.removesuffix("_ms") in against},
         })
 
     # 8. the new kernels against their plain versions

@@ -116,7 +116,7 @@ def test_kernel_table():
     assert fr.supports("BXOR", torch.int8) and fr.supports("MIN", torch.bool)
     assert not fr.supports("BAND", torch.float32)
     assert not fr.supports("SUM", torch.complex64)
-    assert not fr.supports("SUM", torch.uint16)
+    assert fr.supports("SUM", torch.uint16) and fr.supports("BXOR", torch.uint64)
 
 
 def test_build_raises_without_nvcc(tmp_path, monkeypatch):

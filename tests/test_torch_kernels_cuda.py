@@ -792,3 +792,171 @@ def test_read_at_all_into_card_tensors(kind, tmp_path):
 
     in_place = MPI.spmd_run(body, 4, timeout=120)
     assert in_place == [kind == "tensor"] * 4
+
+
+# ---------------------------------------------------------------------------
+# Unsigned folds (uint16, uint32, uint64) through the kernels
+# ---------------------------------------------------------------------------
+
+_UNSIGNED = [torch.uint16, torch.uint32, torch.uint64]
+_KERNEL_OPS = ("SUM", "PROD", "MAX", "MIN", "BAND", "BOR", "BXOR")
+
+
+def _mixed(dtype, n, count, dev, seed):
+    """Floats at mixed magnitudes (the ring order shows in the bits), or
+    random bits of an integer type."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    if dtype.is_floating_point:      # float16 sums stay finite
+        top = 3 if dtype == torch.float16 else 5
+        mag = 10.0 ** torch.randint(-4, top, (n, count), generator=g, device=dev)
+        return (torch.randn(n, count, generator=g, device=dev) * mag).to(dtype)
+    if dtype == torch.bool:
+        return torch.randint(0, 2, (n, count), generator=g, device=dev).bool()
+    size = torch.empty((), dtype=dtype).element_size()
+    return torch.randint(0, 256, (n, count * size), generator=g, device=dev,
+                         dtype=torch.uint8).view(dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _UNSIGNED)
+def test_unsigned_kernels_match_plain_on_card(dtype):
+    import tpu_mpi_torch as MPI
+    from tpu_mpi_torch.kernels import ring
+    dev = _card()
+    xs = _mixed(dtype, 5, 4097, dev, 21)               # random bits: they wrap
+    blocks = _mixed(dtype, 4, 4 * 2048, dev, 22)        # the staged route
+    odd = _mixed(dtype, 5, 5 * 1031, dev, 23)           # the direct route
+    for name in _KERNEL_OPS:
+        assert fr.supports(name, dtype)
+        op = getattr(MPI, name)
+        combine = ring._combine_fn(op)[1]
+        folds, rings = fr.launches, dict(ring.launches)
+        pairs = [(fr.fused_multi_reduce(list(xs), name),
+                  fr.fused_multi_reduce_plain(list(xs), name)),
+                 (ring.ring_allreduce(xs, op), ring.ring_allreduce_plain(xs, combine))]
+        pairs += [(ring.ring_reduce_scatter(b, op),
+                   ring.ring_reduce_scatter_plain(b, combine)) for b in (blocks, odd)]
+        torch.cuda.synchronize()
+        assert fr.launches == folds + 1
+        assert ring.launches["ring_allreduce"] == rings["ring_allreduce"] + 1
+        assert ring.launches["ring_reduce_scatter"] == rings["ring_reduce_scatter"] + 2
+        for got, want in pairs:
+            assert got.dtype == dtype and torch.equal(got, want), (dtype, name)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _UNSIGNED)
+def test_unsigned_allreduce_on_card(dtype):
+    """MPI.Allreduce of CUDA DeviceBuffers folds in the kernel, bitwise
+    the numpy fold; xla.allreduce's logical ops fold ``x != 0``."""
+    import functools
+    import numpy as np
+    import tpu_mpi_torch as MPI
+    from tpu_mpi_torch import collective, xla
+    _card()
+    rng = np.random.default_rng(24)
+    npd = np.dtype(str(dtype).split(".")[1])
+    data = [rng.integers(0, np.iinfo(npd).max, 3001, dtype=npd, endpoint=True)
+            for _ in range(4)]
+    want = {name: functools.reduce(ufunc, data) for name, ufunc in
+            (("SUM", np.add), ("MAX", np.maximum), ("MIN", np.minimum))}
+    folds, chained = fr.launches, collective.chained_folds
+
+    def body():
+        comm = MPI.COMM_WORLD
+        x = MPI.DeviceBuffer(data[MPI.Comm_rank(comm)])
+        return {name: MPI.Allreduce(x, getattr(MPI, name), comm).value.cpu().numpy()
+                for name in want}
+
+    for got in MPI.spmd_run(body, 4, timeout=120):
+        for name in want:
+            np.testing.assert_array_equal(got[name], want[name])
+    assert fr.launches >= folds + 3 and collective.chained_folds == chained
+    mesh = xla.make_mesh({"x": 4})
+    xs = torch.from_numpy(np.stack(data)).to(mesh.device)
+    xs[0, :7] = 0
+    land = xla.allreduce(xs, MPI.LAND)
+    torch.cuda.synchronize()
+    assert land.dtype == dtype
+    np.testing.assert_array_equal(
+        land[0].cpu().numpy(), np.logical_and.reduce(np.stack(data) != 0, 0)
+        .astype(npd) * (np.arange(3001) >= 7))
+
+
+# ---------------------------------------------------------------------------
+# The reduce-scatter kernel's routes: staged (bulk asynchronous copies into
+# a ring of shared-memory stages) and direct
+# ---------------------------------------------------------------------------
+
+def _reduce_scatter_case(xs):
+    """One kernel call against the plain ring fold, bitwise, and its count."""
+    from tpu_mpi_torch.kernels import ring
+    before = ring.launches["ring_reduce_scatter"]
+    got = ring.ring_reduce_scatter(xs, "sum")
+    want = ring.ring_reduce_scatter_plain(xs, ring._combine_fn("sum")[1])
+    torch.cuda.synchronize()
+    assert ring.launches["ring_reduce_scatter"] == before + 1
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if got.dtype.is_floating_point:     # bits, so -0.0 and 0.0 differ
+        got, want = got.view(_INT_OF[got.element_size()]), \
+            want.view(_INT_OF[want.element_size()])
+    assert torch.equal(got, want)
+
+
+_INT_OF = {2: torch.int16, 4: torch.int32, 8: torch.int64}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype", [(2, torch.float32), (4, torch.float32),
+                                     (5, torch.bfloat16), (8, torch.float64),
+                                     (4, torch.int8), (5, torch.uint32),
+                                     (4, torch.bool)])
+def test_reduce_scatter_sizes_around_a_tile_on_card(n, dtype):
+    """Blocks of tile - 1, tile and tile + 1 elements (whole 16-byte words
+    or not) and of tile +- one word, so the last tile of a block is short,
+    full, or one word or element long."""
+    from tpu_mpi_torch.kernels import ring
+    dev = _card()
+    tile = ring.staged_tile(n, dtype)
+    word = 16 // torch.empty((), dtype=dtype).element_size()
+    assert tile > 0 and tile % word == 0
+    for per in (tile - 1, tile, tile + 1, tile - word, tile + word, 3 * tile + word):
+        _reduce_scatter_case(_mixed(dtype, n, n * per, dev, per))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,dtype", [(2, torch.float32), (5, torch.float16),
+                                     (8, torch.float64)])
+def test_reduce_scatter_many_tiles_on_card(n, dtype):
+    """Far more tiles than CTAs resident at once (more than 24 a streaming
+    multiprocessor), so every SM takes tile after tile, and a short last
+    tile in every block."""
+    from tpu_mpi_torch.kernels import ring
+    dev = _card()
+    tile = ring.staged_tile(n, dtype)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    per = (24 * sms // n + 1) * tile + 16
+    _reduce_scatter_case(_mixed(dtype, n, n * per, dev, 31))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64, torch.int16])
+def test_reduce_scatter_unaligned_base_on_card(dtype):
+    """A base one element past a 16-byte boundary takes the direct route."""
+    dev = _card()
+    n, per = 4, 8192
+    flat = _mixed(dtype, 1, n * n * per + 1, dev, 41).reshape(-1)
+    xs = flat[1:].view(n, n * per)
+    assert xs.data_ptr() % 16 != 0
+    _reduce_scatter_case(xs)
+
+
+@pytest.mark.cuda
+def test_reduce_scatter_many_ranks_take_the_direct_route_on_card():
+    from tpu_mpi_torch.kernels import ring
+    dev = _card()
+    assert ring.staged_tile(64, torch.float32) == 0
+    _reduce_scatter_case(_mixed(torch.float32, 64, 64 * 1024, dev, 51))
+    assert ring.staged_tile(24, torch.float32) > 0
+    _reduce_scatter_case(_mixed(torch.float32, 24, 24 * 4096, dev, 52))

@@ -63,6 +63,16 @@ CASES = [
     (8, "allreduce", "float32", 40, "max"),
     (8, "reduce_scatter", "float32", 4 * 3000, "sum"),
     (8, "allgather", "bfloat16", 30, None),
+    # unsigned types, with values that wrap (torch folds them through the
+    # signed views; the kernels take them as types of their own)
+    (4, "allreduce", "uint16", 8229, "sum"),
+    (4, "allreduce", "uint64", 8229, "min"),
+    (4, "allreduce", "uint32", 8229, "max"),
+    (4, "reduce_scatter", "uint32", 4 * 3000, "max"),
+    (4, "reduce_scatter", "uint64", 4 * 3000, "min"),
+    (4, "reduce_scatter", "uint16", 4 * 3000, "sum"),
+    (8, "reduce_scatter", "uint32", 4 * 3000, "sum"),
+    (4, "allgather", "uint16", 30, None),
 ]
 
 
@@ -78,6 +88,11 @@ def _inputs(case) -> np.ndarray:
     rng = np.random.default_rng(CASES.index(case) + 100)
     if dtype == "int32":
         return rng.integers(-1000, 1000, (n, count)).astype(np.int32)
+    if dtype.startswith("uint"):      # the top half of the range, and 0-3
+        top = np.iinfo(dtype).max
+        high = rng.integers(top // 2, top, (n, count), dtype=dtype, endpoint=True)
+        low = rng.integers(0, 4, (n, count), dtype=dtype)
+        return np.where(rng.integers(0, 2, (n, count)).astype(bool), high, low)
     mag = 10.0 ** rng.integers(-4, 5, (n, count))
     return (rng.standard_normal((n, count)) * mag).astype(np.float32)
 

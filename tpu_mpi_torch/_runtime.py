@@ -1266,6 +1266,10 @@ def spmd_run(fn: Callable[[], Any], size: int, *, args: tuple = (),
                 ctx.fail(DeadlockError("spawned rank did not finish"), None)
                 t.join(5.0)
             joined.add(t)
+    # plans armed on communicators that were never freed (COMM_WORLD among
+    # them) die with the run
+    from .overlap import registry
+    registry.release_world(ctx)
     err = first_error[0]
     if err is None and ctx.failure is not None:
         # e.g. a rank stuck in pure compute past the timeout: the failure was

@@ -12,7 +12,8 @@
 //   * MAX/MIN propagate NaN exactly as torch.maximum/torch.minimum do on the
 //     card (a NaN in a wins, then a NaN in b, else fmax/fmin), so the fmax
 //     semantics that drop NaN never decide;
-//   * integer SUM/PROD wrap modulo 2^bits (computed in unsigned arithmetic);
+//   * integer SUM/PROD wrap modulo 2^bits (computed in unsigned arithmetic),
+//     signed and unsigned alike; MAX/MIN compare in the type's own order;
 //   * bool SUM/MAX/BOR are OR, PROD/MIN/BAND are AND, BXOR is XOR.
 //
 // Also here: the dtype/op codes of the C interfaces, the launch-size rule,
@@ -31,6 +32,7 @@
 enum Dtype {
   DT_F32 = 0, DT_F64 = 1, DT_F16 = 2, DT_BF16 = 3, DT_I8 = 4,
   DT_I16 = 5, DT_I32 = 6, DT_I64 = 7, DT_U8 = 8, DT_BOOL = 9,
+  DT_U16 = 10, DT_U32 = 11, DT_U64 = 12,
 };
 
 enum Op {
@@ -103,6 +105,7 @@ template <int OP> struct Step<__nv_bfloat16, OP> {
 // integers: wrap modulo 2^bits --------------------------------------------------
 template <typename T> struct Wide { typedef uint32_t type; };
 template <> struct Wide<int64_t> { typedef uint64_t type; };
+template <> struct Wide<uint64_t> { typedef uint64_t type; };
 
 template <typename T> struct IntStep {
   typedef typename Wide<T>::type U;
@@ -138,6 +141,9 @@ INT_STEPS(int16_t)
 INT_STEPS(int32_t)
 INT_STEPS(int64_t)
 INT_STEPS(uint8_t)
+INT_STEPS(uint16_t)
+INT_STEPS(uint32_t)
+INT_STEPS(uint64_t)
 
 #undef INT_STEPS
 
@@ -222,6 +228,9 @@ static int dispatch(int dtype, int op, A... a) {
     case DT_I32: return dispatch_op<L, int32_t>(op, a...);
     case DT_I64: return dispatch_op<L, int64_t>(op, a...);
     case DT_U8: return dispatch_op<L, uint8_t>(op, a...);
+    case DT_U16: return dispatch_op<L, uint16_t>(op, a...);
+    case DT_U32: return dispatch_op<L, uint32_t>(op, a...);
+    case DT_U64: return dispatch_op<L, uint64_t>(op, a...);
     case DT_BOOL: return dispatch_op<L, Bool>(op, a...);
   }
   return TMT_EBADARG;

@@ -27,11 +27,13 @@
 // Bound on the card: bytes. Allreduce reads n*S and writes n*S bytes
 // (S = one rank's tensor); reduce-scatter reads n*S and writes S; allgather
 // reads n*s and writes n*n*s (s = one rank's shard). Each does at most n-1
-// cheap operations per element. The design keeps HBM busy: grid-stride
-// loops, neighbouring threads on neighbouring addresses, 16-byte accesses
-// wherever the pointers and the row lengths allow (the scalar form
-// otherwise), and operands addressed from one base pointer and a rank
-// stride, so no pointer table is read from memory.
+// cheap operations per element. The design keeps HBM busy: allreduce and
+// allgather are grid-stride loops, neighbouring threads on neighbouring
+// addresses, 16-byte accesses wherever the pointers and the row lengths
+// allow (the scalar form otherwise), and operands addressed from one base
+// pointer and a rank stride, so no pointer table is read from memory;
+// reduce-scatter stages its tiles in shared memory with bulk asynchronous
+// copies where it can (see its section).
 //
 // C interface (bound with ctypes): each function returns 0 on success, the
 // cudaError_t of a refused launch, or TMT_EBADARG for arguments the kernel
@@ -39,6 +41,7 @@
 // The output never overlaps the input (the wrapper allocates it).
 
 #include "fold_ops.cuh"
+#include "mbarrier.cuh"
 
 // V consecutive elements moved as one access of sizeof(T) * V bytes.
 template <typename T, int V>
@@ -92,47 +95,180 @@ struct AllreduceLaunch {
 };
 
 // ---- reduce-scatter ------------------------------------------------------------
+//
+// One rank's input row holds n blocks of `per`; the output (n blocks of
+// `per`) takes block c from the fold of block c of every row, in ring order
+// from rank c+1. The work is cut into tiles, each a contiguous span of one
+// block, so the rank a fold starts at is found once per tile, never per
+// element.
+//
+// Staged route (16-byte-aligned bases, blocks of whole 16-byte words, and n
+// small enough to stage): one CTA per tile. Its first thread issues the n
+// slices of the tile as 1-D bulk asynchronous copies (the TMA) into shared
+// memory, rank (c+1+k) % n into slot k, all completed on one mbarrier by
+// the bytes they carry; every thread then folds the slots in order, 16
+// bytes at a time, and writes the result with streaming 16-byte stores
+// (the output is written once and never read here). No thread spends
+// registers or instructions on the loads, so a CTA is small (kSliceBudget
+// bytes of shared memory for all n slices) and several are resident on
+// each SM: their copies overlap each other's folds, and the hardware hands
+// each free SM the next tile. (A persistent grid of one CTA per SM walking
+// the tiles with a static stride through a ring of four stages measured no
+// faster than 16-byte loads; the fewer tiles a CTA took, the faster the
+// kernel ran. PERF.md, section 6.)
+//
+// Direct route (blocks that are not whole 16-byte words, an unaligned base,
+// or an n whose slices would fall under kMinSlice bytes): the same tiles,
+// each thread loading its V-element groups of the tile straight from HBM,
+// 16-byte groups where the words allow.
 
-// One rank's input holds n blocks of `per`; element i of it belongs to block
-// i / per, and the output (n blocks of `per`, rank c's block c) has the same
-// index. V divides per, so a group never straddles a block.
-template <typename T, int OP, int V>
-__global__ void ring_reduce_scatter_kernel(const T* __restrict__ x, T* __restrict__ out,
-                                           int n, int64_t per) {
+namespace rs {
+
+const int kSliceBudget = 24 * 1024;    // shared bytes of one tile's n slices
+const int kMinSlice = 1024;
+const int kDirectGroups = 4;           // V-groups a thread takes per direct tile
+
+// One 1-D bulk asynchronous copy of `bytes` (a multiple of 16; both addresses
+// 16-byte aligned) from global to shared memory, completed on the mbarrier
+// `bar` by its byte count.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
+                                          uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];\n"
+      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
+}
+
+// A 16-byte store that streams past the caches (st.global.cs).
+template <typename W>
+__device__ __forceinline__ void store_streaming(W* p, const W& w) {
+  static_assert(sizeof(W) == 16, "one 16-byte word");
+  __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&w));
+}
+
+// Tile t: output block c, its first element e0, and its length.
+struct Tile {
+  int c;
+  int64_t e0, len;
+  __device__ __forceinline__ Tile(int64_t t, int64_t tiles_per_block, int64_t tile,
+                                  int64_t per) {
+    c = (int)(t / tiles_per_block);
+    e0 = (t - (int64_t)c * tiles_per_block) * tile;
+    len = per - e0 < tile ? per - e0 : tile;
+  }
+};
+
+template <typename T, int OP>
+__global__ void __launch_bounds__(kThreads)
+staged_kernel(const T* __restrict__ x, T* __restrict__ out, int n, int64_t per,
+              int64_t tile, int64_t tiles_per_block) {
+  constexpr int V = 16 / sizeof(T);
   typedef Vec<T, V> W;
-  const int64_t total = (int64_t)n * per;
-  const int64_t groups = total / V;
-  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
-  for (int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; g < groups;
-       g += stride) {
-    const int64_t i = g * V;
-    int r = (int)(i / per) + 1;          // block c's fold starts at rank c+1
-    if (r == n) r = 0;
-    W acc = *reinterpret_cast<const W*>(x + r * total + i);
-    for (int k = 2; k <= n; ++k) {
-      r = (r + 1 == n) ? 0 : r + 1;
-      const W own = *reinterpret_cast<const W*>(x + r * total + i);
+  extern __shared__ __align__(16) uint8_t slots[];  // n slices, then the mbarrier
+  const Tile tl(blockIdx.x, tiles_per_block, tile, per);
+  const uint32_t bar = smem_u32(slots) + (uint32_t)(n * tile * sizeof(T));
+  if (threadIdx.x == 0) {
+    mbar_init(bar, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const uint32_t bytes = (uint32_t)(tl.len * sizeof(T));
+    const uint32_t slice = (uint32_t)(tile * sizeof(T));
+    const int64_t total = (int64_t)n * per;
+    const T* src = x + (int64_t)tl.c * per + tl.e0;
+    mbar_expect_tx(bar, (uint32_t)n * bytes);
+    int r = tl.c + 1 == n ? 0 : tl.c + 1;
+    for (int k = 0; k < n; ++k) {
+      bulk_load(smem_u32(slots) + k * slice, src + r * total, bytes, bar);
+      r = r + 1 == n ? 0 : r + 1;
+    }
+  }
+  const int groups = (int)(tl.len / V);
+  const int stride = (int)(tile / V);                // words between slots
+  const W* slot = reinterpret_cast<const W*>(slots);
+  W* o = reinterpret_cast<W*>(out + (int64_t)tl.c * per + tl.e0);
+  mbar_wait(bar, 0);
+  for (int g = threadIdx.x; g < groups; g += kThreads) {
+    W acc = slot[g];
+    for (int k = 1; k < n; ++k) {
+      const W own = slot[k * stride + g];
 #pragma unroll
       for (int j = 0; j < V; ++j) acc.v[j] = Step<T, OP>::f(own.v[j], acc.v[j]);
     }
-    *reinterpret_cast<W*>(out + i) = acc;
+    store_streaming(o + g, acc);
   }
 }
 
+// One CTA per tile. V divides per and tile, so a group never straddles a
+// block or a tile.
+template <typename T, int OP, int V>
+__global__ void __launch_bounds__(kThreads)
+direct_kernel(const T* __restrict__ x, T* __restrict__ out, int n, int64_t per,
+              int64_t tile, int64_t tiles_per_block) {
+  typedef Vec<T, V> W;
+  const Tile tl(blockIdx.x, tiles_per_block, tile, per);
+  const int64_t total = (int64_t)n * per;
+  const T* src = x + (int64_t)tl.c * per + tl.e0;
+  T* o = out + (int64_t)tl.c * per + tl.e0;
+  const int r0 = tl.c + 1 == n ? 0 : tl.c + 1;
+  for (int64_t e = (int64_t)threadIdx.x * V; e < tl.len; e += kThreads * V) {
+    int r = r0;
+    W acc = *reinterpret_cast<const W*>(src + r * total + e);
+    for (int k = 1; k < n; ++k) {
+      r = r + 1 == n ? 0 : r + 1;
+      const W own = *reinterpret_cast<const W*>(src + r * total + e);
+#pragma unroll
+      for (int j = 0; j < V; ++j) acc.v[j] = Step<T, OP>::f(own.v[j], acc.v[j]);
+    }
+    *reinterpret_cast<W*>(o + e) = acc;
+  }
+}
+
+// Bytes of one rank's slice of a staged tile for n ranks (a multiple of 1
+// KiB), or 0 when even kMinSlice bytes cannot be staged.
+static int64_t staged_slice(int n) {
+  const int64_t b = ((int64_t)kSliceBudget / n) & ~(int64_t)1023;
+  return b >= kMinSlice ? b : 0;
+}
+
+template <typename T, int OP>
+static int launch_staged(const T* x, T* out, int n, int64_t per, cudaStream_t s) {
+  const int64_t slice = staged_slice(n);
+  if (slice == 0) return TMT_EBADARG;
+  const int64_t tile = slice / (int64_t)sizeof(T);
+  const int64_t tiles_per_block = (per + tile - 1) / tile;
+  const int smem = (int)(n * slice) + 8;         // the slices and the mbarrier
+  staged_kernel<T, OP><<<(unsigned)(n * tiles_per_block), kThreads, smem, s>>>(
+      x, out, n, per, tile, tiles_per_block);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int OP, int V>
+static int launch_direct(const T* x, T* out, int n, int64_t per, cudaStream_t s) {
+  const int64_t tile = (int64_t)kThreads * V * kDirectGroups;
+  const int64_t tiles_per_block = (per + tile - 1) / tile;
+  direct_kernel<T, OP, V><<<(unsigned)(n * tiles_per_block), kThreads, 0, s>>>(
+      x, out, n, per, tile, tiles_per_block);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace rs
+
+// route: 0 staged (refused where it does not apply), 1 direct.
 template <typename T, int OP>
 struct ReduceScatterLaunch {
-  static int run(const void* x, void* out, int n, int64_t per, cudaStream_t s) {
+  static int run(const void* x, void* out, int n, int64_t per, int route,
+                 cudaStream_t s) {
     constexpr int V = 16 / sizeof(T);
     const T* xt = static_cast<const T*>(x);
     T* ot = static_cast<T*>(out);
-    const int64_t total = (int64_t)n * per;
-    if (aligned(x, 16) && aligned(out, 16) && per % V == 0)
-      ring_reduce_scatter_kernel<T, OP, V><<<grid_for(total / V, kThreads), kThreads, 0, s>>>(
-          xt, ot, n, per);
-    else
-      ring_reduce_scatter_kernel<T, OP, 1><<<grid_for(total, kThreads), kThreads, 0, s>>>(
-          xt, ot, n, per);
-    return (int)cudaGetLastError();
+    const bool words = aligned(x, 16) && aligned(out, 16) && per % V == 0;
+    if (route == 0)
+      return words ? rs::launch_staged<T, OP>(xt, ot, n, per, s) : TMT_EBADARG;
+    if (route != 1) return TMT_EBADARG;
+    return words ? rs::launch_direct<T, OP, V>(xt, ot, n, per, s)
+                 : rs::launch_direct<T, OP, 1>(xt, ot, n, per, s);
   }
 };
 
@@ -172,12 +308,24 @@ extern "C" int tmt_ring_allreduce(const void* x, void* out, int n, int64_t count
                                    static_cast<cudaStream_t>(stream));
 }
 
+// route 0 is the staged route, which takes 16-byte-aligned bases, blocks of
+// whole 16-byte words and an n that tmt_ring_reduce_scatter_tile stages;
+// route 1 the direct route, which takes any.
 extern "C" int tmt_ring_reduce_scatter(const void* x, void* out, int n, int64_t per,
-                                       int dtype, int op, void* stream) {
+                                       int dtype, int op, int route, void* stream) {
   if (n < 1 || per < 0 || !x || !out) return TMT_EBADARG;
   if (per == 0) return 0;
-  return dispatch<ReduceScatterLaunch>(dtype, op, x, out, n, per,
+  return dispatch<ReduceScatterLaunch>(dtype, op, x, out, n, per, route,
                                        static_cast<cudaStream_t>(stream));
+}
+
+// Elements of one rank's slice of a staged reduce-scatter tile for n ranks
+// and elements of `itemsize` bytes, or 0 when the staged route does not take
+// n (the route also needs 16-byte-aligned bases and blocks of whole 16-byte
+// words).
+extern "C" int64_t tmt_ring_reduce_scatter_tile(int n, int itemsize) {
+  if (n < 1 || itemsize < 1 || 16 % itemsize) return 0;
+  return rs::staged_slice(n) / itemsize;
 }
 
 extern "C" int tmt_ring_allgather(const void* x, void* out, int n, int64_t nbytes,

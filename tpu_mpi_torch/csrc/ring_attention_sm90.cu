@@ -65,6 +65,7 @@
 // no libcuda.
 
 #include "fold_ops.cuh"
+#include "mbarrier.cuh"
 #include <cuda.h>         // CUtensorMap and its enums (types only)
 #include <math.h>
 
@@ -80,44 +81,7 @@ const int kThreads = 128 * NC + 32;   // consumers, then the producer warp
 const float kMInit = -1e30f;          // the TPU kernel's running-max start
 const float kLog2e = 1.4426950408889634f;
 
-// ---- shared memory, mbarriers, TMA ----------------------------------------------
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(bar), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done;
-  asm volatile("{\n.reg .pred p;\n"
-               "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-               "selp.u32 %0, 1, 0, p;\n}\n"
-               : "=r"(done) : "r"(bar), "r"(parity) : "memory");
-  return done != 0;
-}
-
-// Wait until the phase of the given parity has completed. A wait that has
-// not completed after about 2^35 cycles (some 20 s) traps, so a protocol
-// fault fails the launch instead of holding the card.
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const long long start = clock64();
-  while (!mbar_try_wait(bar, parity))
-    if (clock64() - start > (1ll << 35)) __trap();
-}
+// ---- TMA (shared-memory addresses and mbarriers: mbarrier.cuh) ---------------
 
 // One box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first.
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,

@@ -11,8 +11,10 @@ decomposes odd sizes into UInt blocks.
 Port mapping: torch dtypes map onto the same predefined datatypes
 (:func:`torch_dtype` and ``to_datatype(torch.float32)``). Two traps: numpy
 has no bfloat16, so BFLOAT16 travels as its raw 16 bits where ml_dtypes is
-absent; and torch has only partial arithmetic on uint16/uint32/uint64
-(no add or multiply on the CPU), so folds of those types fail in torch.
+absent; and torch has only partial arithmetic on uint16/uint32/uint64 (no
+add or compare kernels), so the reduction operators fold those types through
+their signed views (:mod:`tpu_mpi_torch.operators`) and the kernels take
+them as types of their own, both bitwise as numpy and the JAX package fold.
 
 TPU mapping (SURVEY.md §2.2): a datatype = (numpy dtype, layout) descriptor.
 XLA owns physical layout, so vector/subarray become strided/sliced element maps

@@ -5,28 +5,26 @@ version applies, rounding as the kernel's Step<T, OP> does."""
 
 from __future__ import annotations
 
-import operator
-
 import torch
+
+from ..operators import BAND, BOR, BXOR, MAX, MIN, PROD, SUM
 
 # dtype -> kernel code (enum Dtype)
 DTYPE_CODE = {
     torch.float32: 0, torch.float64: 1, torch.float16: 2, torch.bfloat16: 3,
     torch.int8: 4, torch.int16: 5, torch.int32: 6, torch.int64: 7,
-    torch.uint8: 8, torch.bool: 9,
+    torch.uint8: 8, torch.bool: 9, torch.uint16: 10, torch.uint32: 11,
+    torch.uint64: 12,
 }
 _FLOAT_OPS = ("SUM", "PROD", "MAX", "MIN")
 _INT_OPS = _FLOAT_OPS + ("BAND", "BOR", "BXOR")
 # op name -> kernel code (enum Op)
 OP_CODE = {name: i for i, name in enumerate(_INT_OPS)}
 
-# The plain fold steps: exactly the tensor operations the reduction
-# operators of tpu_mpi_torch.operators apply.
-PLAIN_STEP = {
-    "SUM": operator.add, "PROD": operator.mul,
-    "MAX": torch.maximum, "MIN": torch.minimum,
-    "BAND": operator.and_, "BOR": operator.or_, "BXOR": operator.xor,
-}
+# The plain fold steps: the functions of the reduction operators of
+# tpu_mpi_torch.operators themselves (which fold torch's unsigned 16, 32 and
+# 64-bit types through their signed views).
+PLAIN_STEP = {op.name: op.fn for op in (SUM, PROD, MAX, MIN, BAND, BOR, BXOR)}
 
 
 def supports(op: str, dtype: torch.dtype) -> bool:

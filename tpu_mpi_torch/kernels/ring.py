@@ -32,12 +32,18 @@ plain schedule on any device and is counted in ``callable_rings``.
 
 Bound on the card: bytes. On one card the ring's hops would only copy each
 chunk through the same HBM again, so each kernel computes in one pass what
-the hops leave on every rank (see the source for the traffic of each).
+the hops leave on every rank (see the source for the traffic of each). The
+reduce-scatter kernel has two routes, chosen from alignment and n and
+counted in ``route_launches``: "staged" stages each tile's n slices in
+shared memory with bulk asynchronous copies (16-byte-aligned bases, blocks
+of whole 16-byte words, an n that :func:`staged_tile` stages), "direct"
+loads straight from HBM (any other call).
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import threading
 from typing import Any, Callable, Optional
 
@@ -45,7 +51,7 @@ import torch
 
 from . import _build
 from .fold_ops import DTYPE_CODE, OP_CODE, PLAIN_STEP, supports
-from ..operators import _PREDEFINED, as_op
+from ..operators import _PREDEFINED, _signed, as_op
 
 SOURCE = _build.CSRC / "ring.cu"
 REPLACES = {
@@ -57,9 +63,12 @@ REPLACES = {
 LANE = 128      # the TPU layout's lane width: ring chunks are whole rows of it
 SUBLANE = 8     # rows per chunk are a multiple of this
 
-# Launches of each kernel, one per wrapper call that launched it; and ring
-# calls whose op could not enter a kernel and ran the plain schedule.
+# Launches of each kernel, one per wrapper call that launched it (and of
+# the reduce-scatter kernel by route); and ring calls whose op could not
+# enter a kernel and ran the plain schedule.
 launches = dict.fromkeys(REPLACES, 0)
+ROUTES = ("staged", "direct")      # the reduce-scatter kernel's routes
+route_launches = dict.fromkeys(ROUTES, 0)
 callable_rings = 0
 _count_lock = threading.Lock()
 
@@ -67,8 +76,9 @@ _count_lock = threading.Lock()
 def reset_launches() -> None:
     global callable_rings
     with _count_lock:
-        for name in launches:
-            launches[name] = 0
+        for table in (launches, route_launches):
+            for name in table:
+                table[name] = 0
         callable_rings = 0
 
 
@@ -218,8 +228,7 @@ def ring_reduce_scatter_plain(xs: torch.Tensor, combine: Callable) -> torch.Tens
         for r in range(n):
             j = (r - s - 2) % n
             acc[r, j] = combine(acc[r, j], acc[(r - 1) % n, j])
-    ranks = torch.arange(n, device=xs.device)
-    return acc[ranks, ranks]
+    return acc.diagonal(dim1=0, dim2=1).movedim(-1, 0).contiguous()
 
 
 def ring_reduce_scatter(xs: torch.Tensor, op: Any = "sum") -> torch.Tensor:
@@ -236,13 +245,41 @@ def ring_reduce_scatter(xs: torch.Tensor, op: Any = "sum") -> torch.Tensor:
         return ring_reduce_scatter_plain(xs, combine)
     if xs.device.type == "cpu":
         return ring_reduce_scatter_plain(xs, combine)
+    return _reduce_scatter_kernel(xs, kop, per)
+
+
+def _reduce_scatter_kernel(xs: torch.Tensor, kop: str, per: int, *,
+                           via: Optional[str] = None) -> torch.Tensor:
+    """The kernel on the stacked CUDA tensor, or a refusal. The staged route
+    (bulk asynchronous copies through shared memory) takes 16-byte-aligned
+    bases, blocks of whole 16-byte words and an n it stages
+    (:func:`staged_tile`); the direct route takes any. ``via`` names a route
+    in place of that choice (for measurement: the kernel must take it)."""
+    n = xs.shape[0]
     _kernel_input(xs, "ring_reduce_scatter", kop)
     out = xs.new_empty((n, per))
+    way = via or ("staged" if (xs.data_ptr() | out.data_ptr()
+                               | per * xs.element_size()) % 16 == 0
+                  and staged_tile(n, xs.dtype) else "direct")
     _build.call(LIBRARY.fn("tmt_ring_reduce_scatter"), xs.device,
                 "ring_reduce_scatter", xs.data_ptr(), out.data_ptr(), n, per,
-                DTYPE_CODE[xs.dtype], OP_CODE[kop])
-    _count("ring_reduce_scatter")
+                DTYPE_CODE[xs.dtype], OP_CODE[kop], ROUTES.index(way))
+    with _count_lock:
+        launches["ring_reduce_scatter"] += 1
+        route_launches[way] += 1
     return out
+
+
+def staged_tile(n: int, dtype: torch.dtype) -> int:
+    """Elements of one rank's slice of a tile on the staged (bulk-copy)
+    route of the reduce-scatter kernel for n ranks, 0 where n takes the
+    direct route; read from the kernel library (built on first use)."""
+    return _staged_tile(n, dtype.itemsize)
+
+
+@functools.lru_cache(maxsize=None)
+def _staged_tile(n: int, itemsize: int) -> int:
+    return int(LIBRARY.fn("tmt_ring_reduce_scatter_tile")(n, itemsize))
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +289,11 @@ def ring_reduce_scatter(xs: torch.Tensor, op: Any = "sum") -> torch.Tensor:
 def ring_allgather_plain(xs: torch.Tensor) -> torch.Tensor:
     """The TPU kernel's schedule: every rank places its own row, then hop s
     passes each rank's held row to the next rank, which places it at
-    (r-s-1) % n."""
+    (r-s-1) % n. torch's unsigned 16-64-bit types move as their signed
+    views (it has no index_put for them)."""
+    signed = _signed(xs)
+    if signed is not xs:
+        return ring_allgather_plain(signed).view(xs.dtype)
     n = xs.shape[0]
     out = xs.new_empty((n,) + tuple(xs.shape))
     ranks = torch.arange(n, device=xs.device)
@@ -285,11 +326,13 @@ def ring_allgather(xs: torch.Tensor) -> torch.Tensor:
 def _bind(lib: ctypes.CDLL) -> None:
     p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
     lib.tmt_ring_allreduce.argtypes = [p, p, i, i64, i64, i, i, p]
-    lib.tmt_ring_reduce_scatter.argtypes = [p, p, i, i64, i, i, p]
+    lib.tmt_ring_reduce_scatter.argtypes = [p, p, i, i64, i, i, i, p]
     lib.tmt_ring_allgather.argtypes = [p, p, i, i64, p]
     for fn in (lib.tmt_ring_allreduce, lib.tmt_ring_reduce_scatter,
                lib.tmt_ring_allgather):
         fn.restype = ctypes.c_int
+    lib.tmt_ring_reduce_scatter_tile.argtypes = [i, i]
+    lib.tmt_ring_reduce_scatter_tile.restype = i64
 
 
 LIBRARY = _build.Library("ring", SOURCE, _bind)

@@ -10,6 +10,13 @@ array-at-a-time, to numpy arrays and to torch tensors alike. The predefined
 SUM/PROD/MAX/MIN (and BAND/BOR/BXOR on integers) are what the fused fold
 kernel (:mod:`tpu_mpi_torch.kernels.fused_reduce`) runs on the card; any
 other callable runs as the chained fold on whatever array type it is given.
+
+torch has no add, compare or logical kernels for ``uint16``, ``uint32`` and
+``uint64`` tensors, on the CPU as on the card. The predefined ops fold those
+through the signed view of the same width, with the same bits as numpy and
+the JAX package: two's complement sums and products wrap as unsigned
+arithmetic does, the bit operations act on the bits, and flipping the sign
+bit maps the unsigned order onto the signed one for MAX and MIN.
 """
 
 from __future__ import annotations
@@ -80,20 +87,49 @@ class Op:
         return (Op, (self.fn, self.commutative, self.name, self.ufunc))
 
 
+# torch's unsigned types that its kernels do not fold -> the signed view
+_SIGNED = {torch.uint16: torch.int16, torch.uint32: torch.int32,
+           torch.uint64: torch.int64}
+
+
+def _signed(a: Any) -> Any:
+    """``a`` as the signed view of its width when it is a tensor of one of
+    :data:`_SIGNED`'s unsigned types, else ``a`` itself."""
+    if _is_torch(a) and a.dtype in _SIGNED:
+        return a.view(_SIGNED[a.dtype])
+    return a
+
+
+def _on_signed(step: Callable[[Any, Any], Any], a: Any, b: Any,
+               ordered: bool = False) -> Any:
+    """``step(a, b)``; for two tensors of one unsigned type of
+    :data:`_SIGNED`, applied to their signed views and viewed back. An
+    ``ordered`` step (MAX, MIN) sees the views with the sign bit flipped,
+    which orders them as the unsigned values."""
+    if not (_is_torch(a) and _is_torch(b) and a.dtype == b.dtype
+            and a.dtype in _SIGNED):
+        return step(a, b)
+    sa, sb = _signed(a), _signed(b)
+    if not ordered:
+        return step(sa, sb).view(a.dtype)
+    k = torch.iinfo(sa.dtype).min
+    return (step(sa ^ k, sb ^ k) ^ k).view(a.dtype)
+
+
 def _sum(a, b):
-    return a + b
+    return _on_signed(_pyop.add, a, b)
 
 
 def _prod(a, b):
-    return a * b
+    return _on_signed(_pyop.mul, a, b)
 
 
 def _min(a, b):
-    return _xp(a).minimum(a, b)
+    return _on_signed(_xp(a).minimum, a, b, ordered=True)
 
 
 def _max(a, b):
-    return _xp(a).maximum(a, b)
+    return _on_signed(_xp(a).maximum, a, b, ordered=True)
 
 
 def _like(a, out):
@@ -104,31 +140,36 @@ def _like(a, out):
     return out.astype(a.dtype) if hasattr(a, "dtype") else type(a)(out)
 
 
+def nonzero(a):
+    """``a != 0``, for torch's unsigned types through the signed view."""
+    return _signed(a) != 0
+
+
 def _land(a, b):
     xp = _xp(a)
-    return _like(a, xp.logical_and(a != 0, b != 0))
+    return _like(a, xp.logical_and(nonzero(a), nonzero(b)))
 
 
 def _lor(a, b):
     xp = _xp(a)
-    return _like(a, xp.logical_or(a != 0, b != 0))
+    return _like(a, xp.logical_or(nonzero(a), nonzero(b)))
 
 
 def _lxor(a, b):
     xp = _xp(a)
-    return _like(a, xp.logical_xor(a != 0, b != 0))
+    return _like(a, xp.logical_xor(nonzero(a), nonzero(b)))
 
 
 def _band(a, b):
-    return a & b
+    return _on_signed(_pyop.and_, a, b)
 
 
 def _bor(a, b):
-    return a | b
+    return _on_signed(_pyop.or_, a, b)
 
 
 def _bxor(a, b):
-    return a ^ b
+    return _on_signed(_pyop.xor, a, b)
 
 
 def _replace(a, b):

@@ -457,7 +457,7 @@ class PlanRegistration:
     no plan lookup and no worker hop. Tracked in :data:`registry` so
     ``Comm.free`` releases the pinned buffers and any shm slot lease."""
 
-    __slots__ = ("cid", "generation", "scratch", "wire", "run_round",
+    __slots__ = ("cid", "world", "generation", "scratch", "wire", "run_round",
                  "shm_release", "released", "knob_on", "_nb_probe",
                  "inplace_optin", "round_parts")
 
@@ -467,6 +467,7 @@ class PlanRegistration:
                  knob_on: bool = True, nb_probe: Optional[Callable] = None,
                  inplace_optin: bool = False, round_parts: Any = None):
         self.cid = cid
+        self.world = _world()           # the run whose rank armed the plan
         self.generation = generation
         self.run_round = run_round
         self.scratch = scratch          # pinned fold accumulators (id-stable)
@@ -508,59 +509,82 @@ class PlanRegistration:
             rel()
 
 
+def _world() -> Any:
+    """The run (its ``SpmdContext``) of the calling rank thread, or None."""
+    from ._runtime import current_env
+    env = current_env()
+    return None if env is None else env[0]
+
+
 class BufferRegistry:
     """Process-wide registry of live :class:`PlanRegistration` instances,
-    keyed by communicator cid. ``Comm.free`` calls :meth:`release` so plan-
-    registered wire buffers and shm segment slots never outlive their
-    communicator; ``TPU_MPI_STRICT`` asserts the
-    lease count actually hit zero."""
+    keyed by (run, communicator cid): every run's ``COMM_WORLD`` has cid 0,
+    so the cid alone would mix the runs. ``Comm.free`` calls
+    :meth:`release` so plan-registered wire buffers and shm segment slots
+    never outlive their communicator, and ``spmd_run`` calls
+    :meth:`release_world` when its run ends, for the communicators (its
+    ``COMM_WORLD`` among them) that were never freed; ``TPU_MPI_STRICT``
+    asserts the lease count actually hit zero."""
 
     def __init__(self):
         self._lock = locksmith.make_lock("overlap.registrations")
-        self._by_cid: dict[Any, list] = {}
+        self._by_key: dict[tuple, list] = {}
 
     def add(self, reg: PlanRegistration) -> PlanRegistration:
         with self._lock:
-            self._by_cid.setdefault(reg.cid, []).append(reg)
+            self._by_key.setdefault((reg.world, reg.cid), []).append(reg)
         return reg
 
-    def release(self, cid: Any) -> int:
-        """Release every registration of one communicator; returns how many
-        were released."""
+    def _release(self, match: Callable[[tuple], bool]) -> int:
         with self._lock:
-            regs = self._by_cid.pop(cid, [])
+            keys = [k for k in self._by_key if match(k)]
+            regs = [reg for k in keys for reg in self._by_key.pop(k)]
         for reg in regs:
             reg.release()
         return len(regs)
+
+    def release(self, cid: Any) -> int:
+        """Release every registration of one communicator of the calling
+        rank's run; returns how many were released."""
+        key = (_world(), cid)
+        return self._release(lambda k: k == key)
+
+    def release_world(self, world: Any) -> int:
+        """Release every registration of one run (a finished
+        ``spmd_run``'s context); returns how many were released."""
+        return self._release(lambda k: k[0] is world)
 
     def discard(self, reg: PlanRegistration) -> None:
         """Release ONE registration and drop it from the ledger (auto-arm
         demotion — the comm stays alive, only this plan's pinned buffers
         and shm lease go)."""
+        key = (reg.world, reg.cid)
         with self._lock:
-            lst = self._by_cid.get(reg.cid)
+            lst = self._by_key.get(key)
             if lst is not None and reg in lst:
                 lst.remove(reg)
                 if not lst:
-                    del self._by_cid[reg.cid]
+                    del self._by_key[key]
         reg.release()
 
     def leased(self, cid: Any = None) -> int:
-        """Outstanding shm slot leases (one comm, or all) — the strict-mode
-        refcount the ``Comm.free`` assert reads."""
+        """Outstanding shm slot leases (one comm of the calling rank's run,
+        or all) — the strict-mode refcount the ``Comm.free`` assert reads."""
+        key = (_world(), cid)
         with self._lock:
-            regs = [r for k, rs in self._by_cid.items()
-                    if cid is None or k == cid for r in rs]
+            regs = [r for k, rs in self._by_key.items()
+                    if cid is None or k == key for r in rs]
         return sum(1 for r in regs if r.shm_release is not None
                    and not r.released)
 
     def stats(self) -> dict:
         with self._lock:
-            return {"comms": len(self._by_cid),
-                    "registrations": sum(len(v) for v in self._by_cid.values())}
+            return {"comms": len(self._by_key),
+                    "registrations": sum(len(v) for v in self._by_key.values())}
 
 
-#: Live plan registrations; ``Comm.free`` releases per-cid.
+#: Live plan registrations; ``Comm.free`` releases per communicator,
+#: ``spmd_run`` per run.
 registry = BufferRegistry()
 
 

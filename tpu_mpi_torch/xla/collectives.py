@@ -59,7 +59,7 @@ from .. import collective as _collective
 from ..kernels import permute as _permute
 from ..kernels import ring as _ring
 from ..kernels.ring import stacked_ranks
-from ..operators import LAND, LOR, LXOR, MAX, MIN, Op, PROD, SUM, as_op
+from ..operators import LAND, LOR, LXOR, MAX, MIN, Op, PROD, SUM, as_op, nonzero
 from .mesh import Mesh, _TOPOLOGY
 
 
@@ -124,7 +124,7 @@ def allreduce(xs: torch.Tensor, op: Any = SUM, *, axis: str = "x",
     if op is PROD and approx_prod and xs.is_floating_point():
         return _replicate(_prod_native(xs), n)
     if op in (LAND, LOR, LXOR):
-        nz = (xs != 0).to(torch.int32)
+        nz = nonzero(xs).to(torch.int32)
         if op is LAND:
             res = _fold(nz, MIN)
         elif op is LOR:
