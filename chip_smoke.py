@@ -150,6 +150,30 @@ fatal on failure:
    the saved state), with save and load seconds and GB/s. Every file lives
    in a temporary directory and is deleted in any case.
 
+15. meshes of several axes at the flagship width (the stacked layout: one
+   rank dim per mesh axis), batch 8 x 1024 from the numpy seed, lr 1e-3,
+   3 bfloat16 steps on one batch each (losses finite and falling), every
+   launch of every kernel counted a step against the count the code gives:
+   (a) ``{"dp": 2, "tp": 2, "sp": 2}``: one request through
+   ``transformer_forward(..., tp_axis="tp", sp_axis="sp")`` against the
+   dense forward (phase 9's bfloat16 bounds; 8 sm90 attention and 16 fold
+   launches), ``transformer_train_step`` (8 attention, 83 fold launches a
+   step), a float32 step against the dense autograd step of the (dp, sp)
+   blocks; (b) ``transformer_pp_moe_train_step`` on ``{"dp": 2, "pp": 2,
+   "ep": 2}``, 2 experts, 4 microbatches, capacity 1024 (9 permute, 80
+   all-to-all, 20 fold launches a step), a float32 step against a plain
+   dense MoE model (every expert on one device, layers in sequence, the
+   loss scaled by n_pp as the step's transposed pp psum scales it); (c)
+   ``transformer_4d_train_step`` on ``{"dp": 2, "tp": 2, "sp": 2, "pp":
+   2}`` (20 attention, 9 permute, 91 fold launches a step), a float32 step
+   against the dense step; (d) ``halo_exchange`` over ``{"cy": 2, "cx":
+   4}`` at 16 MiB a rank, periodic and not, bitwise against rolls (4
+   permute launches each); then for each step ms (CUDA events), tokens/s,
+   device busy ms (profiler), the layout copies the collectives make (count,
+   bytes, ms replayed alone), peak device memory, and the new backward
+   launches (the inverse permute, the exchanged cotangent) against their
+   forwards.
+
 Card comparisons run with TF32 off and bfloat16 reduced-precision
 reductions off (``torch.backends.cuda.matmul``), set at the start.
 
@@ -240,6 +264,15 @@ RMA_EPOCH_ITERS = 5         # timed Put and Get epochs (median)
 RMA_SMALL_ITERS = 200       # timed 8-byte ops on raw-tensor windows
 RMA_CELL_ITERS = 20         # ... on DeviceBuffer windows (copy on write)
 IO_STRIDED = 1 << 18        # float32 elements a rank reads through a strided view
+# phase 15: meshes of several axes, the flagship's width and batch
+MESH_A = {"dp": 2, "tp": 2, "sp": 2}
+MESH_B = {"dp": 2, "pp": 2, "ep": 2}
+MESH_C = {"dp": 2, "tp": 2, "sp": 2, "pp": 2}
+MESH_D = {"cy": 2, "cx": 4}
+MULTI_MICRO = 4             # microbatches of the pipelined steps
+MOE_EXPERTS = 2             # one a rank of ep
+HALO_SIDE = 2048            # float32 2048 x 2048 = 16 MiB a rank
+MULTI_TIMED = 3             # timed steps (CUDA events)
 
 
 def log(msg: str) -> None:
@@ -2509,6 +2542,411 @@ def rma_io_ckpt_phase(MPI, collective, fr, host: list, start: dict, device,
     return out
 
 
+# ---------------------------------------------------------------------------
+# 15. meshes of several axes at the flagship width
+# ---------------------------------------------------------------------------
+
+def multi_counts(collective, fr, permute, attention) -> dict:
+    return {"folds": fr.launches, "attention": attention.launches,
+            "sm90": attention.route_launches["sm90"],
+            "permute": permute.launches["collective_permute"],
+            "alltoall": permute.launches["pairwise_alltoall"],
+            "chained": collective.chained_folds}
+
+
+def update_error_of(before: dict, got: dict, want: dict) -> float:
+    """``update_error`` over dictionaries of tensors (any layout)."""
+    worst = 0.0
+    for k in before:
+        u_got = before[k].double() - got[k].double()
+        u_want = before[k].double() - want[k].double()
+        worst = max(worst, float((u_got - u_want).abs().max())
+                    / max(float(u_want.abs().max()), 1e-30))
+    return worst
+
+
+def stacked_to_flat(params: dict, n_layers: int) -> dict:
+    """A layer-stacked dictionary (the 4-axis model's) as the flat model's
+    (``layers`` a list)."""
+    keys = ("ln1", "w_qkv", "w_proj", "ln2", "w_in", "w_out")
+    return {"embed": params["embed"], "ln_f": params["ln_f"],
+            "layers": [{k: params[k][i] for k in keys} for i in range(n_layers)]}
+
+
+def unshard_4d(tr, params: dict) -> dict:
+    """The 4-axis step's tp shards (n_tp, L, ...) back to (L, ...)."""
+    specs = tr.transformer_4d_specs("pp", "tp")
+    out = {}
+    for k, w in params.items():
+        if specs[k] and specs[k][-1] == "tp":
+            out[k] = w.movedim(0, -2).flatten(-2)
+        elif len(specs[k]) > 1 and specs[k][1] == "tp":
+            out[k] = w.movedim(0, 1).flatten(1, 2)
+        else:
+            out[k] = w
+    return out
+
+
+def dense_blocks_step(logits_fn, params: dict, tokens, labels, lr: float,
+                      blocks: tuple, scale: float):
+    """The single-device autograd step a multi-axis step computes: the
+    loss of every (dp, sp) block of the batch the mean over its own
+    positions, ``scale`` times their sum differentiated, SGD; the loss the
+    blocks' mean. ``logits_fn(params, tokens)`` is the dense forward."""
+    import torch
+    leaves = {k: w.detach().requires_grad_() for k, w in params.items()}
+    logits = logits_fn(leaves, tokens)
+    n_dp, n_sp = blocks
+    b, t = tokens.shape[0] // n_dp, tokens.shape[1] // n_sp
+    losses = []
+    for i in range(n_dp):
+        for j in range(n_sp):
+            lg = logits[i * b:(i + 1) * b, j * t:(j + 1) * t]
+            lb = labels[i * b:(i + 1) * b, j * t:(j + 1) * t]
+            logp = torch.log_softmax(lg, dim=-1)
+            losses.append(-logp.gather(-1, lb[..., None])[..., 0].mean())
+    total = sum(losses)
+    grads = torch.autograd.grad(total * scale, list(leaves.values()))
+    new = {k: (w.detach() - lr * g).to(w.dtype) for (k, w), g in zip(leaves.items(), grads)}
+    return new, float(total.detach()) / len(losses)
+
+
+def dense_moe_logits(tr, cfg, n_experts: int):
+    """The plain dense MoE model of the pp x moe step: every layer in
+    sequence, every expert on one device, each token through its argmax
+    expert scaled by its gate probability. No token is dropped: a
+    microbatch holds one sequence of SEQ tokens, and the step's capacity
+    (2 x SEQ / n_experts per expert and source rank) takes all of them."""
+    import torch
+    import torch.nn.functional as F
+
+    def logits(p, tokens):
+        t = tokens.shape[1]
+        positions = torch.arange(t, device=tokens.device)
+        x = p["embed"][tokens]
+        for i in range(cfg.n_layers):
+            x = tr._attention(cfg, p["ln1"][i], p["w_qkv"][i], p["w_proj"][i], x,
+                              positions, tp_axis=None, sp_axis=None)
+            b, t, d = x.shape
+            y = tr._rms_norm(x, p["ln2"][i]).reshape(b * t, d)
+            gate = torch.softmax(y @ p["w_gate"][i], dim=-1)
+            eidx = gate.argmax(-1)
+            out = torch.zeros_like(y)
+            for e in range(n_experts):
+                rows = (eidx == e).nonzero()[:, 0]
+                h = F.gelu(y[rows] @ p["w_in"][i, e], approximate="tanh")
+                out = out.index_put((rows,), h @ p["w_out"][i, e])
+            x = x + (out * gate.gather(-1, eidx[:, None])).reshape(b, t, d)
+        return (tr._rms_norm(x, p["ln_f"]) @ p["embed"].T).to(torch.float32)
+
+    return logits
+
+
+def layout_copy_ms(xc, step, device) -> tuple:
+    """The layout copies the collectives make in one step (recorded), then
+    replayed alone with CUDA events: (count, bytes, ms per step)."""
+    import torch
+    xc.record_layout = []
+    xc.reset_layout_copies()
+    try:
+        step()
+        torch.cuda.synchronize()
+        recorded = list(xc.record_layout)
+    finally:
+        xc.record_layout = None
+    count, nbytes = xc.layout_copies, xc.layout_copy_bytes
+    srcs = [(torch.empty(shape, dtype=dtype, device=device), order)
+            for shape, dtype, order in recorded]
+
+    def replay():
+        for x, order in srcs:
+            x.permute(order + tuple(range(len(order), x.dim()))).contiguous()
+
+    ms = time_ms(replay, iters=5, warmup=1) if srcs else 0.0
+    del srcs
+    return count, nbytes, ms
+
+
+def backward_launch_times(xc, device) -> dict:
+    """The new backward launches against their forwards, at the pp x moe
+    step's shapes (bfloat16): the pipeline hop (the permute kernel with
+    the inverse table) and the MoE exchange (the all-to-all kernel on the
+    cotangent), each forward through its autograd function and backward
+    through ``torch.autograd.grad`` (CUDA events per call)."""
+    import torch
+    hbm = 3.35e12                                     # spec sheet, bytes/s
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 15)
+    n_dp, n_pp, n_ep = MESH_B.values()
+    out = {}
+    # a hop: (dp, pp, ep, b_m, t, d) over pp, as (n_pp, G * count) rows
+    hop = torch.randn((n_pp, n_dp * n_ep * SEQ * FLAGSHIP["d_model"]), generator=gen,
+                      device=device).to(torch.bfloat16).requires_grad_()
+    src = tuple(xc._shift_sources(n_pp, 1))
+    # the MoE exchange: (n_ep src, n_ep dst, G, capacity, d) blocks
+    blocks = torch.randn((n_ep, n_ep, n_dp * n_pp, SEQ, FLAGSHIP["d_model"]),
+                         generator=gen, device=device).to(torch.bfloat16).requires_grad_()
+    for name, x, fwd in (("collective_permute", hop,
+                          lambda: xc._PermuteRows.apply(hop, src)),
+                         ("pairwise_alltoall", blocks,
+                          lambda: xc._Exchange.apply(blocks))):
+        y = fwd()
+        g = torch.randn_like(y)
+        got = torch.autograd.grad(y, x, g, retain_graph=True)[0]
+        torch.cuda.synchronize()
+        out[name] = {
+            "shape": list(x.shape), "dtype": "bfloat16",
+            "forward_ms": time_ms(fwd, iters=20),
+            "backward_ms": time_ms(lambda: torch.autograd.grad(y, x, g,
+                                                               retain_graph=True),
+                                   iters=20),
+            "bound_ms": 2 * x.numel() * x.element_size() / hbm * 1e3,
+            "backward_shape": list(got.shape)}
+        del y, g, got
+    return out
+
+
+def run_steps(step, params, tok, lab, steps: int, counters) -> tuple:
+    """``steps`` SGD steps on one batch; the launches of each step."""
+    import torch
+    losses, per_step = [], []
+    p = params
+    for _ in range(steps):
+        before = counters()
+        p, loss = step(p, tok, lab)
+        torch.cuda.synchronize()
+        after = counters()
+        per_step.append({k: after[k] - before[k] for k in after})
+        losses.append(float(loss))
+    return p, losses, per_step
+
+
+def check_launches(what: str, per_step: list, want: dict) -> None:
+    for s, got in enumerate(per_step):
+        for k, v in want.items():
+            if got[k] != v:
+                raise AssertionError(f"{what} step {s}: {got[k]} {k} launches, "
+                                     f"the code gives {v} ({got})")
+
+
+def multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir: str,
+                     where: str) -> dict:
+    """Phase 15: the flagship on meshes of several axes — (a) dp x tp x sp
+    forward and train step, (b) the pipelined MoE step, (c) the 4-axis
+    step, (d) a halo exchange over two axes; launch counts asserted, float32
+    steps against dense autograd, times."""
+    import torch
+    from tpu_mpi_torch import collective
+    from tpu_mpi_torch.kernels import attention, fused_reduce as fr, permute, ring
+    from tpu_mpi_torch.xla import collectives as xc
+    t_phase = time.perf_counter()
+    out = {}
+    total = dict.fromkeys(("folds", "attention", "permute", "alltoall"), 0)
+
+    def tally(*runs):
+        for run in runs:
+            for k in total:
+                total[k] += run[k]
+
+    L = cfg.n_layers
+    counters = lambda: multi_counts(collective, fr, permute, attention)  # noqa: E731
+    rng = np.random.default_rng(SEED + 15)
+    batch = rng.integers(0, cfg.vocab, (BATCH, SEQ))
+    tok = torch.from_numpy(batch).to(device)
+    lab = torch.from_numpy(np.roll(batch, -1, axis=1)).to(device)
+    cfg32 = tr.TransformerConfig(**FLAGSHIP, dtype=torch.float32)
+
+    def times(name, step, p, n_tokens):
+        torch.cuda.reset_peak_memory_stats()
+        ms = time_ms(lambda: step(p, tok, lab), iters=MULTI_TIMED, warmup=1)
+        peak = torch.cuda.max_memory_allocated()
+        prof = device_profile(lambda: step(p, tok, lab), logdir, name, 2)
+        copies, copy_bytes, copy_ms = layout_copy_ms(xc, lambda: step(p, tok, lab),
+                                                     device)
+        return {"step_ms": ms, "tokens_per_s": n_tokens / (ms * 1e-3),
+                "busy_ms": prof["busy_ms"] / prof["iters"],
+                "window_ms": prof["window_ms"] / prof["iters"],
+                "top_kernels": prof["top_kernels_ms_per_request"],
+                "layout_copies": copies, "layout_copy_bytes": copy_bytes,
+                "layout_copy_ms": copy_ms, "peak_bytes": peak}
+
+    # -- (a) dp x tp x sp --------------------------------------------------
+    n_tp, n_sp = MESH_A["tp"], MESH_A["sp"]
+    shards = tr.shard_params(params, cfg, n_tp)
+    reset_counts(collective, fr, ring, permute, attention)
+    before = counters()
+    logits = tr.transformer_forward(cfg, shards, stack_seq(tok, n_sp), tp_axis="tp",
+                                    sp_axis="sp")
+    torch.cuda.synchronize()
+    fwd = {k: v - before[k] for k, v in counters().items()}
+    if tuple(logits.shape) != (n_tp, n_sp, BATCH, SEQ // n_sp, cfg.vocab):
+        raise AssertionError(f"dp x tp x sp forward: logits {tuple(logits.shape)}")
+    check = compare_logits(unstack_seq(logits[0]), tr.transformer_forward(cfg, params, tok),
+                           "tp x sp vs dense forward", "bfloat16")
+    del logits
+    check_launches("tp x sp forward", [fwd], {"attention": L, "sm90": L, "folds": 2 * L,
+                                              "permute": 0, "alltoall": 0, "chained": 0})
+    step_a, _ = tr.transformer_train_step(cfg, xla.make_mesh(MESH_A), lr=TRAIN_LR)
+    p_a, losses, per_step = run_steps(step_a, shards, tok, lab, TRAIN_STEPS, counters)
+    want_a = {"attention": L, "sm90": L, "folds": 4 * L + (2 + 6 * L) + 1,
+              "permute": 0, "alltoall": 0, "chained": 0}
+    check_launches("dp x tp x sp", per_step, want_a)
+    tally(fwd, *per_step)
+    if not all(np.isfinite(losses)) or not all(a > b for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"dp x tp x sp: losses {losses} on one batch are not "
+                             f"finite and falling")
+    out["a"] = {"mesh": MESH_A, "forward_vs_dense": check, "forward_launches": fwd,
+                "losses": losses, "launches_per_step": per_step[0]}
+    out["a"]["times"] = times("train_dp_tp_sp", step_a, shards, BATCH * SEQ)
+    del p_a
+    params32 = float32_params(params)
+    step32, _ = tr.transformer_train_step(cfg32, xla.make_mesh(MESH_A), lr=TRAIN_LR_F32)
+    got32, loss32 = step32(tr.shard_params(params32, cfg32, n_tp), tok, lab)
+    want32, dloss32 = dense_blocks_step(
+        lambda p, x: tr.transformer_forward(cfg32, nest_params(p, L), x),
+        flat_params(params32), tok, lab, TRAIN_LR_F32, (MESH_A["dp"], n_sp), 1.0)
+    out["a"]["f32_update_err"] = update_error_of(
+        flat_params(params32), flat_params(unshard_tp(tr, cfg32, got32)), want32)
+    out["a"]["f32_loss_err"] = abs(float(loss32) - dloss32)
+    del got32, want32, params32, shards
+    log(f"15a dp x tp x sp on {MESH_A}: forward (8, 1024) vs dense {check}, launches "
+        f"{fwd}; {TRAIN_STEPS} steps on one batch, lr {TRAIN_LR}: losses {losses}, "
+        f"launches a step {per_step[0]}; float32 step vs dense autograd: largest "
+        f"update difference {out['a']['f32_update_err']} (bound {TRAIN_F32_TOL}), "
+        f"loss diff {out['a']['f32_loss_err']}; times {out['a']['times']} {where}")
+    if out["a"]["f32_update_err"] > TRAIN_F32_TOL:
+        raise AssertionError("float32 dp x tp x sp step off the dense step")
+    torch.cuda.empty_cache()
+
+    # -- (b) pp x moe ------------------------------------------------------
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 16)
+    moe = tr.transformer_pp_moe_init(gen, cfg, MOE_EXPERTS, device=device)
+    step_b, _ = tr.transformer_pp_moe_train_step(cfg, xla.make_mesh(MESH_B), MOE_EXPERTS,
+                                                 lr=TRAIN_LR, microbatches=MULTI_MICRO)
+    reset_counts(collective, fr, ring, permute, attention)
+    p_b, losses, per_step = run_steps(step_b, moe, tok, lab, TRAIN_STEPS, counters)
+    ticks = MULTI_MICRO + MESH_B["pp"] - 1
+    L_local = L // MESH_B["pp"]
+    want_b = {"attention": 0, "permute": 2 * ticks - 1,
+              "alltoall": 4 * L_local * ticks, "folds": 5 * 2 + 2 * 2 + 2 + 4,
+              "chained": 0}
+    check_launches("pp x moe", per_step, want_b)
+    tally(*per_step)
+    if not all(np.isfinite(losses)) or not all(a > b for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"pp x moe: losses {losses} on one batch are not "
+                             f"finite and falling")
+    out["b"] = {"mesh": MESH_B, "experts": MOE_EXPERTS, "microbatches": MULTI_MICRO,
+                "capacity": 2 * (BATCH // MESH_B["dp"] // MULTI_MICRO) * SEQ // MOE_EXPERTS,
+                "losses": losses, "launches_per_step": per_step[0]}
+    del p_b
+    out["b"]["times"] = times("train_pp_moe", step_b, moe, BATCH * SEQ)
+    cfg_moe32 = tr.TransformerConfig(**FLAGSHIP, dtype=torch.float32)
+    moe32 = {k: w.float() for k, w in moe.items()}
+    del moe
+    step32, _ = tr.transformer_pp_moe_train_step(cfg_moe32, xla.make_mesh(MESH_B),
+                                                 MOE_EXPERTS, lr=TRAIN_LR_F32,
+                                                 microbatches=MULTI_MICRO)
+    got32, loss32 = step32(moe32, tok, lab)
+    torch.cuda.empty_cache()
+    want32, dloss32 = dense_blocks_step(dense_moe_logits(tr, cfg_moe32, MOE_EXPERTS),
+                                        moe32, tok, lab, TRAIN_LR_F32,
+                                        (MESH_B["dp"], 1), MESH_B["pp"])
+    out["b"]["f32_update_err"] = update_error_of(moe32, got32, want32)
+    out["b"]["f32_loss_err"] = abs(float(loss32) - dloss32)
+    del got32, want32, moe32
+    log(f"15b pp x moe on {MESH_B}, {MOE_EXPERTS} experts, {MULTI_MICRO} microbatches, "
+        f"capacity {out['b']['capacity']}: losses {losses}, launches a step "
+        f"{per_step[0]}; float32 step vs the dense MoE model (x n_pp): largest update "
+        f"difference {out['b']['f32_update_err']} (bound {TRAIN_F32_TOL}), loss diff "
+        f"{out['b']['f32_loss_err']}; times {out['b']['times']} {where}")
+    if out["b"]["f32_update_err"] > TRAIN_F32_TOL:
+        raise AssertionError("float32 pp x moe step off the dense step")
+    torch.cuda.empty_cache()
+
+    # -- (c) dp x tp x sp x pp ---------------------------------------------
+    gen.manual_seed(SEED + 17)
+    p4 = tr.transformer_4d_init(gen, cfg, device=device)
+    step_c, _ = tr.transformer_4d_train_step(cfg, xla.make_mesh(MESH_C), lr=TRAIN_LR,
+                                             microbatches=MULTI_MICRO)
+    cut4 = tr.shard_params(p4, cfg, MESH_C["tp"])
+    reset_counts(collective, fr, ring, permute, attention)
+    p_c, losses, per_step = run_steps(step_c, cut4, tok, lab, TRAIN_STEPS, counters)
+    ticks = MULTI_MICRO + MESH_C["pp"] - 1
+    L_local = L // MESH_C["pp"]
+    want_c = {"attention": L_local * ticks, "sm90": L_local * ticks,
+              "permute": 2 * ticks - 1, "alltoall": 0,
+              "folds": 4 * L_local * ticks + 2 + 6 + 3, "chained": 0}
+    check_launches("4-axis", per_step, want_c)
+    tally(*per_step)
+    if not all(np.isfinite(losses)) or not all(a > b for a, b in zip(losses, losses[1:])):
+        raise AssertionError(f"4-axis: losses {losses} on one batch are not "
+                             f"finite and falling")
+    out["c"] = {"mesh": MESH_C, "microbatches": MULTI_MICRO, "losses": losses,
+                "launches_per_step": per_step[0]}
+    del p_c
+    out["c"]["times"] = times("train_4d", step_c, cut4, BATCH * SEQ)
+    del cut4
+    p4_32 = {k: w.float() for k, w in p4.items()}
+    del p4
+    step32, _ = tr.transformer_4d_train_step(cfg32, xla.make_mesh(MESH_C),
+                                             lr=TRAIN_LR_F32, microbatches=MULTI_MICRO)
+    got32, loss32 = step32(tr.shard_params(p4_32, cfg32, MESH_C["tp"]), tok, lab)
+    got32 = unshard_4d(tr, got32)
+    torch.cuda.empty_cache()
+    want32, dloss32 = dense_blocks_step(
+        lambda p, x: tr.transformer_forward(cfg32, stacked_to_flat(p, L), x),
+        p4_32, tok, lab, TRAIN_LR_F32, (MESH_C["dp"], MESH_C["sp"]), MESH_C["pp"])
+    out["c"]["f32_update_err"] = update_error_of(p4_32, got32, want32)
+    out["c"]["f32_loss_err"] = abs(float(loss32) - dloss32)
+    del got32, want32, p4_32
+    log(f"15c dp x tp x sp x pp on {MESH_C}, {MULTI_MICRO} microbatches: losses "
+        f"{losses}, launches a step {per_step[0]}; float32 step vs dense autograd (x "
+        f"n_pp): largest update difference {out['c']['f32_update_err']} (bound "
+        f"{TRAIN_F32_TOL}), loss diff {out['c']['f32_loss_err']}; times "
+        f"{out['c']['times']} {where}")
+    if out["c"]["f32_update_err"] > TRAIN_F32_TOL:
+        raise AssertionError("float32 4-axis step off the dense step")
+    torch.cuda.empty_cache()
+
+    # -- (d) halo exchange over two axes -----------------------------------
+    cy, cx = MESH_D.values()
+    grid = torch.from_numpy(rng.standard_normal((cy, cx, HALO_SIDE, HALO_SIDE),
+                                                dtype=np.float32)).to(device)
+    out["d"] = {"mesh": MESH_D, "rank_bytes": HALO_SIDE * HALO_SIDE * 4}
+    for periodic in (True, False):
+        permute.reset_launches()
+        got = par.halo_exchange(grid, axes=tuple(MESH_D), halo=1, periodic=periodic,
+                                mesh=MESH_D)
+        torch.cuda.synchronize()
+        hops = permute.launches["collective_permute"]
+        want = grid
+        for dim in (0, 1):                    # rank dim of each axis
+            sp_dim = 2 + dim                  # its spatial dim
+            lo = want.narrow(sp_dim, 0, 1)
+            hi = want.narrow(sp_dim, want.shape[sp_dim] - 1, 1)
+            prev, nxt = hi.roll(1, dim), lo.roll(-1, dim)
+            if not periodic:
+                prev.select(dim, 0).zero_()
+                nxt.select(dim, want.shape[dim] - 1).zero_()
+            want = torch.cat([prev, want, nxt], dim=sp_dim)
+        bitwise = same_bits(got, want)
+        total["permute"] += hops
+        out["d"]["periodic" if periodic else "open"] = {"permute_launches": hops,
+                                                        "bitwise": bitwise}
+        if hops != 4 or not bitwise or got.device.type != "cuda":
+            raise AssertionError(f"two-axis halo exchange (periodic {periodic}): "
+                                 f"{hops} permute launches, bitwise {bitwise}")
+    del grid, got, want
+    out["launches"] = total
+    out["backward"] = backward_launch_times(xc, device)
+    out["seconds"] = time.perf_counter() - t_phase
+    log(f"15d halo_exchange over {MESH_D} at 16 MiB a rank: {out['d']}; new backward "
+        f"launches vs their forwards: {out['backward']} {where}")
+    log(f"phase 15: launches on its paths {total}; in {out['seconds']:.1f} s")
+    return out
+
+
 def against_libraries(ring, _build, specs: list) -> dict:
     """``--against LABEL=DIR``: LABEL -> the reduce-scatter entry of the
     ``ring.cu`` of the tree at DIR (a checkout of another commit), built
@@ -2940,6 +3378,16 @@ def main() -> int:
     # 14. one-sided RMA, MPI-IO and the trainers' checkpoints
     rma = rma_io_ckpt_phase(MPI, collective, fr, host, flat_params(params), device,
                             caps, where)
+    # 15. meshes of several axes at the flagship width
+    multi = multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir, where)
+    for entry_ in kernels:
+        key = {"fused_multi_reduce": "folds", "ring_attention": "attention",
+               "collective_permute": "permute",
+               "pairwise_alltoall": "alltoall"}.get(entry_["name"])
+        if key:
+            entry_["launches"] += multi["launches"][key]
+            entry_["multi_axis_launches"] = multi["launches"][key]
+    kernels[0]["multi_axis"] = multi
     kernels[0]["tp_forward_launches"] = tp_folds
     kernels[0]["launches"] += (train_folds + p2p["jacobi_launches"]
                                + rma["rma_launches"] + rma["ckpt_train_launches"])

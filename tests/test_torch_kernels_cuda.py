@@ -960,3 +960,105 @@ def test_reduce_scatter_many_ranks_take_the_direct_route_on_card():
     _reduce_scatter_case(_mixed(torch.float32, 64, 64 * 1024, dev, 51))
     assert ring.staged_tile(24, torch.float32) > 0
     _reduce_scatter_case(_mixed(torch.float32, 24, 24 * 4096, dev, 52))
+
+
+# ---------------------------------------------------------------------------
+# Meshes of several axes: one launch a grouped collective, the autograd
+# permute and all-to-all, grouped ring attention
+# ---------------------------------------------------------------------------
+
+MESH3 = {"dp": 2, "tp": 2, "sp": 2}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["dp", "sp", ("dp", "sp"), ("sp", "tp", "dp")])
+def test_grouped_collectives_launch_once_on_card(axis):
+    from tpu_mpi_torch import xla
+    from tpu_mpi_torch.kernels import permute, ring
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(9)
+    x = torch.randn(2, 2, 2, 8, 1000, generator=g, device=dev)
+    n = 2 if isinstance(axis, str) else 2 ** len(axis)
+    dest = [i + 1 if i + 1 < n else None for i in range(n)]
+    calls = {
+        "allreduce": (lambda t: xla.allreduce(t, axis=axis, mesh=MESH3),
+                      lambda: fr.launches),
+        "allgather": (lambda t: xla.allgather(t, axis=axis, mesh=MESH3),
+                      lambda: ring.launches["ring_allgather"]),
+        "alltoall": (lambda t: xla.alltoall(t, axis=axis, mesh=MESH3, split_axis=0,
+                                            concat_axis=1),
+                     lambda: permute.launches["pairwise_alltoall"]),
+        "ring_shift": (lambda t: xla.ring_shift(t, axis=axis, mesh=MESH3),
+                       lambda: permute.launches["collective_permute"]),
+        "sendrecv": (lambda t: xla.sendrecv(t, dest=dest, axis=axis, mesh=MESH3),
+                     lambda: permute.launches["collective_permute"]),
+    }
+    for name, (fn, count) in calls.items():
+        before = count()
+        got = fn(x)
+        torch.cuda.synchronize()
+        assert count() == before + 1, name
+        assert torch.equal(got.cpu(), fn(x.cpu())), name
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_autograd_permute_and_alltoall_match_plain_autograd_on_card(dtype):
+    from tpu_mpi_torch import xla
+    from tpu_mpi_torch.kernels import permute
+    from tpu_mpi_torch.xla import collectives as xc
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(10)
+    x = torch.randn(2, 2, 2, 8, 500, generator=g, device=dev).to(dtype)
+
+    def plain_sendrecv(t):
+        group = xc._Group(t, "tp", MESH3, "sendrecv")
+        rows = group.rows(t)
+        return group.back(torch.stack([torch.zeros_like(rows[0]), rows[0]]))
+
+    cases = {
+        "ring_shift": (lambda t: xla.ring_shift(t, axis="sp", mesh=MESH3),
+                       lambda t: t.roll(1, 2), "collective_permute"),
+        "sendrecv": (lambda t: xla.sendrecv(t, dest=[1, None], axis="tp", mesh=MESH3),
+                     plain_sendrecv, "collective_permute"),
+        "alltoall": (lambda t: xla.alltoall(t, axis="dp", mesh=MESH3, split_axis=0,
+                                            concat_axis=1),
+                     lambda t: xc._Group(t, "dp", MESH3, "a").back(xc._alltoall_plain(
+                         xc._Group(t, "dp", MESH3, "a").rows(t), 0, 1, True)),
+                     "pairwise_alltoall"),
+    }
+    for name, (kernel, plain, counter) in cases.items():
+        a = x.clone().requires_grad_()
+        before = permute.launches[counter]
+        ya = kernel(a)
+        cot = torch.randn(ya.shape, generator=g, device=dev).to(dtype)
+        ya.backward(cot)
+        torch.cuda.synchronize()
+        assert permute.launches[counter] == before + 2, name     # forward, backward
+        b = x.clone().requires_grad_()
+        yb = plain(b)
+        yb.backward(cot)
+        assert torch.equal(ya, yb) and torch.equal(a.grad, b.grad), name
+
+
+@pytest.mark.cuda
+def test_ring_attention_over_a_sub_axis_is_one_sm90_launch_on_card():
+    from tpu_mpi_torch import parallel as tpar
+    from tpu_mpi_torch.kernels import attention
+    dev = _card()
+    g = torch.Generator(device=dev)
+    g.manual_seed(11)
+    q, k, v = (torch.randn(2, 2, 2, 2, 4, 128, 64, generator=g, device=dev)
+               .to(torch.bfloat16) for _ in range(3))
+    before, sm90 = attention.launches, attention.route_launches["sm90"]
+    got = tpar.ring_attention(q, k, v, axis="sp", mesh=MESH3)
+    torch.cuda.synchronize()
+    assert attention.launches == before + 1
+    assert attention.route_launches["sm90"] == sm90 + 1
+    flat = [x.movedim(2, 0).reshape(2, -1, 128, 64).contiguous() for x in (q, k, v)]
+    want = attention.ring_attention_plain(*flat, causal=True, scale=64 ** -0.5)
+    bound = attention.allowed_error(*flat, want, causal=True, scale=64 ** -0.5)
+    err = (got.movedim(2, 0).reshape(want.shape).float() - want.float()).abs()
+    assert bool((err <= bound).all())

@@ -277,11 +277,6 @@ def test_halo_exchange_one_axis_matches_bitwise(periodic, halo):
                                   want)
 
 
-def test_halo_exchange_of_several_axes_waits_for_the_topology_module():
-    with pytest.raises(NotImplementedError):
-        tpar.halo_exchange(torch.zeros(4, 2, 2), axes=("cy", "cx"))
-
-
 def test_exports_follow_the_jax_package():
     for name in ["allreduce_grads", "pmean_tree", "all_gather_output",
                  "column_parallel", "row_parallel", "tp_identity_fwd_psum_bwd",

@@ -285,17 +285,17 @@ def test_cart_device_mesh_and_comm_mesh():
         mesh = line.device_mesh(devices=[CPU])
         via = xla.comm_mesh(line, "sp", devices=[CPU])
         grid = MPI.Cart_create(comm, [2, 2], [0, 0], False)
-        with pytest.raises(NotImplementedError, match="Queue A #8b"):
-            grid.device_mesh(devices=[CPU])
-        with pytest.raises(NotImplementedError, match="Queue A #8b"):
-            xla.comm_mesh(grid, devices=[CPU])
+        square = grid.device_mesh(devices=[CPU])
+        named = xla.comm_mesh(grid, devices=[CPU])
         MPI.Finalize()
         return (mesh.axis_names, mesh.size, mesh.device, via.axis_names,
-                line.mesh_axes(), grid.mesh_axes())
+                line.mesh_axes(), grid.mesh_axes(), square.shape, named.shape,
+                square.device)
 
     res = MPI.spmd_run(body, 4, timeout=60)
     assert res == [(("cart0",), 4, CPU, ("sp",), {"cart0": 4},
-                    {"cart0": 2, "cart1": 2})] * 4
+                    {"cart0": 2, "cart1": 2}, {"cart0": 2, "cart1": 2},
+                    {"cart0": 2, "cart1": 2}, CPU)] * 4
 
 
 def test_cart_device_mesh_defaults_to_the_card():

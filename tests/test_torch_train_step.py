@@ -286,9 +286,18 @@ def test_train_step_folds_once_per_tensor(axis, folds, monkeypatch):
 def test_train_step_mesh_axes():
     with pytest.raises(ValueError, match="name none"):
         ttr.transformer_train_step(TCFG, txla.make_mesh({"x": N}, devices=[CPU]))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(ValueError, match="twice"):
         ttr.transformer_train_step(TCFG, txla.make_mesh({"x": N}, devices=[CPU]),
                                    dp_axis="x", sp_axis="x")
+    # two live axes build a step (tests/test_torch_train_multi.py holds it
+    # against the JAX step)
+    jparams, tokens, labels = _setup()
+    step, _ = ttr.transformer_train_step(
+        TCFG, txla.make_mesh({"dp": 2, "sp": 2}, devices=[CPU]))
+    new, loss = step(ttr.params_from_jax(_to_np(jparams), TCFG, CPU),
+                     torch.from_numpy(tokens), torch.from_numpy(labels))
+    assert loss.dim() == 0 and bool(torch.isfinite(loss))
+    assert new["layers"][1]["w_out"].shape == (KW["d_ff"], KW["d_model"])
 
 
 # ---------------------------------------------------------------------------

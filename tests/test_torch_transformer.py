@@ -142,10 +142,3 @@ def test_flagship_parameter_count():
     per_layer = 2 * d + 3 * d * d + d * d + 2 * d * f
     total = cfg.vocab * d + d + cfg.n_layers * per_layer
     assert cfg.head_dim == 64 and 134_000_000 < total < 135_000_000
-
-
-def test_sp_and_tp_together_wait_for_the_multi_axis_mesh():
-    with pytest.raises(NotImplementedError):
-        ttr.transformer_forward(TCFG, _port_params(),
-                                torch.zeros(N, B, 8, dtype=torch.int64),
-                                tp_axis="tp", sp_axis="sp")

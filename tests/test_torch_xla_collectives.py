@@ -312,15 +312,6 @@ def test_comm_mesh_of_world_inside_spmd_run():
     assert tpu_mpi_torch.spmd_run(body, 3, timeout=60) == [(3, "cpu")] * 3
 
 
-@pytest.mark.parametrize("call", ["allreduce", "make_mesh"])
-def test_several_axes_wait_for_topology(mesh, call):
-    with pytest.raises(NotImplementedError, match="Queue A #8"):
-        if call == "allreduce":
-            xla.allreduce(torch.zeros(2, 3), axis=("x", "y"))
-        else:
-            xla.make_mesh({"x": 2, "y": 2}, devices=[CPU])
-
-
 def test_exports_carry_the_jax_names():
     for name in ["allgather", "allgatherv", "allreduce", "alltoall",
                  "alltoallv", "barrier", "bcast", "exscan", "gather",

@@ -3,9 +3,11 @@ port of ``tpu_mpi/parallel/dp.py``.
 
 The JAX functions ``psum``/``pmean`` every leaf of a pytree inside
 ``shard_map``; here a tree's leaves are stacked per-rank tensors, rank
-axis first, and every leaf is one ``xla.allreduce`` — the fused fold
-kernel on a CUDA tensor, one launch per leaf. Trees are nested dicts,
-lists and tuples of tensors, as the port's parameter dictionaries are.
+axis first (with ``mesh=``, one rank dim per mesh axis, and ``axis`` a
+sub-axis or a tuple of axes), and every leaf is one ``xla.allreduce`` —
+the fused fold kernel on a CUDA tensor, one launch per leaf whatever the
+number of groups. Trees are nested dicts, lists and tuples of tensors, as
+the port's parameter dictionaries are.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from __future__ import annotations
 from typing import Any, Callable
 
 from .. import xla
+from ..xla.collectives import Axis, Layout
 from ..operators import SUM
 
 
@@ -49,17 +52,20 @@ def unflatten(tree: Any, values: list) -> Any:
     return tree_map(lambda _: next(it), tree)
 
 
-def allreduce_grads(grads: Any, axis: str = "dp", mean: bool = True) -> Any:
-    """Sum (or average) a tree of stacked (n, ...) gradients across the
-    data axis: every rank's row becomes the rank-ordered fold (divided by
-    n with ``mean``)."""
+def allreduce_grads(grads: Any, axis: Axis = "dp", mean: bool = True, *,
+                    mesh: Layout = None) -> Any:
+    """Sum (or average) a tree of stacked gradients across the data axis
+    (or axes): every rank's row becomes its group's rank-ordered fold
+    (divided by the group's size with ``mean``)."""
     def one(g):
-        total = xla.allreduce(g, SUM, axis=axis)
-        return total / g.shape[0] if mean else total
+        total = xla.allreduce(g, SUM, axis=axis, mesh=mesh)
+        if not mean:
+            return total
+        return total / (g.shape[0] if mesh is None else xla.size(mesh, axis))
     return tree_map(one, grads)
 
 
-def pmean_tree(tree: Any, axis: str = "dp") -> Any:
-    """Average any tree of stacked (n, ...) values (metrics, losses) across
-    the data axis."""
-    return allreduce_grads(tree, axis, mean=True)
+def pmean_tree(tree: Any, axis: Axis = "dp", *, mesh: Layout = None) -> Any:
+    """Average any tree of stacked values (metrics, losses) across the data
+    axis (or axes)."""
+    return allreduce_grads(tree, axis, mean=True, mesh=mesh)

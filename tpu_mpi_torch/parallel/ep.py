@@ -6,7 +6,8 @@ Two realizations, as in the JAX package:
 - :func:`moe_dispatch_combine` — the in-graph path on stacked tensors
   (static shapes, capacity masking, two ``xla.alltoall``; on a CUDA tensor
   each is one launch of the pairwise all-to-all kernel,
-  :mod:`tpu_mpi_torch.kernels.permute`);
+  :mod:`tpu_mpi_torch.kernels.permute`, and the exchange is
+  differentiable; on a mesh of several axes ``mesh=`` names the rank dims);
 - :func:`moe_host_dispatch_combine` — the host-path variant with true
   variable counts over the port's ``Alltoall``/``Alltoallv`` on an ``ep``
   communicator, which visits the algorithm-selection layer on every call.
@@ -14,6 +15,7 @@ Two realizations, as in the JAX package:
 
 from __future__ import annotations
 
+import math
 import threading
 from typing import Callable
 
@@ -21,6 +23,7 @@ import numpy as np
 import torch
 
 from .. import xla
+from ..xla.collectives import Layout
 
 # Per-thread persistent count-exchange buffers, keyed by (cid, n): the count
 # Alltoall keeps one signature every call, so the auto-arm table can promote
@@ -40,37 +43,48 @@ def _count_exchange_bufs(cid: int, n: int):
 
 def moe_dispatch_combine(tokens: torch.Tensor, expert_idx: torch.Tensor,
                          expert_fn: Callable[[torch.Tensor], torch.Tensor], *,
-                         capacity: int, axis: str = "ep") -> torch.Tensor:
+                         capacity: int, axis: str = "ep",
+                         mesh: Layout = None) -> torch.Tensor:
     """Top-1 Mixture-of-Experts dispatch/combine.
 
-    tokens: stacked (n, t, d) local tokens; expert_idx: (n, t) target
-    expert (== rank on ``axis``) per token; expert_fn: every rank's expert
-    at once, applied to the stacked received tokens (n, n*capacity, d), so
-    that rank r's expert applies to row r. Tokens over capacity are dropped
-    (returned as exact zeros), the static-shape MoE contract. Returns the
-    stacked (n, t, d)."""
-    n, t, d = tokens.shape
-    idx = expert_idx.to(torch.int64)
+    tokens: stacked (n, t, d) local tokens — with ``mesh=``, (*mesh sizes,
+    t, d) and the experts along ``axis``; expert_idx: the same leading
+    dims and t, the target expert (== rank on ``axis``) per token;
+    expert_fn: every rank's expert at once, applied to the stacked received
+    tokens (*rank dims, n*capacity, d), so that each rank's expert applies
+    to its own row. Tokens over capacity are dropped (returned as exact
+    zeros), the static-shape MoE contract. Returns the stacked (*rank dims,
+    t, d). Differentiable: both exchanges are ``xla.alltoall``."""
+    ranks_shape = tuple(tokens.shape[:-2])
+    t, d = tokens.shape[-2:]
+    n = (tokens.shape[0] if mesh is None
+         else xla.size(mesh, axis))
+    p = math.prod(ranks_shape)
+    flat = tokens.reshape(p, t, d)
+    idx = expert_idx.reshape(p, t).to(torch.int64)
     # position of each token within its expert's capacity window
-    onehot = torch.nn.functional.one_hot(idx, n).to(torch.int32)   # (n, t, n)
+    onehot = torch.nn.functional.one_hot(idx, n).to(torch.int32)   # (p, t, n)
     pos = torch.cumsum(onehot, dim=1) * onehot                      # 1-based
-    slot = pos.sum(dim=2) - 1                                       # (n, t)
+    slot = pos.sum(dim=2) - 1                                       # (p, t)
     keep = slot < capacity
     clip = slot.clamp(0, capacity - 1)
-    ranks = torch.arange(n, device=tokens.device)[:, None].expand(n, t)
+    ranks = torch.arange(p, device=tokens.device)[:, None].expand(p, t)
 
-    # scatter local tokens into per-expert send buffers (n, n, capacity, d)
-    send = tokens.new_zeros((n, n, capacity, d))
-    send.index_put_((ranks, idx, clip),
-                    torch.where(keep[..., None], tokens, 0.0), accumulate=True)
+    # scatter local tokens into per-expert send buffers (*ranks, n, capacity, d)
+    send = tokens.new_zeros((p, n, capacity, d))
+    send = send.index_put((ranks, idx, clip),
+                          torch.where(keep[..., None], flat, 0.0), accumulate=True)
+    send = send.view(ranks_shape + (n, capacity, d))
 
-    recv = xla.alltoall(send, axis=axis, split_axis=0, concat_axis=0, tiled=True)
-    out = expert_fn(recv.reshape(n, n * capacity, d)).reshape(n, n, capacity, d)
-    back = xla.alltoall(out, axis=axis, split_axis=0, concat_axis=0, tiled=True)
+    recv = xla.alltoall(send, axis=axis, mesh=mesh, split_axis=0, concat_axis=0,
+                        tiled=True)
+    out = expert_fn(recv.reshape(ranks_shape + (n * capacity, d)))
+    back = xla.alltoall(out.reshape(ranks_shape + (n, capacity, d)), axis=axis,
+                        mesh=mesh, split_axis=0, concat_axis=0, tiled=True)
 
     # gather results back to token order
-    gathered = back[ranks, idx, clip]
-    return torch.where(keep[..., None], gathered, 0.0)
+    gathered = back.reshape(p, n, capacity, d)[ranks, idx, clip]
+    return torch.where(keep[..., None], gathered, 0.0).view(ranks_shape + (t, d))
 
 
 def moe_host_dispatch_combine(tokens: np.ndarray, expert_idx: np.ndarray,

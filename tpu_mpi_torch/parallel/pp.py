@@ -1,11 +1,13 @@
-"""Pipeline parallelism: microbatch rotation between stage neighbours,
-forward — the port of ``tpu_mpi/parallel/pp.py``.
+"""Pipeline parallelism: microbatch rotation between stage neighbours —
+the port of ``tpu_mpi/parallel/pp.py``.
 
 Stages live on the ranks of a ``pp`` mesh axis; activations advance one
 stage per tick in a GPipe schedule. Each tick's hop is ``xla.ring_shift``,
 so on a CUDA tensor it is one launch of the collective permute kernel
-(:mod:`tpu_mpi_torch.kernels.permute`). Tensors are stacked, rank axis
-first. The backward rides the reverse permutation with the training slice.
+(:mod:`tpu_mpi_torch.kernels.permute`), for every group the other mesh
+axes hold. Tensors are stacked, rank axis first (with ``mesh=``, one rank
+dim per mesh axis). The whole schedule is differentiable: gradients ride
+the reverse permutation (the permute kernel with the inverse table).
 """
 
 from __future__ import annotations
@@ -15,34 +17,50 @@ from typing import Any, Callable
 import torch
 
 from .. import xla
+from ..xla.collectives import Layout, _layout_shape
 
 
 def pipeline_forward(stage_fn: Callable[[Any, torch.Tensor], torch.Tensor],
                      params: Any, microbatches: torch.Tensor, *,
-                     axis: str = "pp") -> torch.Tensor:
+                     axis: str = "pp", mesh: Layout = None) -> torch.Tensor:
     """Run microbatches through a chain of stages.
 
     stage_fn(params, x): every rank's stage at once, on the stacked
-    activations x (n, ...) with the stacked per-stage params (rank r's
-    slice is stage r's own). microbatches: (m, ...) — only rank 0 injects
-    them. Returns the stacked (n, m, ...) emissions of every rank; the last
-    rank's are the pipeline's results (the others' are what those stages
-    emitted at the same ticks, as in the JAX package)."""
-    if not isinstance(axis, str):
-        raise NotImplementedError("the pipeline runs over one mesh axis")
-    n = _ranks(params)
-    m = microbatches.shape[0]
-    carry = microbatches.new_zeros((n,) + tuple(microbatches.shape[1:]))
+    activations x with the stacked per-stage params (each rank's slice is
+    its stage's own).
+
+    - Without ``mesh``: x and the params' leaves are (n, ...);
+      microbatches (m, ...), injected by rank 0; returns the stacked
+      (n, m, ...) emissions of every rank.
+    - With ``mesh`` (a mesh or ``{axis: size}`` layout of the leading rank
+      dims): x and the params' leaves are (*mesh sizes, ...); microbatches
+      (*mesh sizes, m, ...), every rank's own, of which those of the ranks
+      at position 0 of ``axis`` are injected; returns (*mesh sizes, m, ...).
+
+    The last stage's emissions are the pipeline's results (the others' are
+    what those stages emitted at the same ticks, as in the JAX package)."""
+    if mesh is None:
+        n, dim, k = _ranks(params), 0, 0
+        carry = microbatches.new_zeros((n,) + tuple(microbatches.shape[1:]))
+    else:
+        shape = _layout_shape(mesh)
+        n, dim, k = shape[axis], tuple(shape).index(axis), len(shape)
+        carry = torch.zeros_like(microbatches.select(k, 0))
+    m = microbatches.shape[k]
     outs = []
     for tick in range(m + n - 1):
-        # rank 0 injects a fresh microbatch while any remain
-        inject = microbatches[tick] if tick < m else torch.zeros_like(microbatches[0])
-        x = torch.cat([inject[None], carry[1:]])
+        # the ranks at pp position 0 inject a fresh microbatch while any remain
+        if tick < m:
+            mb = microbatches.select(k, tick)
+            inject = (mb[None] if mesh is None else mb).narrow(dim, 0, 1)
+        else:
+            inject = torch.zeros_like(carry.narrow(dim, 0, 1))
+        x = torch.cat([inject, carry.narrow(dim, 1, n - 1)], dim=dim)
         y = stage_fn(params, x)
         # the last stage emits microbatch (tick - (n-1)) at this tick
         outs.append(y)
-        carry = xla.ring_shift(y, axis=axis, shift=1)
-    return torch.stack(outs[n - 1:n - 1 + m], dim=1)
+        carry = xla.ring_shift(y, axis=axis, mesh=mesh, shift=1)
+    return torch.stack(outs[n - 1:n - 1 + m], dim=1 if mesh is None else k)
 
 
 def _ranks(params: Any) -> int:

@@ -19,12 +19,21 @@ axis first, and weight shards are ``(n, d_in, d_out / n)`` /
 ``(n, d_in / n, d_out)``, as ``shard_params`` of
 :mod:`tpu_mpi_torch.models.transformer` cuts them. A replicated activation
 (what is the same on every tp rank in the JAX package) is held once,
-without a rank axis: replication belongs to f and g, so that autograd
+without a tp rank axis: replication belongs to f and g, so that autograd
 never sums rank copies of it a second time.
+
+On a mesh of several axes, tp is a sub-axis: an activation held once over
+tp keeps the rank dims of the other axes in front of its local dims, f puts
+the tp rank dim ahead of them all, and g folds it away again, one fold
+launch for every group. A weight shard may carry the same rank dims after
+its tp dim, ``(n, *other rank dims, d_in, d_out / n)`` (per-rank copies,
+to take per-rank gradients); a matmul pairs each rank's activation with
+its own weight.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Optional
 
 import torch
@@ -80,11 +89,12 @@ def tp_psum_fwd_identity_bwd(xs: torch.Tensor, axis: str = "tp") -> torch.Tensor
 
 
 def _per_rank_matmul(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Rank r's x (n, ..., d_in) times its own w (n, d_in, d_out)."""
-    n = w.shape[0]
-    lead = x.shape[1:-1]
-    y = torch.matmul(x.reshape(n, -1, x.shape[-1]), w)
-    return y.reshape((n,) + tuple(lead) + (w.shape[-1],))
+    """Each rank's x times its own w: w (*R, d_in, d_out) with R its rank
+    dims, x (*R, ..., d_in) with the same leading dims."""
+    ranks = tuple(w.shape[:-2])
+    y = torch.matmul(x.reshape((math.prod(ranks), -1, x.shape[-1])),
+                     w.reshape((-1,) + tuple(w.shape[-2:])))
+    return y.reshape(tuple(x.shape[:-1]) + (w.shape[-1],))
 
 
 def column_parallel(x: torch.Tensor, w_shard: torch.Tensor,
@@ -97,7 +107,9 @@ def column_parallel(x: torch.Tensor, w_shard: torch.Tensor,
     y = _per_rank_matmul(tp_identity_fwd_psum_bwd(x, axis, n=n), w_shard)
     if b_shard is None:
         return y
-    return y + b_shard.view((n,) + (1,) * (y.dim() - 2) + (y.shape[-1],))
+    lead = b_shard.dim() - 1
+    return y + b_shard.view(tuple(b_shard.shape[:lead]) + (1,) * (y.dim() - lead - 1)
+                            + (y.shape[-1],))
 
 
 def row_parallel(x_shard: torch.Tensor, w_shard: torch.Tensor,

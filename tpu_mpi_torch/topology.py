@@ -13,7 +13,7 @@ physical torus to map a grid onto: ``Cart_create`` keeps the
 communicator's order whatever ``reorder`` says (the reference's freedom
 to ignore it), and ``Dims_create`` factors arithmetically.
 ``Cart_shift`` yields the permutation a halo exchange needs, and
-:meth:`CartComm.device_mesh` bridges a 1-d grid to the in-graph tier.
+:meth:`CartComm.device_mesh` bridges a grid to the in-graph tier.
 
 The collective-algorithm decision (``collective._coll_select``,
 ``tune.select`` and the pvar topology stamp) reads the domain map and
@@ -117,16 +117,16 @@ class CartComm(Comm):
     def device_mesh(self, axis_names: Optional[Sequence[str]] = None,
                     devices=None):
         """The in-graph tier's :class:`~tpu_mpi_torch.xla.mesh.Mesh` over
-        this grid: in-graph rank r is cart rank r, on its world rank's
-        device (``device_for``) or, with ``devices``, on
-        ``devices[world_rank % len(devices)]``. A 1-d grid only: meshes of
-        several axes raise, as ``xla.make_mesh`` does (ROADMAP Queue A #8b)."""
+        this grid, one axis per dimension (``cart0``, ``cart1``, ... unless
+        ``axis_names`` are given): mesh position ``coords`` is cart rank
+        ``rank_of_coords(coords)`` (row-major, as the mesh's flat ranks
+        are), on its world rank's device (``device_for``) or, with
+        ``devices``, on ``devices[world_rank % len(devices)]``."""
         from .xla.mesh import Mesh
-        if len(self.dims) != 1:
-            raise NotImplementedError(
-                f"a {len(self.dims)}-d Cartesian grid maps to a mesh of "
-                f"several axes, which comes with ROADMAP Queue A #8b")
-        name = axis_names[0] if axis_names is not None else "cart0"
+        names = (tuple(axis_names) if axis_names is not None
+                 else tuple(f"cart{i}" for i in range(len(self.dims))))
+        if len(names) != len(self.dims):
+            raise ValueError(f"{len(names)} axis names for a {len(self.dims)}-d grid")
         if devices is None:
             from .buffers import resolve_device
             resolve_device()            # the card by default; raises without CUDA
@@ -135,7 +135,7 @@ class CartComm(Comm):
         else:
             devices = list(devices)
             devs = [devices[w % len(devices)] for w in self.group]
-        return Mesh(name, devs)
+        return Mesh(dict(zip(names, self.dims)), devs)
 
 
 def Cart_create(comm: Comm, *args) -> Comm:

@@ -12,8 +12,7 @@ device (default ``cuda``; ``device="cpu"`` runs the plain folds):
   ``Allgather`` the updated params, optimizer state 1/nranks per rank.
 
 :func:`make_trainer` picks between them from config. Checkpoints
-(``save``/``load``) wait for the port's ``checkpoint.py`` and ``io.py``
-(ROADMAP Queue A #8) and raise NotImplementedError.
+(``save``/``load``) go through the port's ``checkpoint.py``.
 """
 
 from __future__ import annotations
