@@ -99,9 +99,11 @@ fatal on failure:
    off; the largest update difference relative to the update); one bfloat16
    step on ``{"tp": 4}`` (4 L fold launches); ``DDPTrainer`` and
    ``FSDPTrainer`` on 4 rank threads fed the dense step's gradients of each
-   rank's (2, 1024) quarter, 2 steps, 25 MiB buckets: bitwise equal float64
-   parameters, every bucket folded by the kernel, FSDP's optimizer state
-   1/4 of DDP's; then times: ms per sp step (CUDA events), tokens/s, device
+   rank's (2, 1024) quarter, 20 steps, 25 MiB buckets: bitwise equal
+   float64 parameters, every bucket folded by the kernel, every persistent
+   round checked across ranks by its key (plan id, round, count, dtype;
+   at least 20 x 34 rounds), FSDP's optimizer state 1/4 of DDP's; then
+   times: ms per sp step (CUDA events), tokens/s, device
    busy time per step and the top kernels (profiler), the step's spec-sheet
    bound, the attention backward per call against SDPA's forward+backward
    on the gathered (8, 16, 1024, 64), ms per DDP and FSDP step.
@@ -194,11 +196,33 @@ fatal on failure:
    library uncached and cached. Each rank writes one JSON line; a rank
    that fails, times out or disagrees fails the phase.
 
+17. the serve tier on the card (``benchmarks/serve_scale_sweep.py``'s
+   fleet): (a) a threads broker, 4 rank threads, ``device="cuda"``, the
+   events transport, ``RLIMIT_NOFILE`` raised to its hard limit: the
+   sweep's 8000 tenants cut to 2000 for time (the fair queue sweeps every
+   lease a pop; fewer still if the limit allows fewer: two descriptors a
+   tenant) attached with the pipelined handshake, each 2 Allreduce SUM of its own
+   float32[8]; 16 tenants on float32[64] for 2 s (Jain's index); 200
+   float32[4096] ops on the zero-copy lane (copies/op <= 1), pvars on and
+   rendered by ``python -m tpu_mpi_torch.stats``; 10 ops of four
+   float32[2^24] parts, the ms split into H2D, the fold kernel, D2H and
+   the rest; every reply bitwise the rank-ordered fold, exactly one fold
+   launch an op (the auto-arm lane included), no chained fold; the
+   ``METRICS`` text through ``parse_prometheus``; a client process that
+   attaches by ``MPI.Init(session=addr)`` and Allreduces a CUDA tensor;
+   float32[8] latency on ``device="cuda"`` against ``device="cpu"``;
+   the pool's staging (a buffer kept per rank and shape, which arms the
+   auto-arm lane) against a tensor made for every op, on float32[8] and
+   float32[4096]; (b) a procs broker, 4 pool processes on the card:
+   float32[8] and 4 x float32[2^24] bitwise, one fold launch an op at the
+   star root, startup seconds.
+
 Card comparisons run with TF32 off and bfloat16 reduced-precision
 reductions off (``torch.backends.cuda.matmul``), set at the start.
 
-It prints the card line, then the ``kernels`` JSON line, and last
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
+It prints the card line, phase 17's ``serve`` JSON line, the ``kernels``
+JSON line, and last ``{"ok": true, "device": {...}}``. Any failure exits
+non-zero before that.
 """
 
 from __future__ import annotations
@@ -254,7 +278,7 @@ MOE_TOKENS, MOE_CAPACITY = 2048, 1024
 PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 67.0}   # spec sheet, dense
 # phase 12: training at the flagship width (benchmarks/flagship_probe.py's lr)
 TRAIN_STEPS, TRAIN_LR = 3, 1e-3
-TRAIN_TRAINER_STEPS, TRAIN_BUCKET_BYTES = 2, 25 << 20
+TRAIN_TRAINER_STEPS, TRAIN_BUCKET_BYTES = 20, 25 << 20
 # step 0's bfloat16 loss against the dense step's: both average the same
 # float32 cross-entropy of logits that drift by a few bfloat16 ulps
 # (MODEL_TOL) at single positions, so the means of 8192 positions agree
@@ -298,6 +322,25 @@ PROC_TIERS = ("ring", "rabenseifner", "rdouble", "star")   # at float32[2^26]
 PROC_SHM_ELEMS = 2048       # float32: the shm tier's 8 KiB
 PROC_ITERS = 3              # timed float32[2^26] Allreduce ops a tier
 PROC_SMALL_ITERS = 300      # timed 8-byte ops and 8 KiB shm ops
+# phase 17: the serve tier (benchmarks/serve_scale_sweep.py's defaults:
+# --tenants 8000, --ops 2, --drivers 32, --fair-tenants 16)
+SERVE_TOKEN = "chip-smoke"
+SERVE_TENANTS = 8000        # cut to what RLIMIT_NOFILE allows, if less
+# cut for time: the fair queue's DRR sweep visits every leased tenant a
+# pop, so ops/s falls as the fleet grows; 8000 tenants took the phase
+# 412 s on an NVIDIA H100 80GB HBM3 at 700 W (16000 ops at 78.7 ops/s,
+# PERF.md §6), 2000 take it about 94 s
+SERVE_FLEET_CUT = 2000
+SERVE_OPS = 2               # Allreduce SUM of float32[8] a tenant
+SERVE_DRIVERS = 32
+SERVE_FAIR_TENANTS, SERVE_FAIR_S = 16, 2.0      # float32[64], 2 s (sweep: 5)
+SERVE_ZC_REPS = 200         # float32[4096] on the zero-copy lane
+SERVE_BULK = 1 << 24        # float32 a rank part: 64 MiB
+SERVE_BULK_OPS = 10
+SERVE_LAT_OPS = 300         # one tenant's sequential float32[8] ops
+SERVE_PROCS_SMALL = 20      # procs broker: float32[8] ops
+SERVE_PROCS_BULK = 2        # ... and 4 x float32[2^24] ops
+SERVE_AB_OPS, SERVE_AB_WARM = 150, 20   # the staging A/B, a block of ops
 PROC_RMA = 1 << 22          # window, Allgather and Alltoall elements a rank
 PROC_SPAWN = 1 << 20        # float32 elements of the merged-world Allreduce
 PROC_TIMEOUT = 600          # seconds the 4-process world may take
@@ -1163,12 +1206,13 @@ def recipes(tr, par, cfg, params, device) -> dict:
 # 11. times of the new kernels
 # ---------------------------------------------------------------------------
 
-def kernel_span_ms(fn, needle, logdir: str, iters: int = 20):
+def kernel_span_ms(fn, needle, logdir: str, iters: int = 20, between=None):
     """Mean device duration of the kernel spans whose name holds ``needle``
     over ``iters`` calls of ``fn``, under ``torch.profiler``: the kernel
     alone, without the wrapper's host time between launches. ``needle``
     None: the device time of all of a call's kernels (a library call, a
-    yardstick only: None when the profiler saw no kernel of it)."""
+    yardstick only: None when the profiler saw no kernel of it).
+    ``between()`` runs before each call (an L2 flush)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1178,6 +1222,8 @@ def kernel_span_ms(fn, needle, logdir: str, iters: int = 20):
     for _ in range(2):          # the profiler now and then records no kernel at all
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
+                if between is not None:
+                    between()
                 fn()
             torch.cuda.synchronize()
         prof.export_chrome_trace(trace)
@@ -1244,6 +1290,14 @@ def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
     for _ in range(3):
         hop_ms.append(time_ms(lambda: permute.collective_permute(hop, perm), iters=200))
         lib_ms.append(time_ms(lambda: hop[inv], iters=200))
+    # the 8 MiB hop's 16 MiB of traffic stays in the 50 MB L2 across
+    # back-to-back calls; its span with the L2 flushed before each call
+    # (a 256 MiB memset between launches) is the one a bound can judge
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device=hop.device)
+    cold_span = kernel_span_ms(lambda: permute.collective_permute(hop, perm),
+                               "permute_kernel", logdir,
+                               between=lambda: flush.zero_())
+    del flush
     previous = lambda: attention._launch(q, k, v, True, d ** -0.5,  # noqa: E731
                                          via="mma_sync")
     sdpa = lambda: F.scaled_dot_product_attention(*gathered, is_causal=True)  # noqa: E731
@@ -1253,6 +1307,7 @@ def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
             "ms_turns": hop_ms,
             "span_ms": kernel_span_ms(lambda: permute.collective_permute(hop, perm),
                                       "permute_kernel", logdir),
+            "span_l2_flushed_ms": cold_span,
             "plain_ms": time_ms(lambda: permute.permute_rows_plain(hop, src)),
             "library_ms": sorted(lib_ms)[1],
             "library_ms_turns": lib_ms,
@@ -1493,9 +1548,10 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str) -> d
         fsdp = FSDPTrainer(start, comm, lr=TRAIN_LR, device=device)
         for s in range(TRAIN_TRAINER_STEPS):
             model = {k: w.to(cfg.dtype).requires_grad_() for k, w in ddp.params.items()}
+            b = s % TRAIN_STEPS
             logits = tr.transformer_forward(cfg, nest_params(model, cfg.n_layers),
-                                            tokens[s][r * per:(r + 1) * per])
-            loss = tr._xent(logits, labels[s][r * per:(r + 1) * per])
+                                            tokens[b][r * per:(r + 1) * per])
+            loss = tr._xent(logits, labels[b][r * per:(r + 1) * per])
             grads = dict(zip(model, torch.autograd.grad(loss, list(model.values()))))
             del model, logits, loss
             for name, trainer in (("ddp", ddp), ("fsdp", fsdp)):
@@ -1512,19 +1568,24 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str) -> d
         same = all(same_bits(ddp.params[k], fsdp.params[k]) for k in start)
         return same, len(ddp.bucketer), ddp.opt_state_bytes(), fsdp.opt_state_bytes()
 
+    from tpu_mpi_torch import _runtime
     collective.chained_folds = 0
+    stamped0 = _runtime.stamp_stats["rounds"]
     res = MPI.spmd_run(body, NRANKS, timeout=900)
     release_world_plans()
     chained = collective.chained_folds
+    stamped = _runtime.stamp_stats["rounds"] - stamped0
     same, nbuckets, ddp_bytes, fsdp_bytes = res[0]
     out["trainers"] = {"bitwise_equal": all(x[0] for x in res), "buckets": nbuckets,
+                       "steps": TRAIN_TRAINER_STEPS, "stamped_rounds": stamped,
                        "ddp_ms": spans["ddp"], "fsdp_ms": spans["fsdp"],
                        "ddp_folds": spans["ddp_folds"], "fsdp_folds": spans["fsdp_folds"],
                        "opt_state_bytes": [ddp_bytes, fsdp_bytes]}
     log(f"train: DDP / FSDP on {NRANKS} rank threads, {TRAIN_TRAINER_STEPS} steps, "
         f"bucket_bytes {TRAIN_BUCKET_BYTES}: {nbuckets} buckets, fold launches per "
         f"step DDP {spans['ddp_folds']} FSDP {spans['fsdp_folds']}, chained "
-        f"{chained}; DDP == FSDP bitwise on every rank: "
+        f"{chained}; rounds checked by key {stamped}; DDP == FSDP bitwise on "
+        f"every rank: "
         f"{out['trainers']['bitwise_equal']}; opt_state_bytes DDP {ddp_bytes} "
         f"FSDP {fsdp_bytes}; ms per step DDP {spans['ddp']} FSDP {spans['fsdp']} "
         f"{where}")
@@ -1532,6 +1593,9 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str) -> d
         raise AssertionError("DDP and FSDP differ")
     if min(spans["ddp_folds"]) < nbuckets or chained:
         raise AssertionError("a DDP bucket left the fold kernel")
+    if stamped < TRAIN_TRAINER_STEPS * nbuckets:
+        raise AssertionError(f"{stamped} rounds checked by key for "
+                             f"{TRAIN_TRAINER_STEPS} steps of {nbuckets} buckets")
     if fsdp_bytes * NRANKS != ddp_bytes:
         raise AssertionError("FSDP's optimizer state is not 1/n of DDP's")
 
@@ -3442,6 +3506,459 @@ def proc_phase(n: int = N_MAIN, where: str = "") -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# 17. the serve tier on the card
+# ---------------------------------------------------------------------------
+
+SERVE_CLIENT = """
+import sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import tpu_mpi_torch as MPI
+MPI.Init(session={addr!r})
+s = MPI.serve.current_session()
+x = torch.linspace(-2.0, 3.0, 1024, device="cuda", dtype=torch.float32)
+got = s.allreduce(x)
+h = x.cpu().numpy()
+want = ((h + h) + h) + h
+MPI.Finalize()
+print("SESSION", s.tenant, got.dtype, got.shape,
+      got.tobytes() == want.tobytes(), flush=True)
+"""
+
+
+def _jain(xs) -> float:
+    xs = [float(x) for x in xs]
+    return sum(xs) ** 2 / (len(xs) * sum(x * x for x in xs)) if any(xs) else 0.0
+
+
+def _pctl(lat: list) -> dict:
+    a = np.sort(np.asarray(lat)) * 1e3
+    return {"p50_ms": float(a[len(a) // 2]),
+            "p99_ms": float(a[min(len(a) - 1, int(len(a) * 0.99))]),
+            "n": int(len(a))}
+
+
+def _replicated_fold(x: np.ndarray, n: int = NRANKS) -> np.ndarray:
+    out = x
+    for _ in range(n - 1):
+        out = out + x
+    return out
+
+
+def _frame(b) -> dict:
+    return dict(b.stats()["serve_frame"])
+
+
+def _frame_delta(after: dict, before: dict) -> dict:
+    return {k: after.get(k, 0) - before.get(k, 0) for k in after}
+
+
+def serve_fleet(serve, b, tenants: int) -> dict:
+    """serve_scale_sweep.py's fleet lane: ``tenants`` leases attached with
+    the pipelined handshake, each running SERVE_OPS Allreduce SUM of its
+    own float32[8] from SERVE_DRIVERS driver threads; every reply bitwise
+    the rank-ordered fold."""
+    import threading
+    t0 = time.perf_counter()
+    sessions = serve.attach_many(b.address, tenants, token=SERVE_TOKEN)
+    attach_s = time.perf_counter() - t0
+    rng = np.random.default_rng(SEED + 17)
+    xs = rng.standard_normal((tenants, 8)).astype(np.float32)
+    wants = [_replicated_fold(x).tobytes() for x in xs]
+    lat, bad, errors = [], [], []
+    lock = threading.Lock()
+
+    def drive(k):
+        mine = []
+        try:
+            for i in range(k, tenants, SERVE_DRIVERS):
+                for _ in range(SERVE_OPS):
+                    t1 = time.perf_counter()
+                    got = sessions[i].allreduce(xs[i])
+                    mine.append(time.perf_counter() - t1)
+                    if got.tobytes() != wants[i]:
+                        bad.append(i)
+        except BaseException as e:       # noqa: BLE001 - reported below
+            errors.append(repr(e))
+        with lock:
+            lat.extend(mine)
+
+    threads = [threading.Thread(target=drive, args=(k,), daemon=True)
+               for k in range(SERVE_DRIVERS)]
+    t1 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(600)
+    op_s = time.perf_counter() - t1
+    for s in sessions:                  # a mass hang-up, as the sweep does
+        try:
+            s._sock.close()
+        except OSError:
+            pass
+        s._closed = True
+    deadline = time.monotonic() + 120
+    while time.monotonic() < deadline:
+        with b._lease_lock:
+            if not b._leases:
+                break
+        time.sleep(0.05)
+    if errors or bad:
+        raise AssertionError(f"fleet: {len(errors)} errors {errors[:3]}, "
+                             f"{len(bad)} replies off the fold")
+    if len(lat) != tenants * SERVE_OPS:
+        raise AssertionError(f"fleet: {len(lat)} replies for "
+                             f"{tenants * SERVE_OPS} ops")
+    return {"tenants": tenants, "ops": len(lat), "drivers": SERVE_DRIVERS,
+            "attach_s": attach_s, "attach_per_s": tenants / attach_s,
+            "op_s": op_s, "ops_per_s": len(lat) / op_s,
+            "op_latency": _pctl(lat)}
+
+
+def serve_fairness(serve, b) -> dict:
+    """SERVE_FAIR_TENANTS tenants hammer float32[64] Allreduces for
+    SERVE_FAIR_S seconds; DRR should hand out near-equal counts."""
+    import threading
+    counts = [0] * SERVE_FAIR_TENANTS
+    bad = []
+    x = np.linspace(-1, 1, 64, dtype=np.float32)
+    want = _replicated_fold(x).tobytes()
+    sessions = [serve.attach(b.address, tenant=f"fair{i}", token=SERVE_TOKEN)
+                for i in range(SERVE_FAIR_TENANTS)]
+    stop = time.perf_counter() + SERVE_FAIR_S
+
+    def body(i):
+        while time.perf_counter() < stop:
+            if sessions[i].allreduce(x).tobytes() != want:
+                bad.append(i)
+            counts[i] += 1
+
+    threads = [threading.Thread(target=body, args=(i,), daemon=True)
+               for i in range(SERVE_FAIR_TENANTS)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(120)
+    for s in sessions:
+        s.detach()
+    if bad:
+        raise AssertionError(f"fairness: {len(bad)} replies off the fold")
+    return {"tenants": SERVE_FAIR_TENANTS, "window_s": SERVE_FAIR_S,
+            "ops_per_tenant": counts, "ops": sum(counts),
+            "jain_index": _jain(counts)}
+
+
+def serve_zero_copy(serve, b) -> dict:
+    """The zero-copy frame lane: float32[4096] ops, copies per op read
+    from the broker's serve_frame block (the sweep's gate: <= 1)."""
+    x = np.arange(4096, dtype=np.float32) / 7
+    want = _replicated_fold(x).tobytes()
+    before = _frame(b)
+    with serve.attach(b.address, tenant="zc", token=SERVE_TOKEN) as s:
+        t0 = time.perf_counter()
+        for _ in range(SERVE_ZC_REPS):
+            if s.allreduce(x).tobytes() != want:
+                raise AssertionError("zero-copy lane: reply off the fold")
+        wall = time.perf_counter() - t0
+    d = _frame_delta(_frame(b), before)
+    cpo = d.get("copies", 0) / d["ops"] if d.get("ops") else 0.0
+    if cpo > 1.0:
+        raise AssertionError(f"zero-copy lane: {cpo} copies per op")
+    return {"ops": SERVE_ZC_REPS, "copies_per_op": cpo,
+            "frame_ops": d.get("ops", 0), "ops_per_s": SERVE_ZC_REPS / wall}
+
+
+def serve_bulk(serve, b) -> tuple:
+    """One tenant's four float32[2^24] parts (64 MiB a rank) SUM,
+    SERVE_BULK_OPS times, each bitwise the fold; the ms per op with its
+    host-to-device and device-to-host copies (the broker's serve_frame
+    block). Returns the numbers and the parts (:func:`bulk_split` times
+    the fold kernel on them once the phase's launches are counted)."""
+    rng = np.random.default_rng(SEED + 171)
+    parts = [rng.standard_normal(SERVE_BULK).astype(np.float32)
+             for _ in range(NRANKS)]
+    want = ((parts[0] + parts[1]) + parts[2]) + parts[3]
+    before = _frame(b)
+    walls = []
+    with serve.attach(b.address, tenant="bulk", token=SERVE_TOKEN) as s:
+        for _ in range(SERVE_BULK_OPS):
+            t0 = time.perf_counter()
+            got = s.allreduce(parts)
+            walls.append((time.perf_counter() - t0) * 1e3)
+            if got.tobytes() != want.tobytes():
+                raise AssertionError("bulk op: reply off the fold")
+    d = _frame_delta(_frame(b), before)
+    ops = SERVE_BULK_OPS
+    h2d_ms = d.get("h2d_ns", 0) / 1e6 / ops
+    d2h_ms = d.get("d2h_ns", 0) / 1e6 / ops
+    return {"ops": ops, "elements": SERVE_BULK,
+            "op_ms": float(np.median(walls)), "op_ms_all": walls,
+            "h2d_ms": h2d_ms, "h2d_copies": d.get("h2d", 0) / ops,
+            "h2d_gbps": d.get("h2d_bytes", 0) / ops / (h2d_ms * 1e-3) / 1e9
+            if h2d_ms else None,
+            "d2h_ms": d2h_ms, "d2h_copies": d.get("d2h", 0) / ops}, parts
+
+
+def bulk_split(bulk: dict, parts: list, fr, device) -> None:
+    """The bulk op's fold kernel timed alone on its shapes (CUDA events),
+    and the rest of the op: sockets, queueing and host work."""
+    import torch
+    xl = [torch.from_numpy(p).to(device) for p in parts]
+    out = torch.empty_like(xl[0])
+    bulk["fold_kernel_ms"] = time_ms(
+        lambda: fr.fused_multi_reduce(xl, "SUM", out=out), iters=10)
+    bulk["rest_ms"] = (bulk["op_ms"] - bulk["h2d_ms"] - bulk["fold_kernel_ms"]
+                       - bulk["d2h_ms"])
+
+
+def serve_latency(serve, device_kw: dict, ops: int = SERVE_LAT_OPS) -> dict:
+    """One tenant's sequential float32[8] Allreduces on a fresh threads
+    broker: p50/p99 ms per op."""
+    b = serve.Broker(nranks=NRANKS, token=SERVE_TOKEN, transport="events",
+                     **device_kw)
+    b.run_in_thread()
+    try:
+        x = np.arange(8, dtype=np.float32)
+        lat = []
+        with serve.attach(b.address, tenant="lat", token=SERVE_TOKEN) as s:
+            for _ in range(ops):
+                t0 = time.perf_counter()
+                s.allreduce(x)
+                lat.append(time.perf_counter() - t0)
+        return _pctl(lat[20:])
+    finally:
+        b.close()
+
+
+def serve_staging_ab(serve, collective) -> dict:
+    """The pool's staging (a buffer each rank keeps per (dtype, shape), so
+    that a repeated op hands the collective the same tensor and the
+    auto-arm lane arms) against a tensor made for every op: one tenant's
+    sequential float32[8] and float32[4096] Allreduces on one threads
+    broker, in blocks ordered kept, fresh, fresh, kept; p50/p99 ms per op
+    and auto-armed hits for each, every reply bitwise."""
+    import torch
+    from tpu_mpi_torch.serve.broker import _Stager
+
+    class Fresh(_Stager):
+        def _buffer(self, rank, dtype, shape):
+            return torch.empty(shape, dtype=dtype, device=self.device)
+
+    b = serve.Broker(nranks=NRANKS, token=SERVE_TOKEN, transport="events",
+                     device="cuda")
+    b.run_in_thread()
+    stagers = {"kept": b.pool.stager, "fresh": Fresh(b.pool.device)}
+    out = {}
+    try:
+        with serve.attach(b.address, tenant="ab", token=SERVE_TOKEN) as s:
+            for n in (8, 4096):
+                x = (np.arange(n) % 7).astype(np.float32)
+                want = _replicated_fold(x).tobytes()
+                lat = {"kept": [], "fresh": []}
+                hits = {"kept": 0, "fresh": 0}
+                for mode in ("kept", "fresh", "fresh", "kept"):
+                    b.pool.stager = stagers[mode]
+                    for _ in range(SERVE_AB_WARM):
+                        s.allreduce(x)
+                    h0 = collective._plans.auto_hits
+                    for _ in range(SERVE_AB_OPS):
+                        t0 = time.perf_counter()
+                        r = s.allreduce(x)
+                        lat[mode].append(time.perf_counter() - t0)
+                        if r.tobytes() != want:
+                            raise AssertionError(f"staging A/B ({mode}): "
+                                                 f"reply off the fold")
+                    hits[mode] += collective._plans.auto_hits - h0
+                out[f"float32[{n}]"] = {m: dict(_pctl(lat[m]),
+                                                auto_armed_hits=hits[m])
+                                        for m in lat}
+    finally:
+        b.pool.stager = stagers["kept"]
+        b.close()
+    return out
+
+
+def serve_procs(serve, fr, where: str) -> dict:
+    """A procs broker: 4 pool processes on the card (a CUDA context each),
+    float32[8] and float32[2^24] Allreduce bitwise, the fold-kernel
+    launches each worker reports, and the broker's startup seconds."""
+    t0 = time.perf_counter()
+    b = serve.Broker(nranks=NRANKS, token=SERVE_TOKEN, backend="procs",
+                     device="cuda")
+    b.run_in_thread()
+    startup_s = time.perf_counter() - t0
+    try:
+        pool = b.pool
+        p = pool._await(pool._request(pool.healthy(), {"wop": "pvars"}),
+                        60, "pvars")
+        launches0 = {r: m["fold_launches"] for r, (m, _) in p.replies.items()}
+        rng = np.random.default_rng(SEED + 172)
+        small = rng.standard_normal(8).astype(np.float32)
+        bulk = [rng.standard_normal(SERVE_BULK).astype(np.float32)
+                for _ in range(NRANKS)]
+        want_bulk = ((bulk[0] + bulk[1]) + bulk[2]) + bulk[3]
+        lat, bulk_ms = [], []
+        with serve.attach(b.address, tenant="procs", token=SERVE_TOKEN) as s:
+            for _ in range(SERVE_PROCS_SMALL):
+                t1 = time.perf_counter()
+                if s.allreduce(small).tobytes() != \
+                        _replicated_fold(small).tobytes():
+                    raise AssertionError("procs pool: small reply off the fold")
+                lat.append(time.perf_counter() - t1)
+            for _ in range(SERVE_PROCS_BULK):
+                t1 = time.perf_counter()
+                if s.allreduce(bulk).tobytes() != want_bulk.tobytes():
+                    raise AssertionError("procs pool: bulk reply off the fold")
+                bulk_ms.append((time.perf_counter() - t1) * 1e3)
+        p = pool._await(pool._request(pool.healthy(), {"wop": "pvars"}),
+                        60, "pvars")
+        launches = {r: m["fold_launches"] - launches0[r]
+                    for r, (m, _) in sorted(p.replies.items())}
+    finally:
+        b.close()
+    ops = SERVE_PROCS_SMALL + SERVE_PROCS_BULK
+    # the monolithic star: the root (pool rank 0) folds, once an op
+    if launches.get(0) != ops or any(v for r, v in launches.items() if r):
+        raise AssertionError(f"procs pool: fold launches by worker {launches} "
+                             f"for {ops} ops")
+    return {"startup_s": startup_s, "small_latency": _pctl(lat),
+            "bulk_op_ms": bulk_ms, "fold_launches_by_worker": launches}
+
+
+def serve_phase(MPI, collective, fr, device, where: str) -> dict:
+    """Phase 17: the serve tier on the card. Raises on any reply off the
+    rank-ordered fold, any op not folded by the kernel exactly once, or
+    any fold that left the kernel."""
+    import resource
+    import tempfile
+    from tpu_mpi_torch import config, perfvars, serve, stats
+    from tpu_mpi_torch.serve.broker import _metrics_client
+    t_phase = time.perf_counter()
+    soft, hard = resource.getrlimit(resource.RLIMIT_NOFILE)
+    if hard == resource.RLIM_INFINITY:
+        hard = 1 << 20
+    resource.setrlimit(resource.RLIMIT_NOFILE, (hard, hard))
+    # a tenant holds two descriptors in this process: its session socket
+    # and the broker's end of it
+    by_fds = min(SERVE_TENANTS, (hard - 256) // 2)
+    tenants = min(by_fds, SERVE_FLEET_CUT)
+    out = {"nofile": [soft, hard], "tenants_asked": SERVE_TENANTS,
+           "tenants_fds_allow": by_fds, "tenants": tenants}
+    log(f"17 serve: RLIMIT_NOFILE {soft} -> {hard} allows {by_fds} tenants "
+        f"(asked {SERVE_TENANTS}); fleet of {tenants}, cut for time "
+        f"(SERVE_FLEET_CUT)")
+    t0 = time.perf_counter()
+    b = serve.Broker(nranks=NRANKS, token=SERVE_TOKEN, transport="events",
+                     max_tenants=tenants + 64, device="cuda")
+    b.run_in_thread()
+    out["startup_s"] = time.perf_counter() - t0
+    try:
+        auto0 = collective._plans.auto_hits
+        fr.reset_launches()
+        collective.chained_folds = 0
+        launches = {}
+        out["fleet"] = serve_fleet(serve, b, tenants)
+        launches["fleet"] = fr.launches
+        out["fairness"] = serve_fairness(serve, b)
+        launches["fairness"] = fr.launches - sum(launches.values())
+        # pvars on for the zero-copy lane: the dumps `stats` renders below
+        os.environ["TPU_MPI_PVARS"] = "1"
+        config.load(refresh=True)
+        try:
+            out["zero_copy"] = serve_zero_copy(serve, b)
+            with tempfile.TemporaryDirectory(prefix="chip_smoke_stats_") as td:
+                perfvars.dump(os.path.join(td, "pvars-rank0.json"), rank=0)
+                cli = subprocess.run(
+                    [sys.executable, "-m", "tpu_mpi_torch.stats", td],
+                    capture_output=True, text=True, timeout=120,
+                    cwd=os.path.dirname(os.path.abspath(__file__)))
+        finally:
+            os.environ.pop("TPU_MPI_PVARS", None)
+            config.load(refresh=True)
+        launches["zero_copy"] = fr.launches - sum(launches.values())
+        if cli.returncode != 0 or "allreduce" not in cli.stdout:
+            raise AssertionError(f"stats CLI on the phase's dumps: "
+                                 f"{cli.returncode} {cli.stderr[-400:]}")
+        out["bulk"], parts = serve_bulk(serve, b)
+        launches["bulk"] = fr.launches - sum(launches.values())
+        chained = collective.chained_folds
+        auto_hits = collective._plans.auto_hits - auto0
+        parsed = stats.parse_prometheus(_metrics_client(b.address,
+                                                        SERVE_TOKEN))
+        if parsed.get("tpu_mpi_pool_nranks") != NRANKS:
+            raise AssertionError("METRICS: no pool_nranks gauge")
+        out["metrics_series"] = len(parsed)
+        # (c) a separate client process attaches through Init(session=)
+        repo = os.path.dirname(os.path.abspath(__file__))
+        env = dict(os.environ, TPU_MPI_SESSION_TOKEN=SERVE_TOKEN,
+                   PYTHONPATH=repo)
+        t0 = time.perf_counter()
+        client = subprocess.run(
+            [sys.executable, "-c", SERVE_CLIENT.format(repo=repo,
+                                                       addr=b.address)],
+            capture_output=True, text=True, timeout=300, env=env, cwd=repo)
+        out["client_s"] = time.perf_counter() - t0
+        if client.returncode != 0 or "True" not in client.stdout:
+            raise AssertionError(f"session client: {client.returncode} "
+                                 f"{client.stdout[-300:]} {client.stderr[-600:]}")
+        out["client"] = client.stdout.strip()
+        out["serve_frame"] = _frame(b)
+    finally:
+        b.close()
+    ops = {"fleet": out["fleet"]["ops"], "fairness": out["fairness"]["ops"],
+           "zero_copy": SERVE_ZC_REPS, "bulk": SERVE_BULK_OPS}
+    out["ops"] = ops
+    out["fold_launches"] = launches
+    out["auto_armed_hits"] = auto_hits
+    out["chained_folds"] = chained
+    if launches != ops or chained:
+        raise AssertionError(f"serve: fold launches {launches} for ops {ops}, "
+                             f"chained {chained}")
+    bulk_split(out["bulk"], parts, fr, device)
+    del parts
+    out["latency_8"] = {"cuda": serve_latency(serve, {"device": "cuda"}),
+                        "cpu": serve_latency(serve, {"device": "cpu"})}
+    out["staging_ab"] = serve_staging_ab(serve, collective)
+    out["procs"] = serve_procs(serve, fr, where)
+    out["seconds"] = time.perf_counter() - t_phase
+    f, fa, z, bk = out["fleet"], out["fairness"], out["zero_copy"], out["bulk"]
+    log(f"17a fleet: {f['tenants']} tenants attached at "
+        f"{f['attach_per_s']:.1f}/s, {f['ops']} Allreduce float32[8] at "
+        f"{f['ops_per_s']:.1f} ops/s, latency p50 {f['op_latency']['p50_ms']:.4f}"
+        f" p99 {f['op_latency']['p99_ms']:.4f} ms, every reply bitwise {where}")
+    log(f"17a fairness: {fa['tenants']} tenants x float32[64], {fa['ops']} ops "
+        f"in {fa['window_s']} s, Jain {fa['jain_index']:.4f}; zero-copy "
+        f"float32[4096]: {z['copies_per_op']:.3f} copies/op, "
+        f"{z['ops_per_s']:.1f} ops/s {where}")
+    log(f"17a bulk 4 x float32[2^24] SUM: {bk['op_ms']:.2f} ms/op = H2D "
+        f"{bk['h2d_ms']:.2f} ({bk['h2d_copies']:.0f} copies) + fold kernel "
+        f"{bk['fold_kernel_ms']:.4f} + D2H {bk['d2h_ms']:.2f} + rest "
+        f"{bk['rest_ms']:.2f} {where}")
+    lc, lh = out["latency_8"]["cuda"], out["latency_8"]["cpu"]
+    log(f"17a float32[8] op, one tenant: device=cuda p50 {lc['p50_ms']:.4f} "
+        f"p99 {lc['p99_ms']:.4f} ms; device=cpu p50 {lh['p50_ms']:.4f} p99 "
+        f"{lh['p99_ms']:.4f} ms {where}")
+    log(f"17 fold launches {launches} for ops {ops} (auto-armed hits "
+        f"{auto_hits}), chained {chained}; stats CLI and METRICS "
+        f"({out['metrics_series']} series) parse; client {out['client']!r}")
+    for shape, ab in out["staging_ab"].items():
+        log(f"17a staging {shape}: kept buffers p50 "
+            f"{ab['kept']['p50_ms']:.4f} p99 {ab['kept']['p99_ms']:.4f} ms "
+            f"({ab['kept']['auto_armed_hits']} auto-armed hits); a tensor an "
+            f"op p50 {ab['fresh']['p50_ms']:.4f} p99 "
+            f"{ab['fresh']['p99_ms']:.4f} ms ({ab['fresh']['auto_armed_hits']}"
+            f" auto-armed hits) {where}")
+    pr = out["procs"]
+    log(f"17b procs broker: startup {pr['startup_s']:.1f} s, float32[8] p50 "
+        f"{pr['small_latency']['p50_ms']:.4f} ms, float32[2^24] "
+        f"{pr['bulk_op_ms']} ms, fold launches by worker "
+        f"{pr['fold_launches_by_worker']} {where}")
+    log(f"phase 17 in {out['seconds']:.1f} s")
+    return out
+
+
 def against_libraries(ring, _build, specs: list) -> dict:
     """``--against LABEL=DIR``: LABEL -> the reduce-scatter entry of the
     ``ring.cu`` of the tree at DIR (a checkout of another commit), built
@@ -3793,6 +4310,10 @@ def main() -> int:
         log(f"ring_attention, same run: sm90 span / SDPA span "
             f"{ra['span_ms']:.4f} / {ra['library_span_ms']:.4f} = "
             f"{ra['span_ms'] / ra['library_span_ms']:.3f}")
+    log(f"collective_permute span with the L2 flushed before each call "
+        f"{cp['span_l2_flushed_ms']:.4f} ms against the bytes bound "
+        f"{cp['bound'][0]:.4f} ms (share {cp['bound'][0] / cp['span_l2_flushed_ms']:.3f}); "
+        f"back to back {cp['span_ms']:.4f} ms {where}")
     log(f"collective_permute per call in turns: kernel {cp['ms_turns']} ms, "
         f"xs[inverse_perm] {cp['library_ms_turns']} ms; medians {cp['ms']:.4f} / "
         f"{cp['library_ms']:.4f} = {cp['ms'] / cp['library_ms']:.3f} {where}")
@@ -3845,6 +4366,7 @@ def main() -> int:
         "bitwise", parity_cases=perm_parity["cases"]["collective_permute"],
         path="recipes: pipeline_forward + halo_exchange",
         ms_turns=new_times["collective_permute"]["ms_turns"],
+        span_l2_flushed_ms=new_times["collective_permute"]["span_l2_flushed_ms"],
         library_ms_turns=new_times["collective_permute"]["library_ms_turns"]))
     kernels.append(entry(
         "ring_attention", new_times["ring_attention"], rel(attention.SOURCE_SM90),
@@ -3877,6 +4399,9 @@ def main() -> int:
     multi = multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir, where)
     # 16. the multi-process tier: 4 rank processes on the card
     procs = proc_phase(N_MAIN, where=where)
+    # 17. the serve tier: brokers on the card, a tenant fleet, a client
+    served17 = serve_phase(MPI, collective, fr, device, where)
+    print(json.dumps({"serve": served17}), flush=True)
     for entry_ in kernels:
         key = {"fused_multi_reduce": "folds", "ring_attention": "attention",
                "collective_permute": "permute",
@@ -3889,6 +4414,10 @@ def main() -> int:
     kernels[0]["launches"] += (train_folds + p2p["jacobi_launches"]
                                + rma["rma_launches"] + rma["ckpt_train_launches"]
                                + procs["fold_launches"])
+    serve_launches = (sum(served17["fold_launches"].values())
+                      + served17["procs"]["fold_launches_by_worker"][0])
+    kernels[0]["launches"] += serve_launches
+    kernels[0]["serve_launches"] = serve_launches
     kernels[0]["proc_launches"] = procs["fold_launches"]
     kernels[0]["procs"] = procs
     kernels[0]["rma_launches"] = rma["rma_launches"]

@@ -1062,3 +1062,53 @@ def test_ring_attention_over_a_sub_axis_is_one_sm90_launch_on_card():
     bound = attention.allowed_error(*flat, want, causal=True, scale=64 ** -0.5)
     err = (got.movedim(2, 0).reshape(want.shape).float() - want.float()).abs()
     assert bool((err <= bound).all())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("red", ["sum", "prod", "min", "max"])
+def test_serve_broker_on_card_replies_the_rank_ordered_fold(red):
+    """A ``device="cuda"`` broker answers an Allreduce in one fold-kernel
+    launch per op, with the bits of the JAX broker's reply (numpy's
+    rank-ordered left fold on the host) at every position but the ones
+    ROADMAP Queue C records as the serve tier's open divergence: a SUM or
+    PROD that meets a NaN gives the card's canonical NaN where numpy keeps
+    the operand's payload, and where MAX/MIN meet zeros of both signs the
+    kernel orders -0 below +0 where numpy returns the second operand. At
+    those positions the test holds both sides to the recorded bits."""
+    import numpy as np
+    from tpu_mpi_torch import collective, serve
+    _card()
+    rng = np.random.default_rng(17)
+    parts = [rng.standard_normal(4099).astype(np.float32) for _ in range(4)]
+    for i, p in enumerate(parts):
+        if i == 1:
+            p[:1] = np.array([0x7FC01234], np.uint32).view(np.float32)
+        p[1:3] = [-0.0, 0.0] if i % 2 == 0 else [0.0, -0.0]
+    fold = {"sum": np.add, "prod": np.multiply, "min": np.minimum,
+            "max": np.maximum}[red]
+    want = parts[0]                 # the JAX broker's fold
+    for p in parts[1:]:
+        want = fold(want, p)
+    b = serve.Broker(nranks=4, token="tk")
+    b.run_in_thread()
+    try:
+        assert str(b.pool.device).startswith("cuda")
+        with serve.attach(b.address, tenant="card", token="tk") as s:
+            before, chained = fr.launches, collective.chained_folds
+            got = s.allreduce(parts, op=red)
+            assert fr.launches == before + 1
+            assert collective.chained_folds == chained
+    finally:
+        b.close()
+    assert got.dtype == np.float32 and got.shape == want.shape
+    # position: (the JAX broker's bits, the port's bits), ROADMAP Queue C
+    diverge = {"sum": {0: (0x7FC01234, 0x7FFFFFFF)},
+               "prod": {0: (0x7FC01234, 0x7FFFFFFF)},
+               "max": {2: (0x80000000, 0x00000000)},
+               "min": {1: (0x00000000, 0x80000000)}}[red]
+    at = list(diverge)
+    assert {k: (int(want.view(np.uint32)[k]), int(got.view(np.uint32)[k]))
+            for k in at} == diverge
+    same = np.ones(want.size, bool)
+    same[at] = False
+    assert got[same].tobytes() == want[same].tobytes()

@@ -3,12 +3,14 @@ tpu_mpi_torch.launcher``), held against the JAX package's
 (``tests/test_error_launcher.py``): a raising rank fails the whole run,
 a clean run exits 0, ``sys.exit`` codes propagate — on rank threads and on
 rank processes alike — and ``install_tpurun`` writes a wrapper that
-launches the port. ``--tune`` reaches the port's autotuner; ``--serve``
-and ``--stats`` wait for their modules. Rank processes share the card or
+launches the port. ``--tune`` reaches the port's autotuner, ``--serve``
+the port's broker (a client process attaches with ``MPI.Init(session=)``)
+and ``--stats`` the port's pvar reporter. Rank processes share the card or
 take a pool entry, ``--sim`` places them on the CPU, and two invocations
 join one world.
 """
 
+import json
 import os
 import subprocess
 import sys
@@ -108,10 +110,97 @@ def test_console_script_is_named_in_pyproject():
 
 
 @pytest.mark.parametrize("flag", ["--serve", "--stats"])
-def test_unported_subcommands_raise(flag):
+def test_unported_subcommands_raise(flag, capsys):
+    """``--serve`` and ``--stats`` reach the port's broker CLI and pvar
+    reporter (no longer the not-ported refusal): each one's own argument
+    parser answers ``--help`` and raises SystemExit(0)."""
     from tpu_mpi_torch import launcher
-    with pytest.raises(NotImplementedError, match="#11"):
-        launcher.main([flag])
+    with pytest.raises(SystemExit) as ei:
+        launcher.main([flag, "--help"])
+    assert ei.value.code == 0
+    assert f"tpurun-torch {flag}" in capsys.readouterr().out
+
+
+_CLIENT = """
+import sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import torch
+import tpu_mpi_torch as MPI
+MPI.Init(session={addr!r})
+s = MPI.serve.current_session()
+x = torch.arange(6, dtype=torch.float32)
+out = s.allreduce(x)
+assert isinstance(out, np.ndarray)
+assert out.tobytes() == (x.numpy() * 2).tobytes(), out
+print("CLIENT", s.tenant, out.tolist(), flush=True)
+MPI.Finalize()
+assert MPI.serve.current_session() is None
+"""
+
+
+def test_serve_cli_broker_and_an_init_session_client_process(tmp_path):
+    """``tpurun-torch --serve --device cpu`` runs a broker; a separate
+    client process attaches through ``MPI.Init(session=addr)`` and
+    Allreduces a torch tensor; ``--serve --stats`` reports its tenant."""
+    env = _env({"TPU_MPI_SESSION_TOKEN": "tk"})
+    broker = subprocess.Popen(
+        [sys.executable, "-m", "tpu_mpi_torch.launcher", "--serve",
+         "--nranks", "2", "--device", "cpu", "--token", "tk"],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True, env=env,
+        cwd=REPO)
+    try:
+        line = broker.stdout.readline()
+        assert "broker up" in line and "cpu" in line, \
+            line + broker.stderr.read()
+        addr = line.split("socket=")[1].split(",")[0]
+        client = tmp_path / "client.py"
+        client.write_text(_CLIENT.format(repo=REPO, addr=addr))
+        res = subprocess.run([sys.executable, str(client)],
+                             capture_output=True, text=True, env=env,
+                             timeout=120, cwd=REPO)
+        assert res.returncode == 0, res.stderr
+        assert "[0.0, 2.0, 4.0, 6.0, 8.0, 10.0]" in res.stdout
+        tenant = res.stdout.split()[1]
+        st = subprocess.run(
+            [sys.executable, "-m", "tpu_mpi_torch.launcher", "--serve",
+             "--stats", "--socket", addr, "--token", "tk"],
+            capture_output=True, text=True, env=env, timeout=120, cwd=REPO)
+        assert st.returncode == 0, st.stderr
+        rep = json.loads(st.stdout)
+        assert rep["ledger"]["tenants"][tenant]["detached"] is True
+        assert rep["pool"]["device"] == "cpu"
+    finally:
+        broker.terminate()
+        broker.communicate(timeout=60)
+
+
+_STATS_BODY = """
+import sys
+sys.path.insert(0, {repo!r})
+import numpy as np
+import tpu_mpi_torch as MPI
+MPI.Init()
+comm = MPI.COMM_WORLD
+for _ in range(3):
+    MPI.Allreduce(np.ones(512), MPI.SUM, comm)
+MPI.Finalize()
+"""
+
+
+def test_stats_wraps_a_launch_with_dumping_on(tmp_path):
+    """``tpurun-torch --stats -- <launch args>`` runs the launch with pvar
+    dumps on and reports them."""
+    script = tmp_path / "job.py"
+    script.write_text(_STATS_BODY.format(repo=REPO))
+    res = subprocess.run(
+        [sys.executable, "-m", "tpu_mpi_torch.launcher", "--stats", "--",
+         "-n", "2", "--procs", "--sim", "1", "--timeout", "100",
+         str(script)],
+        capture_output=True, text=True, env=_env(), timeout=150, cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    assert "per-collective latency" in res.stdout
+    assert "allreduce" in res.stdout
 
 
 def test_tune_reaches_the_ports_tuner(tmp_path):

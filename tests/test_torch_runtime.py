@@ -164,6 +164,44 @@ def test_port_scan_covers_the_process_tier():
     assert "tpu_mpi/" not in native.replace("tpu_mpi_torch", "")
 
 
+def test_port_scan_covers_the_serve_tier():
+    """The import scan above reads the serve tier and stats too."""
+    scanned = {f.relative_to(REPO).as_posix() for f in _port_sources()}
+    for mod in ("stats.py", "serve/__init__.py", "serve/protocol.py",
+                "serve/queueing.py", "serve/ledger.py", "serve/session.py",
+                "serve/broker.py", "serve/worker.py", "serve/frontdoor.py",
+                "serve/router.py"):
+        assert f"tpu_mpi_torch/{mod}" in scanned, mod
+
+
+def test_serve_tier_runs_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "import numpy as np\n"
+        "import tpu_mpi_torch as MPI\n"
+        "import tpu_mpi_torch.stats\n"
+        "from tpu_mpi_torch import serve\n"
+        "import tpu_mpi_torch.serve.frontdoor, tpu_mpi_torch.serve.router\n"
+        "import tpu_mpi_torch.serve.worker\n"
+        "b = serve.Broker(nranks=2, token='t', device='cpu')\n"
+        "b.run_in_thread()\n"
+        "with serve.attach(b.address, token='t') as s:\n"
+        "    out = s.allreduce(np.ones(3))\n"
+        "b.close()\n"
+        "assert out.tolist() == [2.0, 2.0, 2.0], out\n"
+        "leaked = [m for m in sys.modules if m == 'tpu_mpi'"
+        " or m.startswith('tpu_mpi.')]\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def _public_exports(init: Path) -> set:
     """The public names a package's ``__init__`` binds at top level: what
     it imports from its modules, assigns, and defines."""

@@ -137,6 +137,11 @@ MPI_VERSION = Get_version()
 def __getattr__(name):
     if name == "MPI_LIBRARY_VERSION_STRING":
         return Get_library_version()
+    if name == "serve":
+        # lazy: the serve tier (broker + client sessions) is only paid for
+        # by processes that use it
+        import importlib
+        return importlib.import_module(".serve", __name__)
     if name == "train":
         # lazy: the training tier is only paid for by processes that train
         import importlib

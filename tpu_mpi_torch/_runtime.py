@@ -591,6 +591,41 @@ class Mailbox(_Waitable):
 
 _EMPTY = object()   # distinct "no contribution yet" marker (None is a valid payload)
 
+_round_tls = threading.local()      # .key: the persistent round being run
+_stamp_lock = threading.Lock()
+#: Rounds whose cross-rank key was checked (``CollectiveChannel``); a
+#: mismatch raises before the round folds, so every one counted paired.
+stamp_stats = {"rounds": 0}
+
+
+class persistent_round:
+    """Context manager naming the persistent round this thread deposits:
+    ``key`` is ``(plan id, round)`` of a persistent request, the same on
+    every rank (persistent initialization is collective and ordered)."""
+
+    __slots__ = ("key", "prev")
+
+    def __init__(self, key: Any):
+        self.key = key
+
+    def __enter__(self):
+        self.prev = getattr(_round_tls, "key", None)
+        _round_tls.key = self.key
+
+    def __exit__(self, *exc):
+        _round_tls.key = self.prev
+
+
+def round_stamp(payload_key: Any = None) -> Any:
+    """The key one rank's deposit is checked by across ranks: the
+    persistent round this thread runs (if any) and the caller's payload
+    key (count and dtype of an op whose counts MPI requires to match).
+    None when neither is known; such a deposit is not checked."""
+    key = getattr(_round_tls, "key", None)
+    if key is None and payload_key is None:
+        return None
+    return (key, payload_key)
+
 
 class CollectiveChannel(_Waitable):
     """Reusable all-rank rendezvous for one communicator, ROUND-KEYED.
@@ -615,7 +650,11 @@ class CollectiveChannel(_Waitable):
     The ``opname`` tag is checked across ranks every round — calling
     mismatched collectives on one communicator raises
     CollectiveMismatchError in all ranks instead of deadlocking (SURVEY.md
-    §5 "race detection").
+    §5 "race detection"). So is the round's stamp where callers give one
+    (:func:`round_stamp`: the persistent request's plan id and round, the
+    payload's count and dtype), so two ranks that enter different
+    persistent rounds or different-sized reductions as one round fail by
+    name instead of folding each other's buffers.
     """
 
     def __init__(self, ctx: "SpmdContext", size: int):
@@ -634,11 +673,49 @@ class CollectiveChannel(_Waitable):
         if st is None:
             st = self.rounds[rnd] = {
                 "contribs": [_EMPTY] * self.size, "arrived": 0,
-                "results": None, "picked": 0, "opname": None}
+                "results": None, "picked": 0, "opname": None,
+                "stamp": None, "stamp_rank": None}
         return st
 
+    def _deposit(self, st: dict, rank: int, contrib: Any, opname: str,
+                 stamp: Any) -> None:
+        """Check one rank's deposit against its round (the op name, and
+        the stamp where both sides carry one) and record it. Caller holds
+        the lock."""
+        if st["opname"] is None:
+            st["opname"] = opname
+        elif st["opname"] != opname:
+            err = CollectiveMismatchError(
+                f"rank {rank} called {opname!r} while other ranks are in "
+                f"{st['opname']!r} on the same communicator")
+            self.ctx.fail(err)
+            raise err
+        if stamp is not None:
+            if st["stamp"] is None:
+                st["stamp"], st["stamp_rank"] = stamp, rank
+            elif st["stamp"] != stamp:
+                err = CollectiveMismatchError(
+                    f"{opname}: rank {rank} entered a round with key "
+                    f"{stamp!r} (persistent round, payload) while rank "
+                    f"{st['stamp_rank']} entered it with {st['stamp']!r}")
+                self.ctx.fail(err)
+                raise err
+        st["contribs"][rank] = contrib
+        st["arrived"] += 1
+        if st["arrived"] == self.size and st["stamp"] is not None:
+            with _stamp_lock:
+                stamp_stats["rounds"] += 1
+
     def run(self, rank: int, contrib: Any, combine: Callable[[list[Any]], Sequence[Any]],
-            opname: str, plan=None, unlocked_fold: bool = False) -> Any:
+            opname: str, plan=None, unlocked_fold: bool = False,
+            stamp: Any = None) -> Any:
+        # ``stamp`` is the caller's payload key (``round_stamp``); the
+        # persistent round this thread runs joins it here
+        return self._run(rank, contrib, combine, opname, round_stamp(stamp),
+                         unlocked_fold)
+
+    def _run(self, rank: int, contrib: Any, combine, opname: str,
+             stamp: Any, unlocked_fold: bool) -> Any:
         # ``plan`` (an algorithm hint for the multi-process tier) is ignored
         # here: threads share an address space, so the combine-in-place star
         # IS the optimal algorithm — data placement is a pointer exchange.
@@ -656,16 +733,7 @@ class CollectiveChannel(_Waitable):
             rnd = self.rank_round[rank]
             self.rank_round[rank] += 1
             st = self._round_state(rnd)
-            if st["opname"] is None:
-                st["opname"] = opname
-            elif st["opname"] != opname:
-                err = CollectiveMismatchError(
-                    f"rank {rank} called {opname!r} while other ranks are in "
-                    f"{st['opname']!r} on the same communicator")
-                self.ctx.fail(err)
-                raise err
-            st["contribs"][rank] = contrib
-            st["arrived"] += 1
+            self._deposit(st, rank, contrib, opname, stamp)
             # pvar phase spans: last arriver's combine is the fold; every
             # other rank's block below is the rendezvous. One TLS read when
             # no scope is open (pvars and tracing both off).
@@ -714,7 +782,8 @@ class CollectiveChannel(_Waitable):
         """Deposit K queued collective rounds through ONE lock acquisition
         and ONE wakeup (batched submission), then collect each
         round's result in Start order. ``ops`` is a sequence of
-        ``(contrib, combine, opname, unlocked_fold)`` tuples.
+        ``(contrib, combine, opname, unlocked_fold, stamp)`` tuples, each
+        stamp a whole ``round_stamp`` key (or None).
 
         Correctness rides on the same round-keyed slots as :meth:`run`:
         each round's slot is independent, a round folds only once ALL
@@ -729,28 +798,18 @@ class CollectiveChannel(_Waitable):
         if n == 0:
             return []
         if n == 1:
-            contrib, combine, opname, ufold = ops[0]
-            return [self.run(rank, contrib, combine, opname,
-                             unlocked_fold=ufold)]
+            contrib, combine, opname, ufold, stamp = ops[0]
+            return [self._run(rank, contrib, combine, opname, stamp, ufold)]
         sc = _pv.scope()
         deposited = []          # (rnd, st, opname) in Start order
         self.cond.acquire()
         try:
             fold_pending = False
-            for contrib, combine, opname, ufold in ops:
+            for contrib, combine, opname, ufold, stamp in ops:
                 rnd = self.rank_round[rank]
                 self.rank_round[rank] += 1
                 st = self._round_state(rnd)
-                if st["opname"] is None:
-                    st["opname"] = opname
-                elif st["opname"] != opname:
-                    err = CollectiveMismatchError(
-                        f"rank {rank} called {opname!r} while other ranks "
-                        f"are in {st['opname']!r} on the same communicator")
-                    self.ctx.fail(err)
-                    raise err
-                st["contribs"][rank] = contrib
-                st["arrived"] += 1
+                self._deposit(st, rank, contrib, opname, stamp)
                 if st["arrived"] == self.size:
                     contribs = list(st["contribs"])
                     t0 = _pv.monotonic() if sc is not None else 0.0

@@ -1837,7 +1837,9 @@ class ProcChannel(_Waitable):
     # -- the collective contract ---------------------------------------------
     def run(self, rank: int, contrib: Any,
             combine: Callable[[list[Any]], Sequence[Any]], opname: str,
-            plan=None) -> Any:
+            plan=None, stamp: Any = None) -> Any:
+        # ``stamp`` (the thread tier's cross-rank round key) is not sent:
+        # here each rank's rounds travel as its own numbered frames
         ctx = self.ctx
         n = len(self.group)
         chosen = (self._choose_algorithm(contrib, plan, combine)

@@ -481,12 +481,24 @@ def wire_view(x: Any, count: Optional[int] = None) -> Any:
     return flat
 
 
+_registered: "weakref.WeakValueDictionary[int, np.ndarray]" = \
+    weakref.WeakValueDictionary()
+
+
 def register_scratch(count: int, dtype: Any) -> np.ndarray:
     """A runtime-private flat host array for a plan-bound fold accumulator.
     Registered buffers are allocated once at plan creation
     (``Allreduce_init``) and reused by every round — the zero-alloc
     contract the registered fast path is built on."""
-    return np.empty(int(count), dtype=np.dtype(dtype))
+    arr = np.empty(int(count), dtype=np.dtype(dtype))
+    _registered[id(arr)] = arr
+    return arr
+
+
+def is_registered(arr: Any) -> bool:
+    """True iff ``arr`` is a runtime-private registered scratch buffer
+    (safe to fold into in place; no user alias can exist)."""
+    return _registered.get(id(arr)) is arr
 
 
 def pinned_wire_view(x: Any, count: int) -> Optional[np.ndarray]:

@@ -57,13 +57,15 @@ from .overlap import (ChunkSchedule, CollectivePlan, PersistentCollRequest,
 
 
 def _run(comm: Comm, contrib: Any, combine, opname: str, plan=None,
-         _sig=None) -> Any:
+         _sig=None, stamp=None) -> Any:
     # _ordered_run (defined with the nonblocking machinery below) keeps a
     # blocking collective from racing this rank's in-flight nonblocking
     # ones to the rendezvous: with outstanding work it runs through the
     # same single worker, preserving program order.
     # ``_sig`` is the trace verifier's precise cross-rank-checkable
-    # signature (root/dtype/count) when the caller knows one.
+    # signature (root/dtype/count) when the caller knows one. ``stamp`` is
+    # the payload key the thread tier checks across ranks each round
+    # (``_payload_key``; only for ops whose counts MPI requires to match).
     traced = _ev.enabled()
     # pvar op scope: channels drop phase spans into it; op_end stamps the
     # trace event and the per-comm counters. op_begin() returns None when an
@@ -73,7 +75,8 @@ def _run(comm: Comm, contrib: Any, combine, opname: str, plan=None,
     try:
         if not traced:
             return _ordered_run(comm, lambda: comm.channel().run(
-                comm.rank(), contrib, combine, opname, plan=plan))
+                comm.rank(), contrib, combine, opname, plan=plan,
+                stamp=stamp))
         ev = _ev.record_collective(comm, opname, sig=_sig)
         if sc is not None:
             sc.ev = ev
@@ -87,7 +90,8 @@ def _run(comm: Comm, contrib: Any, combine, opname: str, plan=None,
         _ev.set_blocked(ctx, bev)
         try:
             return _ordered_run(comm, lambda: comm.channel().run(
-                comm.rank(), contrib, combine, opname, plan=plan))
+                comm.rank(), contrib, combine, opname, plan=plan,
+                stamp=stamp))
         finally:
             _ev.clear_blocked(ctx, bev)
     finally:
@@ -102,7 +106,7 @@ def _run(comm: Comm, contrib: Any, combine, opname: str, plan=None,
 
 
 def _run_rooted(comm: Comm, root: int, contrib: Any, combine, opname: str,
-                plan=None, _sig=None) -> Any:
+                plan=None, _sig=None, stamp=None) -> Any:
     """Rendezvous for rooted collectives: every rank ships its claimed root
     inside its contribution, and divergent roots raise CollectiveMismatchError
     on all ranks instead of silently electing whoever arrives first (the
@@ -123,7 +127,14 @@ def _run_rooted(comm: Comm, root: int, contrib: Any, combine, opname: str,
 
     sig = dict(_sig or {})
     sig.setdefault("root", root)
-    return _run(comm, (root, contrib), outer, opname, plan=plan, _sig=sig)
+    return _run(comm, (root, contrib), outer, opname, plan=plan, _sig=sig,
+                stamp=stamp)
+
+
+def _payload_key(sig: dict) -> tuple:
+    """A reduction's payload key for the cross-rank round check: its count
+    and its dtype by name (a numpy and a torch float32 are one dtype)."""
+    return (sig["count"], sig["dtype"].removeprefix("torch."))
 
 
 # Algorithm selections resolved this config generation, keyed on the full
@@ -1234,12 +1245,14 @@ def _reduce_family(args, has_root: bool, mode: str, name: str) -> Any:
     sig = dict(cplan.sig, bufid=_ev.buf_id(sendbuf)) if _ev.enabled() \
         else cplan.sig
     try:
+        pkey = _payload_key(cplan.sig)
         if has_root:
             result = _run_rooted(comm, root, payload, cplan.combine,
-                                 cplan.opname, plan=cplan.hint, _sig=sig)
+                                 cplan.opname, plan=cplan.hint, _sig=sig,
+                                 stamp=pkey)
         else:
             result = _run(comm, payload, cplan.combine, cplan.opname,
-                          plan=cplan.hint, _sig=sig)
+                          plan=cplan.hint, _sig=sig, stamp=pkey)
         i_get_result = (not has_root) or rank == root
         if mode == "exscan" and result is None:
             # rank 0's Exscan output is undefined (src/collective.jl:834-855);
@@ -1921,6 +1934,7 @@ def _register_allreduce(comm: Comm, args,
 
     opname, hint, sig = cplan.opname, cplan.hint, cplan.sig
     runkw = {"unlocked_fold": True} if thread_tier else {}
+    pkey = _payload_key(sig)
     pv_nbytes = _pv.payload_nbytes(payload)
 
     def run_round():
@@ -1931,7 +1945,7 @@ def _register_allreduce(comm: Comm, args,
         sc = _pv.op_begin() if _pv.enabled() else None
         try:
             res = channel.run(rank, contrib(), combine, opname,
-                              plan=hint, **runkw)
+                              plan=hint, stamp=pkey, **runkw)
             if sc is None:
                 return copyout(res)
             t0 = _pv.monotonic()
@@ -1954,7 +1968,7 @@ def _register_allreduce(comm: Comm, args,
             "channel": channel, "rank": rank, "contrib": contrib,
             "combine": combine, "opname": opname, "hint": hint,
             "runkw": runkw, "copyout": copyout, "comm": comm,
-            "sig": sig, "pv_nbytes": pv_nbytes,
+            "sig": sig, "pv_nbytes": pv_nbytes, "stamp": pkey,
         }
 
     return _registry.add(PlanRegistration(
@@ -1964,15 +1978,18 @@ def _register_allreduce(comm: Comm, args,
         round_parts=round_parts))
 
 def _persistent_round(req: PersistentCollRequest, fn):
-    """Run one legacy-lane persistent round on the worker thread, tagging
+    """Run one legacy-lane persistent round on the worker thread, under
+    its round key (checked across ranks by the rendezvous), tagging
     the collective event it records with the owning handle + round so
     ``analyze.explore`` models the round's timing from the Start/Wait pair
     instead of double-counting the inner event."""
+    from ._runtime import persistent_round
     from .analyze import events as _ev
-    if not _ev.enabled():
-        return fn()
-    with _ev.persistent_scope(id(req), req._round - 1):
-        return fn()
+    with persistent_round(req.round_key):
+        if not _ev.enabled():
+            return fn()
+        with _ev.persistent_scope(id(req), req._round - 1):
+            return fn()
 
 
 def Allreduce_init(*args) -> PersistentCollRequest:

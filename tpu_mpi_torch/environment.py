@@ -48,8 +48,12 @@ def Init(session: "str | None" = None) -> None:
     ``spmd_run``/``tpurun`` it attaches to the launcher's world; standalone it
     creates a world of size 1.
 
-    ``session=`` (the serve-tier attach path of the JAX package) raises
-    NotImplementedError until the serve tier is ported.
+    ``session=`` is the serve-tier attach path: instead of paying a cold
+    start, the process attaches to a running ``tpurun-torch --serve``
+    broker at the given address (or ``TPU_MPI_SERVE_SOCKET`` when the
+    string is empty) and receives a lease on the broker's warm world. The
+    attached :class:`~tpu_mpi_torch.serve.ClientSession` is reachable via
+    ``MPI.serve.current_session()`` and is detached by ``Finalize``.
     """
     Init_thread(ThreadLevel.THREAD_MULTIPLE, session=session)
 
@@ -63,8 +67,11 @@ def Init_thread(required: ThreadLevel,
     ``session=`` serve-tier attach path.
     """
     if session is not None:
-        raise NotImplementedError(
-            "the serve tier is not ported yet (ROADMAP Queue A item 11)")
+        from . import serve
+        if serve.current_session() is not None:
+            raise MPIError("MPI.Init(session=...) but a session is already "
+                           "attached on this process")
+        serve._set_current(serve.attach(session or None))
     env = current_env()
     if env is None:
         if os.environ.get("TPU_MPI_PROC_RANK") is not None:
@@ -128,6 +135,13 @@ def Finalize() -> None:
         raise MPIError("MPI.Finalize() before MPI.Init()")
     if ctx.finalized[rank]:
         raise MPIError("MPI.Finalize() was already called on this rank")
+    # detach the serve-tier session Init(session=...) opened, releasing the
+    # lease cleanly (broker reclaims the cid namespace as detached)
+    import sys
+    serve = sys.modules.get("tpu_mpi_torch.serve")
+    if serve is not None and serve.current_session() is not None:
+        serve.current_session().detach()
+        serve._set_current(None)
     # reclaim every I-collective worker this rank created (one thread per
     # communicator that saw a nonblocking collective)
     from .collective import nb_shutdown

@@ -354,12 +354,22 @@ def main(argv: Optional[list[str]] = None) -> int:
         # belong to the tuner.
         from . import tune
         return tune.main(argv[1:])
-    if argv[:1] in (["--serve"], ["--stats"]):
-        # the JAX package's broker daemon and pvar reporter: their modules
-        # (serve/, stats.py) are not ported yet
-        raise NotImplementedError(
-            f"tpurun-torch {argv[0]}: the serve tier and the stats reporter "
-            f"are not ported yet (ROADMAP Queue A #11)")
+    if argv[:1] == ["--serve"]:
+        # `tpurun-torch --serve [...]` — the multi-tenant broker daemon
+        # (tpu_mpi_torch.serve): own a warm world on the card and lease
+        # slices of it to client sessions; `--serve --stats` queries a
+        # running broker's per-tenant ledger. All following args belong
+        # to the broker CLI.
+        from .serve import broker
+        return broker.main(argv[1:])
+    if argv[:1] == ["--stats"]:
+        # `tpurun-torch --stats <dumps...>` / `tpurun-torch --stats --
+        # <launch args>` — the pvar report CLI (tpu_mpi_torch.stats):
+        # aggregate per-rank counter dumps into latency/bandwidth tables,
+        # or wrap a whole launch with dumping enabled. All following args
+        # belong to the reporter.
+        from . import stats
+        return stats.main(argv[1:])
     p = argparse.ArgumentParser(
         prog="tpurun-torch",
         description="Run an SPMD tpu_mpi_torch program on N ranks (mpiexec "

@@ -509,6 +509,22 @@ class PlanRegistration:
             rel()
 
 
+def _next_plan_id(comm: Any) -> Optional[int]:
+    """The plan id of a new persistent request: how many this rank made on
+    ``comm`` before it. Persistent initialization is collective and
+    ordered, so request k of one rank is request k of every rank."""
+    from ._runtime import current_env
+    env = current_env()
+    if env is None or comm is None or not hasattr(env[0], "objects"):
+        return None
+    ctx, world_rank = env
+    key = ("pplan", comm.cid, world_rank)
+    with ctx.objects_lock:
+        n = ctx.objects.get(key, 0)
+        ctx.objects[key] = n + 1
+    return n
+
+
 def _world() -> Any:
     """The run (its ``SpmdContext``) of the calling rank thread, or None."""
     from ._runtime import current_env
@@ -614,8 +630,21 @@ def demote_fast_armed(cid: Any = None) -> None:
         return
     cids = [cid] if cid is not None else list(armed)
     for c in cids:
-        for req in list(armed.get(c, ())):
-            req._demote()
+        lst = armed.get(c)
+        if not lst:
+            continue
+        # detach the whole stack before initiating any of it: each legacy
+        # submission first demotes this comm's armed rounds itself
+        # (collective._nb_submit), so demoting one request at a time would
+        # submit the later rounds from inside the earlier one's submission,
+        # in reverse Start order, and a rank whose Starts went legacy would
+        # pair its rounds with other buckets
+        reqs = list(lst)
+        lst.clear()
+        for req in reqs:
+            req._fast_armed = False
+        for req in reqs:
+            req._inner = req._make()
 
 
 def flush_fast_armed(cid: Any, upto: Any = None) -> None:
@@ -672,8 +701,10 @@ def _flush_group(cid: Any, group: list) -> None:
                               for r in group):
         # no batch lane: inline rounds in Start order (the pre-batching
         # fast-armed wait), each its own rendezvous
+        from ._runtime import persistent_round
         for r in group:
-            r.result = r._reg.run_round()
+            with persistent_round(r.round_key):
+                r.result = r._reg.run_round()
             r.status = STATUS_EMPTY
             r._trace_complete()
         return
@@ -682,7 +713,8 @@ def _flush_group(cid: Any, group: list) -> None:
     channel = parts[0]["channel"]
     rank = parts[0]["rank"]
     ops = [(p["contrib"](), p["combine"], p["opname"],
-            bool(p["runkw"].get("unlocked_fold"))) for p in parts]
+            bool(p["runkw"].get("unlocked_fold")), (r.round_key, p["stamp"]))
+           for r, p in zip(group, parts)]
     sc = _pv.op_begin() if _pv.enabled() else None
     try:
         results = channel.run_batch(rank, ops)
@@ -759,6 +791,7 @@ class PersistentCollRequest:
         # round results so R302's invalidation ids stay unrecycled.
         self._comm = comm
         self._round = 0
+        self._plan_id = _next_plan_id(comm)
         self._results: deque = deque(maxlen=4)
 
     def bind_registration(self, factory: Callable[[], Any]
@@ -770,6 +803,12 @@ class PersistentCollRequest:
         self._reg_factory = factory
         self._reg = factory()
         return self
+
+    @property
+    def round_key(self) -> tuple:
+        """The cross-rank key of the round last Started: (plan id, round),
+        checked by the thread tier's rendezvous (``_runtime.round_stamp``)."""
+        return (self._plan_id, self._round - 1)
 
     @property
     def registration(self) -> Optional[PlanRegistration]:
@@ -828,17 +867,6 @@ class PersistentCollRequest:
                 return self
         self._inner = self._make()
         return self
-
-    def _demote(self) -> None:
-        """Move a fast-armed round onto the legacy worker path (initiation
-        happens NOW, preserving Start order for whatever follows)."""
-        if not self._fast_armed:
-            return
-        self._fast_armed = False
-        lst = _armed_list(self._reg.cid)
-        if self in lst:
-            lst.remove(self)
-        self._inner = self._make()
 
     @property
     def active(self) -> bool:
