@@ -22,7 +22,10 @@ fatal on failure:
    the three ring kernels at n in {2, 4, 5, 8} and per-rank sizes 1, 127,
    4097, 8229, 4198400, 2^26+3 (reduce-scatter and allgather on shards of
    ceil(size/n)), the reduce-scatter kernel on both its routes (staged
-   and direct); non-contiguous operands must raise;
+   and direct); the fold's numpy rules (``NUMPY_SUM/PROD/MAX/MIN``, the
+   serve tier's steps) on float16/32/64, random and special operands
+   (quiet and signalling NaNs with payloads, infinities, signed zeros),
+   bit for bit with NaN payloads; non-contiguous operands must raise;
 4. host main path: ``spmd_run`` on 4 rank threads — Init, COMM_WORLD, a
    ``DeviceBuffer`` of float32[2^26] per rank from a numpy seed, repeated
    ``MPI.Allreduce(x, y, MPI.SUM, comm)`` (the repeats arm the auto-arm
@@ -87,7 +90,8 @@ fatal on failure:
    in the same run: the sm90 kernel per call and its span, the mma.sync
    kernel's span, SDPA per call and its span (a line says so when the
    profiler recorded none of SDPA's kernels); the
-   permute per call in turns with ``xs[inverse_perm]``, and its span; the
+   permute per call in turns with ``xs[inverse_perm]``, and its span, and
+   both spans with the L2 flushed before each call, in turns; the
    model path's ms per request, tokens/s and device idle share under
    ``torch.profiler``.
 12. training at the flagship width: ``transformer_train_step`` on
@@ -215,14 +219,47 @@ fatal on failure:
    auto-arm lane) against a tensor made for every op, on float32[8] and
    float32[4096]; (b) a procs broker, 4 pool processes on the card:
    float32[8] and 4 x float32[2^24] bitwise, one fold launch an op at the
-   star root, startup seconds.
+   star root, startup seconds. Also on the threads broker: NaN payloads
+   from two ranks, zeros of both signs, inf - inf and 0 * inf in
+   float16/32/64[4099] parts under SUM, PROD, MIN and MAX, every reply
+   bit for bit numpy's rank-ordered fold on this host (the JAX broker's
+   reply), one fold launch each.
+
+18. the inference engine at the flagship's width (``FLAGSHIP``, float32
+   shards, max_seq 1024, random weights from the seed) on a threads broker
+   of 4 rank threads, ``device="cuda"``, driven by
+   ``benchmarks/infer_sweep.py``'s traffic: open-loop 2, 10 and 50
+   requests/s for 3 s each, 12-token prompts, 8 new tokens, a 1500 ms SLO,
+   in the ``row_loop`` and ``prefix_share`` lanes (a shared 24-token
+   system prompt, spec_k 8). Every prompt's streams are one stream in a
+   lane; a check set of 6 prompts streams bit for bit the same in both
+   lanes, batched and staggered; two prompts' streams equal the
+   ``device="cpu"`` engine's with the same weights and every sampled
+   row's final-row logits within ``INFER_LOGIT_TOL`` (the smallest
+   top-1/top-2 margin printed); meanwhile one tenant's 50 Allreduce SUM
+   of float32[4096] on the pool reply bitwise, one fold launch each.
+   Reported per load point: latency p50/p99, per-request and aggregate
+   tokens/s, MoE rounds a token, the KV prefix hit rate, SLO evictions;
+   and one decode step's CUDA launches and device busy share (profiler),
+   device-to-host copies a token, weight and KV bytes a rank, peak
+   device memory.
+
+19. an elastic resize under load: ``benchmarks/elastic_sweep.py``'s
+   traffic (30 arrivals/s for 6 s, 10 Allreduce of float64[512] a
+   tenant 5 ms apart) on a ``device="cuda"`` broker with
+   ``elastic=True`` and the engine live; at a third of the run the
+   failure verdict for the highest rank lands at an engine step boundary
+   while a generation streams. Zero tenants dropped, every reply the
+   rank-ordered fold bit for bit, the generation spanning the resize
+   streams as an undisturbed one; the resize ms, attach and op p50/p99
+   (steady and during the resize) and the rebinds.
 
 Card comparisons run with TF32 off and bfloat16 reduced-precision
 reductions off (``torch.backends.cuda.matmul``), set at the start.
 
-It prints the card line, phase 17's ``serve`` JSON line, the ``kernels``
-JSON line, and last ``{"ok": true, "device": {...}}``. Any failure exits
-non-zero before that.
+It prints the card line, phase 17's ``serve`` JSON line, phases 18-19's
+``infer``/``elastic`` JSON line, the ``kernels`` JSON line, and last
+``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
 """
 
 from __future__ import annotations
@@ -256,6 +293,8 @@ DTYPES = ("float32", "float64", "float16", "bfloat16", "int8", "int16",
 # phase 3 also folds the unsigned types torch itself does not fold
 FOLD_DTYPES = DTYPES + ("uint16", "uint32", "uint64")
 ALL_OPS = ("SUM", "PROD", "MAX", "MIN", "BAND", "BOR", "BXOR")
+# the fold's numpy rules (the serve tier's), on float16/32/64
+NUMPY_OPS = ("NUMPY_SUM", "NUMPY_PROD", "NUMPY_MAX", "NUMPY_MIN")
 PERMUTE_NS = (2, 4, 5, 8)
 # odd sizes take the narrow words; 4096 elements (and shards of them) the
 # 16-byte words of every dtype
@@ -341,6 +380,36 @@ SERVE_LAT_OPS = 300         # one tenant's sequential float32[8] ops
 SERVE_PROCS_SMALL = 20      # procs broker: float32[8] ops
 SERVE_PROCS_BULK = 2        # ... and 4 x float32[2^24] ops
 SERVE_AB_OPS, SERVE_AB_WARM = 150, 20   # the staging A/B, a block of ops
+# phase 18: the inference engine at the flagship's width
+# (benchmarks/infer_sweep.py's defaults: 4 ranks, loads 2, 10, 50 req/s for
+# 3 s each, 12-token prompts, 8 new tokens, a 1500 ms SLO, lanes row_loop
+# and prefix_share; the model is benchmarks/flagship_probe.py's, float32)
+INFER_LOADS = (2.0, 10.0, 50.0)
+INFER_DURATION = 3.0
+INFER_PROMPT, INFER_NEW = 12, 8
+INFER_SLO_MS = 1500
+INFER_MAX_CLIENTS = 48
+INFER_MAX_SEQ = 1024
+INFER_MODES = {
+    "row_loop": {"vectorized": False, "spec_k": 1, "prefix_share": False},
+    "prefix_share": {"vectorized": True, "spec_k": 8, "prefix_share": True},
+}
+INFER_SYS_PROMPT = [(11 * j + 5) % 64 for j in range(24)]
+INFER_TENANT_OPS = 50       # float32[4096] Allreduce SUM beside the engine
+INFER_COMPARE = 2           # prompts held against the CPU engine
+# the card's final-row logits against the CPU engine's: float32 sums of
+# 1024 and 4096 products in other orders (cuBLAS, the CPU BLAS) through 8
+# layers; the logits are of order 1
+INFER_LOGIT_TOL = 1e-3
+INFER_PROFILE_DECODES = 8
+# phase 19: an elastic resize under load (benchmarks/elastic_sweep.py's
+# defaults: 30 arrivals/s for 6 s, 4 KiB float64 ops, 10 a tenant 5 ms
+# apart, 32 clients at once, the highest rank's verdict at a third of the
+# run), with the engine live and a generation spanning the resize
+ELASTIC_RPS, ELASTIC_DURATION = 30.0, 6.0
+ELASTIC_NBYTES, ELASTIC_OPS, ELASTIC_OP_INTERVAL = 1 << 12, 10, 0.005
+ELASTIC_MAX_CLIENTS = 32
+ELASTIC_GEN_NEW = 48
 PROC_RMA = 1 << 22          # window, Allgather and Alltoall elements a rank
 PROC_SPAWN = 1 << 20        # float32 elements of the merged-world Allreduce
 PROC_TIMEOUT = 600          # seconds the 4-process world may take
@@ -435,6 +504,39 @@ def special_operands(dtype, n: int, size: int, device, gen):
     return pool[torch.randint(0, 5, (n, size), generator=gen, device=device)]
 
 
+def exact_bits(a, b) -> bool:
+    """Bit-for-bit equality of two float tensors, NaN payloads and signs
+    included (the serve tier's replies carry numpy's NaN bits)."""
+    import torch
+    return (a.shape == b.shape and a.dtype == b.dtype
+            and bool(torch.equal(a.view(_int_view(a)), b.view(_int_view(b)))))
+
+
+# float16/32/64 bit patterns of the numpy rules' edge cases: quiet and
+# signalling NaNs of both signs with payloads, then the smallest subnormal
+NUMPY_NAN_BITS = {
+    "float16": (0x7E12, 0xFE34, 0x7C05, 0xFC21, 0x0001),
+    "float32": (0x7FC01234, 0xFFC05678, 0x7F800005, 0xFF800021, 0x00000001),
+    "float64": (0x7FF8000000001234, 0xFFF8000000005678, 0x7FF0000000000005,
+                0xFFF0000000000021, 0x0000000000000001),
+}
+
+
+def numpy_special_operands(dtype, n: int, size: int, device, gen):
+    """(n, size) operands drawn from NUMPY_NAN_BITS, infinities, signed
+    zeros, the largest finite value and numbers: every case of the
+    numpy rules' NaN, invalid-operation and tie steps."""
+    import torch
+    name = str(dtype).split(".")[1]
+    bits = np.array(NUMPY_NAN_BITS[name], np.dtype(name).str.replace("f", "u"))
+    nans = torch.from_numpy(bits.view(np.dtype(name)))
+    plain = torch.tensor([float("inf"), float("-inf"), 0.0, -0.0, 1.5, -2.25,
+                          torch.finfo(dtype).max], dtype=dtype)
+    pool = torch.cat([nans, plain]).to(device)
+    return pool[torch.randint(0, pool.numel(), (n, size), generator=gen,
+                              device=device)]
+
+
 def check_parity(fr, device, sizes=PARITY_SIZES, ns=PARITY_NS,
                  big_size=BIG_SIZE, big_ns=BIG_NS) -> dict:
     """Kernel against plain on every case; returns counts and the largest
@@ -445,13 +547,13 @@ def check_parity(fr, device, sizes=PARITY_SIZES, ns=PARITY_NS,
     dtypes = [getattr(torch, d) for d in FOLD_DTYPES]
     cases, worst = 0, 0.0
 
-    def one(xs, op, what):
+    def one(xs, op, what, exact=False):
         nonlocal cases, worst
         xs = list(xs)
         want = fr.fused_multi_reduce_plain(xs, op)
         got = fr.fused_multi_reduce(xs, op)
         torch.cuda.synchronize()
-        if not same_bits(got, want):
+        if not (exact_bits if exact else same_bits)(got, want):
             raise AssertionError(f"kernel != plain: {what} "
                                  f"max_abs_err={max_abs_err(got, want)}")
         worst = max(worst, max_abs_err(got, want))
@@ -475,6 +577,18 @@ def check_parity(fr, device, sizes=PARITY_SIZES, ns=PARITY_NS,
                     xs = special_operands(dtype, n, size, device, gen)
                     for op in ("MAX", "MIN"):
                         one(xs, op, f"{dtype} {op} NaN/±0 n={n} size={size}")
+        if fr.supports("NUMPY_SUM", dtype):
+            # the serve tier's numpy rules: every NaN payload, bit for bit
+            for size, nn in [(size, ns) for size in sizes] + [(big_size,
+                                                               big_ns[:1])]:
+                for n in nn:
+                    for xs in (operands(dtype, n, size, device, gen),
+                               numpy_special_operands(dtype, n, size, device,
+                                                      gen)):
+                        for op in NUMPY_OPS:
+                            one(list(xs), op, f"{dtype} {op} n={n} "
+                                f"size={size}", exact=True)
+                    del xs
 
     # what the kernel does not take raises instead of running
     x = torch.randn(2 * 4097, device=device, generator=gen)
@@ -1206,12 +1320,14 @@ def recipes(tr, par, cfg, params, device) -> dict:
 # 11. times of the new kernels
 # ---------------------------------------------------------------------------
 
-def kernel_span_ms(fn, needle, logdir: str, iters: int = 20, between=None):
+def kernel_span_ms(fn, needle, logdir: str, iters: int = 20, between=None,
+                   exclude=None):
     """Mean device duration of the kernel spans whose name holds ``needle``
     over ``iters`` calls of ``fn``, under ``torch.profiler``: the kernel
     alone, without the wrapper's host time between launches. ``needle``
     None: the device time of all of a call's kernels (a library call, a
-    yardstick only: None when the profiler saw no kernel of it).
+    yardstick only: None when the profiler saw no kernel of it), leaving
+    out kernels whose name holds ``exclude`` (``between``'s own).
     ``between()`` runs before each call (an L2 flush)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1230,7 +1346,8 @@ def kernel_span_ms(fn, needle, logdir: str, iters: int = 20, between=None):
         with open(trace) as f:
             durs = [float(e["dur"]) for e in json.load(f).get("traceEvents", [])
                     if e.get("ph") == "X" and e.get("cat") == "kernel"
-                    and (needle is None or needle in e.get("name", ""))]
+                    and (needle is None or needle in e.get("name", ""))
+                    and not (exclude and exclude in e.get("name", ""))]
         if durs:
             return sum(durs) / (iters if needle is None else len(durs)) / 1e3
     if needle is None:
@@ -1293,11 +1410,20 @@ def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
     # the 8 MiB hop's 16 MiB of traffic stays in the 50 MB L2 across
     # back-to-back calls; its span with the L2 flushed before each call
     # (a 256 MiB memset between launches) is the one a bound can judge
+    # (a 256 MiB fill between launches), taken in turns with the span of
+    # the library call xs[inverse_perm] under the same flush
     flush = torch.empty(256 << 20, dtype=torch.uint8, device=hop.device)
-    cold_span = kernel_span_ms(lambda: permute.collective_permute(hop, perm),
-                               "permute_kernel", logdir,
-                               between=lambda: flush.zero_())
+    cold, lib_cold = [], []
+    for _ in range(3):
+        cold.append(kernel_span_ms(lambda: permute.collective_permute(hop, perm),
+                                   "permute_kernel", logdir,
+                                   between=lambda: flush.zero_()))
+        lib_cold.append(kernel_span_ms(lambda: hop[inv], None, logdir,
+                                       between=lambda: flush.zero_(),
+                                       exclude="FillFunctor"))
     del flush
+    cold_span = sorted(cold)[1]
+    lib_cold_span = (None if None in lib_cold else sorted(lib_cold)[1])
     previous = lambda: attention._launch(q, k, v, True, d ** -0.5,  # noqa: E731
                                          via="mma_sync")
     sdpa = lambda: F.scaled_dot_product_attention(*gathered, is_causal=True)  # noqa: E731
@@ -1308,6 +1434,9 @@ def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
             "span_ms": kernel_span_ms(lambda: permute.collective_permute(hop, perm),
                                       "permute_kernel", logdir),
             "span_l2_flushed_ms": cold_span,
+            "span_l2_flushed_turns": cold,
+            "library_span_l2_flushed_ms": lib_cold_span,
+            "library_span_l2_flushed_turns": lib_cold,
             "plain_ms": time_ms(lambda: permute.permute_rows_plain(hop, src)),
             "library_ms": sorted(lib_ms)[1],
             "library_ms_turns": lib_ms,
@@ -3617,6 +3746,45 @@ def serve_fleet(serve, b, tenants: int) -> dict:
             "op_latency": _pctl(lat)}
 
 
+def serve_numpy_rules(serve, b) -> dict:
+    """The parts of the serve card test through the broker, for every
+    float dtype a tenant can send and every reduce: a NaN with a payload
+    from rank 1, a negative NaN from rank 2, zeros of both signs against
+    each other, inf - inf and 0 * inf, in a float[4099] part a rank. Each
+    reply is held bit for bit to numpy's rank-ordered fold on this host,
+    which is what the JAX broker replies."""
+    import functools
+    rng = np.random.default_rng(SEED + 17)
+    ufuncs = {"sum": np.add, "prod": np.multiply, "min": np.minimum,
+              "max": np.maximum}
+    ops = 0
+    with serve.attach(b.address, tenant="numpy-rules", token=SERVE_TOKEN) as s:
+        for name in ("float16", "float32", "float64"):
+            dt = np.dtype(name)
+            u = np.dtype(dt.str.replace("f", "u"))
+            nan1, nan2 = NUMPY_NAN_BITS[name][:2]
+            parts = [rng.standard_normal(4099).astype(dt) for _ in range(NRANKS)]
+            for i, p in enumerate(parts):
+                p[1:3] = [-0.0, 0.0] if i % 2 == 0 else [0.0, -0.0]
+                p[3] = (np.inf, -np.inf, 1.0, 1.0)[i]
+                p[4] = (0.0, np.inf, 1.0, 1.0)[i]
+            parts[1].view(u)[0] = nan1
+            parts[2].view(u)[5] = nan2
+            for red, uf in ufuncs.items():
+                with np.errstate(all="ignore"):
+                    want = functools.reduce(uf, parts)
+                got = s.allreduce(parts, op=red)
+                ops += 1
+                if got.dtype != dt or got.tobytes() != want.tobytes():
+                    bad = np.flatnonzero(got.view(u) != want.view(u))[:4]
+                    raise AssertionError(
+                        f"serve {red} {name}: reply differs from numpy's fold "
+                        f"at {bad.tolist()}: {got.view(u)[bad].tolist()} vs "
+                        f"{want.view(u)[bad].tolist()}")
+    return {"ops": ops, "dtypes": ["float16", "float32", "float64"],
+            "reduces": list(ufuncs), "size": 4099}
+
+
 def serve_fairness(serve, b) -> dict:
     """SERVE_FAIR_TENANTS tenants hammer float32[64] Allreduces for
     SERVE_FAIR_S seconds; DRR should hand out near-equal counts."""
@@ -3863,6 +4031,8 @@ def serve_phase(MPI, collective, fr, device, where: str) -> dict:
         launches["fleet"] = fr.launches
         out["fairness"] = serve_fairness(serve, b)
         launches["fairness"] = fr.launches - sum(launches.values())
+        out["numpy_rules"] = serve_numpy_rules(serve, b)
+        launches["numpy_rules"] = fr.launches - sum(launches.values())
         # pvars on for the zero-copy lane: the dumps `stats` renders below
         os.environ["TPU_MPI_PVARS"] = "1"
         config.load(refresh=True)
@@ -3908,6 +4078,7 @@ def serve_phase(MPI, collective, fr, device, where: str) -> dict:
     finally:
         b.close()
     ops = {"fleet": out["fleet"]["ops"], "fairness": out["fairness"]["ops"],
+           "numpy_rules": out["numpy_rules"]["ops"],
            "zero_copy": SERVE_ZC_REPS, "bulk": SERVE_BULK_OPS}
     out["ops"] = ops
     out["fold_launches"] = launches
@@ -3940,6 +4111,9 @@ def serve_phase(MPI, collective, fr, device, where: str) -> dict:
     log(f"17a float32[8] op, one tenant: device=cuda p50 {lc['p50_ms']:.4f} "
         f"p99 {lc['p99_ms']:.4f} ms; device=cpu p50 {lh['p50_ms']:.4f} p99 "
         f"{lh['p99_ms']:.4f} ms {where}")
+    log(f"17a numpy rules: {out['numpy_rules']['ops']} Allreduce of NaN "
+        f"payloads, signed zeros, inf - inf and 0 * inf over float16/32/64, "
+        f"every reply bit for bit numpy's fold {where}")
     log(f"17 fold launches {launches} for ops {ops} (auto-armed hits "
         f"{auto_hits}), chained {chained}; stats CLI and METRICS "
         f"({out['metrics_series']} series) parse; client {out['client']!r}")
@@ -3956,6 +4130,554 @@ def serve_phase(MPI, collective, fr, device, where: str) -> dict:
         f"{pr['bulk_op_ms']} ms, fold launches by worker "
         f"{pr['fold_launches_by_worker']} {where}")
     log(f"phase 17 in {out['seconds']:.1f} s")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 18. inference at the flagship width; 19. an elastic resize under load
+# ---------------------------------------------------------------------------
+
+def _infer_prompt(mode: str, i: int) -> list:
+    """benchmarks/infer_sweep.py's prompts: the sharing lane serves a
+    common system prompt, the others disjoint prompts."""
+    if INFER_MODES[mode]["prefix_share"]:
+        return INFER_SYS_PROMPT + [(7 * i + j) % 64 for j in range(4)]
+    return [(7 * i + j) % 64 for j in range(INFER_PROMPT)]
+
+
+def _infer_broker(serve, cfg, mode: str, device: str, **kw):
+    from tpu_mpi_torch import config
+    os.environ["TPU_MPI_INFER_SLO_MS"] = str(INFER_SLO_MS)
+    config.load(refresh=True)
+    try:
+        b = serve.Broker(nranks=NRANKS, token=SERVE_TOKEN, device=device,
+                         max_tenants=INFER_MAX_CLIENTS + 16,
+                         infer={"cfg": cfg, "seed": SEED,
+                                **INFER_MODES[mode]}, **kw)
+        b.run_in_thread()
+    finally:
+        os.environ.pop("TPU_MPI_INFER_SLO_MS", None)
+        config.load(refresh=True)
+    return b
+
+
+def _generate(serve, b, prompt: list, max_new: int, tenant: str,
+              on_token=None) -> list:
+    with serve.attach(b.address, tenant=tenant, token=SERVE_TOKEN) as s:
+        return s.generate(prompt, max_new=max_new, on_token=on_token)
+
+
+def infer_point(serve, b, mode: str, rps: float, streams: dict) -> dict:
+    """One open-loop load point (infer_sweep.py's run_point): a thread an
+    arrival, its own lease, ``INFER_NEW`` greedy tokens asked. Every
+    completed stream is filed under its prompt in ``streams``."""
+    from tpu_mpi_torch.error import SLOExpiredError
+    import threading
+    n = max(1, int(round(rps * INFER_DURATION)))
+    gate = threading.Semaphore(INFER_MAX_CLIENTS)
+    lock = threading.Lock()
+    lat, tps, evicted, errors = [], [], [0], []
+    before = dict(b.stats()["infer"])
+    t_start = time.perf_counter()
+
+    def worker(i: int) -> None:
+        delay = i / rps - (time.perf_counter() - t_start)
+        if delay > 0:
+            time.sleep(delay)
+        prompt = _infer_prompt(mode, i)
+        with gate:
+            try:
+                t0 = time.perf_counter()
+                toks = _generate(serve, b, prompt, INFER_NEW, f"lp{rps}x{i}")
+                dt = time.perf_counter() - t0
+                with lock:
+                    lat.append(dt)
+                    tps.append(len(toks) / dt)
+                    streams.setdefault(tuple(prompt), set()).add(tuple(toks))
+            except SLOExpiredError:
+                with lock:
+                    evicted[0] += 1
+            except Exception as e:          # noqa: BLE001 - counted, raised below
+                with lock:
+                    errors.append(repr(e))
+
+    threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=300)
+    wall = time.perf_counter() - t_start
+    if errors:
+        raise AssertionError(f"18 {mode} at {rps} req/s: {len(errors)} "
+                             f"generations failed untyped: {errors[:3]}")
+    after = dict(b.stats()["infer"])
+    d = {k: after[k] - before[k] for k in ("slo_hits", "slo_misses",
+                                           "slo_evictions", "tokens")}
+    rounds = after["decode"]["moe_rounds"] - before["decode"]["moe_rounds"]
+    hit = after["kv"]["prefix_hit_tokens"] - before["kv"]["prefix_hit_tokens"]
+    miss = (after["kv"]["prefix_miss_tokens"]
+            - before["kv"]["prefix_miss_tokens"])
+    return {"offered_load_rps": rps, "requests": n, "completed": len(lat),
+            "evicted": evicted[0], "wall_s": wall,
+            "latency": _pctl(lat) if lat else None,
+            "p50_tokens_per_s": float(np.median(tps)) if tps else None,
+            "p99_tokens_per_s": (float(np.sort(tps)[min(len(tps) - 1,
+                                                         int(0.99 * len(tps)))])
+                                 if tps else None),
+            "delivered_tokens_per_s": len(lat) * INFER_NEW / wall,
+            "rounds_per_token": rounds / d["tokens"] if d["tokens"] else None,
+            "kv_prefix_hit_rate": hit / (hit + miss) if hit + miss else None,
+            "broker_slo": d}
+
+
+def _drain(b) -> None:
+    deadline = time.time() + 120
+    while time.time() < deadline:
+        inf = b.stats()["infer"]
+        if not inf["pending"] and not inf["active"]:
+            return
+        time.sleep(0.05)
+    raise AssertionError("18: the engine did not drain in 120 s")
+
+
+def infer_check_set(serve, b, prompts: list, stagger: float) -> list:
+    """``prompts`` generated together (stagger 0) or one after another
+    ``stagger`` s apart, each on its own lease: their streams in order."""
+    import threading
+    outs, errs = [None] * len(prompts), []
+
+    def worker(i):
+        try:
+            time.sleep(stagger * i)
+            outs[i] = _generate(serve, b, prompts[i], INFER_NEW, f"chk{i}")
+        except Exception as e:              # noqa: BLE001 - raised below
+            errs.append(repr(e))
+
+    ts = [threading.Thread(target=worker, args=(i,)) for i in range(len(prompts))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    if errs:
+        raise AssertionError(f"18 check set: {errs[:3]}")
+    return outs
+
+
+def tenant_interleave(serve, b, fr, collective, stop_after: int,
+                      card: bool = True) -> dict:
+    """One tenant's ``stop_after`` Allreduce SUM of four float32[4096]
+    parts on the engine's pool while it generates: every reply bitwise the
+    rank-ordered fold, and exactly one fold launch an op (the engine
+    itself launches no fold)."""
+    rng = np.random.default_rng(SEED + 18)
+    parts = [rng.standard_normal(4096).astype(np.float32) for _ in range(NRANKS)]
+    want = ((parts[0] + parts[1]) + parts[2]) + parts[3]
+    lat = []
+    with serve.attach(b.address, tenant="folds", token=SERVE_TOKEN) as s:
+        f0, c0 = fr.launches, collective.chained_folds
+        for _ in range(stop_after):
+            t0 = time.perf_counter()
+            got = s.allreduce(parts)
+            lat.append(time.perf_counter() - t0)
+            if got.tobytes() != want.tobytes():
+                raise AssertionError("18: a tenant reply off the rank-ordered "
+                                     "fold while the engine ran")
+        launches, chained = fr.launches - f0, collective.chained_folds - c0
+    if launches != (stop_after if card else 0) or chained:
+        raise AssertionError(f"18: {launches} fold launches (chained {chained}) "
+                             f"for {stop_after} tenant ops beside the engine")
+    return {"ops": stop_after, "fold_launches": launches,
+            "latency": _pctl(lat)}
+
+
+def _trace_counts(events) -> dict:
+    launches = sum(1 for e in events if e.get("ph") == "X"
+                   and e.get("name") in ("cudaLaunchKernel",
+                                         "cudaLaunchKernelExC",
+                                         "cuLaunchKernel"))
+    d2h = sum(1 for e in events if e.get("ph") == "X"
+              and e.get("cat") == "gpu_memcpy" and "DtoH" in e.get("name", ""))
+    kernels = sum(1 for e in events if e.get("ph") == "X"
+                  and e.get("cat") == "kernel")
+    return {"launches": launches, "d2h_copies": d2h, "kernels": kernels,
+            "busy_us": busy_union_us(events)}
+
+
+def decode_step_profile(serve, b, logdir: str, card: bool = True) -> dict:
+    """One request of a prompt profiled twice under ``torch.profiler``:
+    with one new token (prefill only) and with 1 + INFER_PROFILE_DECODES
+    (the same prefill and that many decode steps). The difference over the
+    decode steps is one decode step's CUDA launches, device busy time and
+    window; device-to-host copies are counted a token."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    prompt = _infer_prompt("row_loop", 5)
+    runs = {}
+    sync = torch.cuda.synchronize if card else (lambda: None)
+    acts = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if card else [])
+    for new in (1, 1 + INFER_PROFILE_DECODES):
+        _generate(serve, b, prompt, new, f"prof-warm{new}")
+        sync()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            _generate(serve, b, prompt, new, f"prof{new}")
+            sync()
+            window_us = (time.perf_counter() - t0) * 1e6
+        os.makedirs(logdir, exist_ok=True)
+        trace = os.path.join(logdir, f"infer_decode_{new}.json")
+        prof.export_chrome_trace(trace)
+        with open(trace) as f:
+            events = json.load(f).get("traceEvents", [])
+        runs[new] = {**_trace_counts(events), "window_us": window_us,
+                     "tokens": new}
+    a, z = runs[1], runs[1 + INFER_PROFILE_DECODES]
+    k = INFER_PROFILE_DECODES
+    step = {key: (z[key] - a[key]) / k
+            for key in ("launches", "kernels", "busy_us", "window_us",
+                        "d2h_copies")}
+    step["busy_share"] = (step["busy_us"] / step["window_us"]
+                          if step["window_us"] > 0 else None)
+    return {"decode_step": step, "prefill_only": a, "with_decodes": z,
+            "d2h_per_token": z["d2h_copies"] / z["tokens"]}
+
+
+def infer_card_vs_cpu(serve, b, cfg, mode: str) -> dict:
+    """INFER_COMPARE prompts through the card engine ``b`` and through a
+    ``device="cpu"`` engine with the same seed (the same weights: both draw
+    them from a seeded CPU generator): streams equal, and every sampled
+    row's final-row logits within INFER_LOGIT_TOL."""
+    prompts = [_infer_prompt("row_loop", i) for i in range(INFER_COMPARE)]
+    eng = b.infer_engine
+    eng.logit_log = {}
+    try:
+        card = [_generate(serve, b, p, INFER_NEW, f"cmp{i}")
+                for i, p in enumerate(prompts)]
+        card_log = dict(eng.logit_log)
+    finally:
+        eng.logit_log = None
+    t0 = time.perf_counter()
+    cpu_b = _infer_broker(serve, cfg, mode, "cpu")
+    try:
+        cpu_b.infer_engine.logit_log = {}
+        host = [_generate(serve, cpu_b, p, INFER_NEW, f"cmp{i}")
+                for i, p in enumerate(prompts)]
+        host_log = dict(cpu_b.infer_engine.logit_log)
+    finally:
+        cpu_b.close()
+    cpu_s = time.perf_counter() - t0
+    if card != host:
+        raise AssertionError(f"18: card streams {card} != CPU engine {host}")
+    a = np.stack([r for rid in sorted(card_log) for r in card_log[rid]])
+    w = np.stack([r for rid in sorted(host_log) for r in host_log[rid]])
+    if a.shape != w.shape:
+        raise AssertionError(f"18: {a.shape} card logit rows, {w.shape} CPU")
+    err = float(np.abs(a - w).max())
+    top2 = np.sort(w, axis=1)[:, -2:]
+    margin = float((top2[:, 1] - top2[:, 0]).min())
+    if not err <= INFER_LOGIT_TOL:
+        raise AssertionError(f"18: card logits off the CPU engine's by {err} "
+                             f"> {INFER_LOGIT_TOL}")
+    return {"prompts": len(prompts), "rows": int(a.shape[0]),
+            "max_abs_logit_err": err, "tolerance": INFER_LOGIT_TOL,
+            "min_top1_top2_margin": margin, "streams": card,
+            "cpu_engine_s": cpu_s}
+
+
+def infer_phase(fr, collective, device, logdir: str, where: str) -> dict:
+    """Phase 18: the inference engine at the flagship's width on the card,
+    driven by infer_sweep.py's traffic in its two lanes, with the checks
+    the module docstring lists. Raises on any of them."""
+    import threading
+    import torch
+    from tpu_mpi_torch import serve
+    from tpu_mpi_torch.models import transformer as tr
+    t_phase = time.perf_counter()
+    cfg = tr.TransformerConfig(**FLAGSHIP, max_seq=INFER_MAX_SEQ,
+                               dtype=torch.float32)
+    check_prompts = ([_infer_prompt("row_loop", i) for i in range(3)]
+                     + [_infer_prompt("prefix_share", i) for i in range(3)])
+    out = {"lanes": {}, "loads": list(INFER_LOADS), "slo_ms": INFER_SLO_MS,
+           "cfg": {**FLAGSHIP, "max_seq": INFER_MAX_SEQ, "dtype": "float32"}}
+    checks = {}
+    fr.reset_launches()
+    collective.chained_folds = 0
+    folds = 0
+    card = device.type == "cuda"
+    for mode in INFER_MODES:
+        if card:
+            torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        b = _infer_broker(serve, cfg, mode, device.type)
+        startup = time.perf_counter() - t0
+        lane = {"engine": INFER_MODES[mode], "startup_s": startup}
+        try:
+            eng = b.infer_engine
+            for st in eng._state.values():
+                if any(t.device.type != device.type
+                       for t in st["sp"].values()) \
+                        or st["kv"].k.device.type != device.type:
+                    raise AssertionError("18: an engine tensor is off the card")
+            lane["bytes_per_rank"] = eng.memory_bytes()
+            _generate(serve, b, _infer_prompt(mode, 0), 2, "warm")
+            streams: dict = {}
+            points = []
+            for rps in INFER_LOADS:
+                if mode == "row_loop" and rps == INFER_LOADS[1]:
+                    box = {}
+                    th = threading.Thread(target=lambda: box.update(
+                        tenant_interleave(serve, b, fr, collective,
+                                          INFER_TENANT_OPS, card)))
+                    th.start()
+                    points.append(infer_point(serve, b, mode, rps, streams))
+                    th.join(timeout=300)
+                    if "ops" not in box:
+                        raise AssertionError("18: the interleaved tenant failed")
+                    lane["tenant_interleave"] = box
+                    folds += box["fold_launches"]
+                else:
+                    points.append(infer_point(serve, b, mode, rps, streams))
+                _drain(b)
+            split = {p: s for p, s in streams.items() if len(s) != 1}
+            if split:
+                raise AssertionError(f"18 {mode}: one prompt, several streams: "
+                                     f"{list(split.items())[:2]}")
+            lane["points"] = points
+            lane["distinct_prompts"] = len(streams)
+            batched = infer_check_set(serve, b, check_prompts, 0.0)
+            staggered = infer_check_set(serve, b, check_prompts, 0.05)
+            if batched != staggered:
+                raise AssertionError(f"18 {mode}: batched {batched} != "
+                                     f"staggered {staggered}")
+            checks[mode] = batched
+            if mode == "row_loop":
+                lane["profile"] = decode_step_profile(serve, b, logdir, card)
+                lane["card_vs_cpu"] = infer_card_vs_cpu(serve, b, cfg, mode)
+            lane["stats"] = b.stats()["infer"]
+            lane["peak_allocated_bytes"] = (torch.cuda.max_memory_allocated()
+                                            if card else None)
+        finally:
+            b.close()
+        out["lanes"][mode] = lane
+    if checks["row_loop"] != checks["prefix_share"]:
+        raise AssertionError(f"18: lanes differ: {checks}")
+    if collective.chained_folds:
+        raise AssertionError("18: a fold left the kernel")
+    out["check_streams"] = checks["row_loop"]
+    out["fold_launches"] = fr.launches
+    if fr.launches < folds:
+        raise AssertionError(f"18: {fr.launches} fold launches for {folds} ops")
+    out["seconds"] = time.perf_counter() - t_phase
+    for mode, lane in out["lanes"].items():
+        for p in lane["points"]:
+            lt = p["latency"] or {}
+            log(f"18 {mode} {p['offered_load_rps']:g} req/s: {p['completed']}/"
+                f"{p['requests']} done, {p['evicted']} SLO-evicted, latency p50 "
+                f"{lt.get('p50_ms')} p99 {lt.get('p99_ms')} ms, per-request "
+                f"tokens/s p50 {p['p50_tokens_per_s']} p99 "
+                f"{p['p99_tokens_per_s']}, aggregate "
+                f"{p['delivered_tokens_per_s']:.3f} tokens/s, MoE rounds a token "
+                f"{p['rounds_per_token']}, KV prefix hit rate "
+                f"{p['kv_prefix_hit_rate']} {where}")
+        mem = lane["bytes_per_rank"]
+        log(f"18 {mode}: startup {lane['startup_s']:.2f} s; bytes a rank "
+            f"weights {sorted({m['weights'] for m in mem.values()})} KV "
+            f"{sorted({m['kv'] for m in mem.values()})}; peak allocated "
+            f"{lane['peak_allocated_bytes']} {where}")
+    pr = out["lanes"]["row_loop"]["profile"]
+    st = pr["decode_step"]
+    log(f"18 one decode step (row_loop, profiler): {st['launches']:.1f} CUDA "
+        f"launches, {st['kernels']:.1f} kernels, device busy "
+        f"{st['busy_us'] / 1e3:.4f} ms of {st['window_us'] / 1e3:.4f} ms "
+        f"(busy share {st['busy_share']}), {st['d2h_copies']:.1f} D2H copies; "
+        f"{pr['d2h_per_token']:.2f} D2H copies a token over a request {where}")
+    cv = out["lanes"]["row_loop"]["card_vs_cpu"]
+    log(f"18 card vs CPU engine, {cv['prompts']} prompts: streams equal, "
+        f"{cv['rows']} logit rows, max |err| {cv['max_abs_logit_err']:.3g} <= "
+        f"{cv['tolerance']}, smallest top-1/top-2 margin "
+        f"{cv['min_top1_top2_margin']:.4g} {where}")
+    ti = out["lanes"]["row_loop"]["tenant_interleave"]
+    log(f"18 tenant beside the engine: {ti['ops']} Allreduce float32[4096], "
+        f"each bitwise, {ti['fold_launches']} fold launches, latency p50 "
+        f"{ti['latency']['p50_ms']:.4f} p99 {ti['latency']['p99_ms']:.4f} ms; "
+        f"check set streams equal across lanes and batching; phase 18 in "
+        f"{out['seconds']:.1f} s")
+    return out
+
+
+def elastic_phase(fr, collective, device, where: str) -> dict:
+    """Phase 19: elastic_sweep.py's traffic on a ``device="cuda"`` broker
+    with the engine live; the failure verdict for the highest rank lands
+    mid-run, at an engine step boundary, while a generation streams."""
+    import threading
+    import torch
+    from tpu_mpi_torch import config, serve
+    from tpu_mpi_torch.error import PoolDegradedError, ServeBusyError
+    from tpu_mpi_torch.models import transformer as tr
+    t_phase = time.perf_counter()
+    cfg = tr.TransformerConfig(**FLAGSHIP, max_seq=INFER_MAX_SEQ,
+                               dtype=torch.float32)
+    env = {"TPU_MPI_ELASTIC_INTERVAL_MS": "50", "TPU_MPI_ELASTIC_COOLDOWN_MS": "0"}
+    os.environ.update(env)
+    config.load(refresh=True)
+    try:
+        b = serve.Broker(nranks=NRANKS, token=SERVE_TOKEN, device=device.type,
+                         max_tenants=ELASTIC_MAX_CLIENTS + 16, elastic=True,
+                         infer={"cfg": cfg, "seed": SEED})
+        b.run_in_thread()
+    finally:
+        for k in env:
+            os.environ.pop(k, None)
+        config.load(refresh=True)
+    kill = NRANKS - 1
+    prompt = _infer_prompt("row_loop", 11)
+    try:
+        before_stream = _generate(serve, b, prompt, ELASTIC_GEN_NEW, "undisturbed")
+        n = int(round(ELASTIC_RPS * ELASTIC_DURATION))
+        part = np.arange(ELASTIC_NBYTES // 8, dtype=np.float64)
+        gate = threading.Semaphore(ELASTIC_MAX_CLIENTS)
+        lock = threading.Lock()
+        attach_ms, spans, retriable, dropped, bad = [], [], [0], [0], []
+        window = {}
+        gen_out, streamed, started = {}, [], threading.Event()
+
+        def on_token(t):
+            streamed.append(t)
+            if len(streamed) >= 4:
+                started.set()
+
+        def spanning():
+            try:
+                gen_out["toks"] = _generate(serve, b, prompt, ELASTIC_GEN_NEW,
+                                            "spanning", on_token=on_token)
+            except Exception as e:          # noqa: BLE001 - raised below
+                gen_out["err"] = repr(e)
+
+        def worker(i):
+            delay = i / ELASTIC_RPS - (time.perf_counter() - t0)
+            if delay > 0:
+                time.sleep(delay)
+            with gate:
+                try:
+                    ta = time.perf_counter()
+                    s = serve.attach(b.address, tenant=f"el{i}",
+                                     token=SERVE_TOKEN)
+                    with lock:
+                        attach_ms.append(time.perf_counter() - ta)
+                except Exception:           # noqa: BLE001 - a drop
+                    with lock:
+                        dropped[0] += 1
+                    return
+                try:
+                    want = _replicated_fold(part, len(s.ranks)).tobytes()
+                    done, deadline = 0, time.perf_counter() + 60
+                    while done < ELASTIC_OPS and time.perf_counter() < deadline:
+                        ts = time.perf_counter()
+                        try:
+                            got = s.allreduce(part)
+                            if got.tobytes() != want:
+                                with lock:
+                                    bad.append(i)
+                            with lock:
+                                spans.append((ts, time.perf_counter()))
+                            done += 1
+                        except (PoolDegradedError, ServeBusyError):
+                            with lock:
+                                retriable[0] += 1
+                            time.sleep(0.05)
+                        time.sleep(ELASTIC_OP_INTERVAL)
+                    if done < ELASTIC_OPS:
+                        with lock:
+                            dropped[0] += 1
+                except Exception:           # noqa: BLE001 - a drop
+                    with lock:
+                        dropped[0] += 1
+                finally:
+                    s.detach()
+
+        def chaos():
+            time.sleep(ELASTIC_DURATION / 3.0)
+            gen_th.start()
+            started.wait(120)
+            # the verdict lands at an engine step boundary: a verdict during
+            # a step fails that step's collectives, and the engine with them
+            if not b._infer_sched.pause(timeout=30):
+                window["unparked"] = True
+            window["streamed_at_verdict"] = len(streamed)
+            window["start"] = time.perf_counter()
+            b.on_rank_failure(kill)
+            deadline = time.time() + 120
+            while time.time() < deadline:
+                if (b.elastic_state["resizes"] >= 1
+                        and not (b.pool.failed - b.pool.retired)):
+                    break
+                time.sleep(0.01)
+            window["end"] = time.perf_counter()
+
+        f0 = fr.launches
+        t0 = time.perf_counter()
+        threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
+        gen_th = threading.Thread(target=spanning)
+        killer = threading.Thread(target=chaos)
+        for t in threads:
+            t.start()
+        killer.start()
+        for t in threads:
+            t.join(timeout=300)
+        killer.join(timeout=300)
+        gen_th.join(timeout=300)
+        folds = fr.launches - f0
+        after_stream = _generate(serve, b, prompt, ELASTIC_GEN_NEW, "after")
+        resize = dict(b.elastic_state.get("last_resize") or {})
+        state = {k: b.elastic_state[k] for k in ("resizes", "rebinds",
+                                                 "failures")}
+        engine_ranks = list(b.infer_engine.ranks)
+    finally:
+        b.close()
+    if bad or dropped[0]:
+        raise AssertionError(f"19: {dropped[0]} tenants dropped, replies off "
+                             f"the fold for tenants {bad[:5]}")
+    if "toks" not in gen_out:
+        raise AssertionError(f"19: the spanning generation failed: {gen_out}")
+    if not (gen_out["toks"] == before_stream == after_stream == streamed):
+        raise AssertionError("19: the generation spanning the resize streamed "
+                             "other tokens than an undisturbed one")
+    if state["resizes"] < 1 or kill in engine_ranks or resize.get("grew", 0) < 1:
+        raise AssertionError(f"19: no restore resize: {state} {resize} "
+                             f"{engine_ranks}")
+    if (window.get("unparked") or not window.get("end") or not spans
+            or window["start"] > spans[-1][1]
+            or not 0 < window["streamed_at_verdict"] < ELASTIC_GEN_NEW):
+        raise AssertionError(f"19: the verdict did not land mid-run and "
+                             f"mid-generation: {window}")
+    w0 = window["start"] - ELASTIC_OP_INTERVAL
+    w1 = window["end"] + ELASTIC_OP_INTERVAL
+    during = [(b1 - a1) for a1, b1 in spans if b1 >= w0 and a1 <= w1]
+    steady = [(b1 - a1) for a1, b1 in spans if not (b1 >= w0 and a1 <= w1)]
+    out = {"tenants": n, "attaches_ok": len(attach_ms),
+           "attach": _pctl(attach_ms), "ops": len(spans),
+           "op_steady": _pctl(steady) if steady else None,
+           "op_during_resize": _pctl(during) if during else None,
+           "retriable_errors": retriable[0], "dropped_tenants": dropped[0],
+           "resize_window_s": window["end"] - window["start"],
+           "resize": resize, "state": state, "fold_launches": folds,
+           "spanning_tokens": len(gen_out["toks"]),
+           "streamed_at_verdict": window["streamed_at_verdict"],
+           "engine_ranks": engine_ranks,
+           "seconds": time.perf_counter() - t_phase}
+    if device.type == "cuda" and folds < len(spans):
+        raise AssertionError(f"19: {folds} fold launches for {len(spans)} ops")
+    sd, du = out["op_steady"] or {}, out["op_during_resize"] or {}
+    log(f"19 elastic: {n} tenants, {out['attaches_ok']} attached (p50 "
+        f"{out['attach']['p50_ms']:.4f} p99 {out['attach']['p99_ms']:.4f} ms), "
+        f"{len(spans)} ops bitwise, {retriable[0]} retriable errors, 0 dropped; "
+        f"op p50/p99 steady {sd.get('p50_ms')}/{sd.get('p99_ms')} ms, during "
+        f"the resize {du.get('p50_ms')}/{du.get('p99_ms')} ms ({du.get('n')} "
+        f"ops); resize {resize.get('duration_ms')} ms (window "
+        f"{out['resize_window_s']:.3f} s), grew {resize.get('grew')}, shrunk "
+        f"{resize.get('shrunk')}, rebinds {resize.get('rebinds')}; a "
+        f"{len(gen_out['toks'])}-token generation spanning it streamed "
+        f"bitwise as undisturbed; engine ranks {engine_ranks}; phase 19 in "
+        f"{out['seconds']:.1f} s {where}")
     return out
 
 
@@ -4314,6 +5036,17 @@ def main() -> int:
         f"{cp['span_l2_flushed_ms']:.4f} ms against the bytes bound "
         f"{cp['bound'][0]:.4f} ms (share {cp['bound'][0] / cp['span_l2_flushed_ms']:.3f}); "
         f"back to back {cp['span_ms']:.4f} ms {where}")
+    if cp["library_span_l2_flushed_ms"] is None:
+        log("collective_permute: xs[inverse_perm]'s span with the L2 flushed NOT "
+            "MEASURED in this run (the profiler recorded none of its kernels)")
+    else:
+        log(f"collective_permute span with the L2 flushed, in turns: kernel "
+            f"{cp['span_l2_flushed_turns']} ms, xs[inverse_perm] "
+            f"{cp['library_span_l2_flushed_turns']} ms; medians "
+            f"{cp['span_l2_flushed_ms']:.4f} / "
+            f"{cp['library_span_l2_flushed_ms']:.4f} = "
+            f"{cp['span_l2_flushed_ms'] / cp['library_span_l2_flushed_ms']:.3f} "
+            f"{where}")
     log(f"collective_permute per call in turns: kernel {cp['ms_turns']} ms, "
         f"xs[inverse_perm] {cp['library_ms_turns']} ms; medians {cp['ms']:.4f} / "
         f"{cp['library_ms']:.4f} = {cp['ms'] / cp['library_ms']:.3f} {where}")
@@ -4367,6 +5100,8 @@ def main() -> int:
         path="recipes: pipeline_forward + halo_exchange",
         ms_turns=new_times["collective_permute"]["ms_turns"],
         span_l2_flushed_ms=new_times["collective_permute"]["span_l2_flushed_ms"],
+        library_span_l2_flushed_ms=new_times["collective_permute"][
+            "library_span_l2_flushed_ms"],
         library_ms_turns=new_times["collective_permute"]["library_ms_turns"]))
     kernels.append(entry(
         "ring_attention", new_times["ring_attention"], rel(attention.SOURCE_SM90),
@@ -4402,6 +5137,12 @@ def main() -> int:
     # 17. the serve tier: brokers on the card, a tenant fleet, a client
     served17 = serve_phase(MPI, collective, fr, device, where)
     print(json.dumps({"serve": served17}), flush=True)
+    # 18. the inference engine at the flagship's width; 19. an elastic
+    # resize of the live pool
+    infer18 = infer_phase(fr, collective, device, logdir, where)
+    elastic19 = elastic_phase(fr, collective, device, where)
+    print(json.dumps({"infer": infer18, "elastic": elastic19},
+                     default=str), flush=True)
     for entry_ in kernels:
         key = {"fused_multi_reduce": "folds", "ring_attention": "attention",
                "collective_permute": "permute",
@@ -4416,8 +5157,14 @@ def main() -> int:
                                + procs["fold_launches"])
     serve_launches = (sum(served17["fold_launches"].values())
                       + served17["procs"]["fold_launches_by_worker"][0])
-    kernels[0]["launches"] += serve_launches
+    kernels[0]["launches"] += (serve_launches + infer18["fold_launches"]
+                               + elastic19["fold_launches"])
     kernels[0]["serve_launches"] = serve_launches
+    kernels[0]["infer_launches"] = infer18["fold_launches"]
+    kernels[0]["elastic_launches"] = elastic19["fold_launches"]
+    kernels[0]["numpy_rules"] = {
+        "parity": "bit for bit, NaN payloads included",
+        "serve_ops": served17["numpy_rules"]["ops"]}
     kernels[0]["proc_launches"] = procs["fold_launches"]
     kernels[0]["procs"] = procs
     kernels[0]["rma_launches"] = rma["rma_launches"]

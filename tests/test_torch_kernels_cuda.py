@@ -1069,12 +1069,10 @@ def test_ring_attention_over_a_sub_axis_is_one_sm90_launch_on_card():
 def test_serve_broker_on_card_replies_the_rank_ordered_fold(red):
     """A ``device="cuda"`` broker answers an Allreduce in one fold-kernel
     launch per op, with the bits of the JAX broker's reply (numpy's
-    rank-ordered left fold on the host) at every position but the ones
-    ROADMAP Queue C records as the serve tier's open divergence: a SUM or
-    PROD that meets a NaN gives the card's canonical NaN where numpy keeps
-    the operand's payload, and where MAX/MIN meet zeros of both signs the
-    kernel orders -0 below +0 where numpy returns the second operand. At
-    those positions the test holds both sides to the recorded bits."""
+    rank-ordered left fold on the host) at every position: a SUM or PROD
+    that meets a NaN keeps the operand's payload, and MAX/MIN of zeros of
+    both signs return the second operand, as numpy does (the fold
+    kernel's NUMPY_* steps)."""
     import numpy as np
     from tpu_mpi_torch import collective, serve
     _card()
@@ -1101,14 +1099,182 @@ def test_serve_broker_on_card_replies_the_rank_ordered_fold(red):
     finally:
         b.close()
     assert got.dtype == np.float32 and got.shape == want.shape
-    # position: (the JAX broker's bits, the port's bits), ROADMAP Queue C
-    diverge = {"sum": {0: (0x7FC01234, 0x7FFFFFFF)},
-               "prod": {0: (0x7FC01234, 0x7FFFFFFF)},
-               "max": {2: (0x80000000, 0x00000000)},
-               "min": {1: (0x00000000, 0x80000000)}}[red]
-    at = list(diverge)
-    assert {k: (int(want.view(np.uint32)[k]), int(got.view(np.uint32)[k]))
-            for k in at} == diverge
-    same = np.ones(want.size, bool)
-    same[at] = False
-    assert got[same].tobytes() == want[same].tobytes()
+    assert got.tobytes() == want.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", ["float16", "float32", "float64"])
+def test_numpy_rule_kernel_matches_numpy_and_plain_on_card(dtype):
+    """The fold kernel's NUMPY_* steps against numpy's own fold and the
+    plain version, over every pair of NaNs (quiet, signalling, both
+    signs), infinities, signed zeros and numbers, at the lengths of
+    numpy's scalar and vectorised loops. Where both operands of a SUM or
+    PROD are NaN, numpy's vectorised float32/float64 loops pick either
+    NaN by host; those positions are held to numpy's scalar loop, whose
+    pick the kernel takes (``tests/numpy_rules_cases.py``)."""
+    from numpy_rules_cases import (NUMPY_OPS, numpy_fold_bits, pair_cases,
+                                   uint_of)
+    dev = _card()
+    u = uint_of(dtype)
+    for length in (1, 7, 8, 17, 4099):
+        for op, ufunc in NUMPY_OPS.items():
+            for a, b in pair_cases(dtype, length):
+                want = numpy_fold_bits(ufunc, a, b)
+                ta, tb = (torch.from_numpy(x).to(dev) for x in (a, b))
+                before = fr.launches
+                got = fr.fused_multi_reduce([ta, tb], op)
+                plain = fr.fused_multi_reduce_plain([ta, tb], op)
+                torch.cuda.synchronize()
+                assert fr.launches == before + 1
+                assert (got.cpu().numpy().view(u) == want).all(), (op, length)
+                assert (plain.cpu().numpy().view(u) == want).all(), (op, length)
+
+
+def _infer_streams(serve, b, prompts, max_new, stagger=0.0, prefix="c"):
+    import threading
+    import time
+    outs, errs = [None] * len(prompts), []
+
+    def worker(i):
+        try:
+            time.sleep(stagger * i)
+            with serve.attach(b.address, tenant=f"{prefix}{i}",
+                              token="tk") as s:
+                outs[i] = s.generate(prompts[i], max_new=max_new)
+        except BaseException as e:      # noqa: BLE001 - reported below
+            errs.append(e)
+    ts = [threading.Thread(target=worker, args=(i,))
+          for i in range(len(prompts))]
+    for t in ts:
+        t.start()
+    for t in ts:
+        t.join(timeout=300)
+    assert not errs, errs
+    return outs
+
+
+_INFER_PROMPTS = [[3, 1, 4, 1, 5, 9, 2, 6, 11, 12], [3, 1, 4, 1, 5, 9, 2, 6, 21],
+                  list(range(7, 27)), [50, 51, 52]]
+
+
+@pytest.mark.cuda
+def test_infer_engine_lanes_bitwise_on_card():
+    """The engine on the card at a small width: every decode lane (row
+    loop, vectorized, speculative, prefix sharing, chunked prefill) emits
+    the row loop's streams bit for bit, batched or staggered — each row's
+    products keep one shape whatever shares its batch."""
+    from tpu_mpi_torch import collective, serve
+    _card()
+    modes = [{"vectorized": False, "spec_k": 1, "prefix_share": False},
+             {"vectorized": True}, {"vectorized": True, "spec_k": 6},
+             {"vectorized": True, "spec_k": 6, "prefix_share": True},
+             {"vectorized": True, "prefill_chunk": 8}]
+    per_mode = []
+    chained = collective.chained_folds
+    for mode in modes:
+        b = serve.Broker(nranks=4, token="tk", infer=dict(mode))
+        b.run_in_thread()
+        try:
+            eng = b.infer_engine
+            assert all(st["kv"].k.is_cuda and all(
+                t.is_cuda for t in st["sp"].values())
+                for st in eng._state.values())
+            outs = _infer_streams(serve, b, _INFER_PROMPTS, 10)
+            assert _infer_streams(serve, b, _INFER_PROMPTS, 10, stagger=0.03,
+                                  prefix="s") == outs, mode
+        finally:
+            b.close()
+        per_mode.append(outs)
+    assert all(o == per_mode[0] for o in per_mode[1:])
+    assert collective.chained_folds == chained
+
+
+@pytest.mark.cuda
+def test_infer_engine_on_card_matches_the_cpu_engine():
+    """The same seeded weights on the card and on the CPU: equal greedy
+    streams, every sampled row's final-row logits within 1e-4."""
+    import numpy as np
+    from tpu_mpi_torch import serve
+    _card()
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        b = serve.Broker(nranks=4, token="tk", infer={"seed": 3}, device=dev)
+        b.run_in_thread()
+        try:
+            b.infer_engine.logit_log = {}
+            with serve.attach(b.address, tenant="cmp", token="tk") as s:
+                outs = [s.generate(p, max_new=10) for p in _INFER_PROMPTS]
+            log = b.infer_engine.logit_log
+            runs[dev] = (outs, np.stack([r for rid in sorted(log)
+                                         for r in log[rid]]))
+        finally:
+            b.close()
+    assert runs["cuda"][0] == runs["cpu"][0]
+    assert np.abs(runs["cuda"][1] - runs["cpu"][1]).max() <= 1e-4
+
+
+@pytest.mark.cuda
+def test_elastic_resize_with_the_engine_live_on_card():
+    """A restore resize on a card pool with the engine live: the verdict
+    for rank 3 lands at an engine step boundary mid-generation, the
+    replacement rank stages on the card, the engine's tensors move with
+    the slot, the generation streams as undisturbed, and a tenant's
+    replies stay bitwise with one fold launch an op."""
+    import os
+    import threading
+    import time
+    import numpy as np
+    from tpu_mpi_torch import config, serve
+    _card()
+    prompt = list(range(3, 17))
+    os.environ.update(TPU_MPI_ELASTIC_INTERVAL_MS="3600000",
+                      TPU_MPI_ELASTIC_COOLDOWN_MS="0")
+    config.load(refresh=True)
+    try:
+        b = serve.Broker(nranks=4, token="tk", infer=True, elastic=True)
+        b.run_in_thread()
+    finally:
+        os.environ.pop("TPU_MPI_ELASTIC_INTERVAL_MS")
+        os.environ.pop("TPU_MPI_ELASTIC_COOLDOWN_MS")
+        config.load(refresh=True)
+    try:
+        with serve.attach(b.address, tenant="calm", token="tk") as s:
+            want = s.generate(prompt, max_new=40)
+        eng = b.infer_engine
+        ptr = eng._state[3]["sp"]["w_in"].data_ptr()
+        out, streamed, started = {}, [], threading.Event()
+
+        def on_token(t):
+            streamed.append(t)
+            if len(streamed) >= 4:
+                started.set()
+
+        def gen():
+            with serve.attach(b.address, tenant="rider", token="tk") as s:
+                out["toks"] = s.generate(prompt, max_new=40,
+                                         on_token=on_token)
+
+        th = threading.Thread(target=gen)
+        th.start()
+        parts = [np.arange(64, dtype=np.float32) * (i + 1) for i in range(2)]
+        with serve.attach(b.address, tenant="folds", token="tk",
+                          nranks=2) as s:
+            first = s.allreduce(parts)
+            assert started.wait(60)
+            assert b._infer_sched.pause(timeout=30)
+            b.on_rank_failure(3)
+            deadline = time.monotonic() + 60
+            while b.elastic_state["resizes"] < 1 \
+                    and time.monotonic() < deadline:
+                time.sleep(0.02)
+            assert b.elastic_state["resizes"] == 1, b.elastic_state
+            before = fr.launches
+            assert s.allreduce(parts).tobytes() == first.tobytes()
+            assert fr.launches == before + 1
+        th.join(timeout=120)
+        assert out["toks"] == want == streamed
+        new = eng.ranks[3]
+        assert new != 3 and eng._state[new]["sp"]["w_in"].data_ptr() == ptr
+        assert str(b.pool.device).startswith("cuda")
+    finally:
+        b.close()

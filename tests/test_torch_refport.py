@@ -2,8 +2,9 @@
 
 :func:`port_module` reads one of the JAX package's test files, points every
 ``tpu_mpi`` import at ``tpu_mpi_torch``, places what would default to the
-card on the CPU (``DeviceBuffer(...)``, ``Broker(...)``, ``_ThreadPool(...)``
-and ``Win_allocate_shared(...)`` gain ``device="cpu"``; a jax array
+card on the CPU (``DeviceBuffer(...)``, ``Broker(...)``, ``_ThreadPool(...)``,
+``Win_allocate_shared(...)`` and ``PagedKVCache(...)`` gain
+``device="cpu"``; a jax array
 (``jnp.asarray``) becomes a raw CPU tensor), and executes it as a module
 of its own. :func:`adopt` copies its tests and fixtures into a port test
 file, where they run under their reference names: each reference test's
@@ -30,7 +31,8 @@ import tpu_mpi.testing  # noqa: F401  (conftest's nprocs fixture reads it)
 
 TESTS = os.path.dirname(os.path.abspath(__file__))
 
-_ON_CPU = ("DeviceBuffer", "Broker", "_ThreadPool", "Win_allocate_shared")
+_ON_CPU = ("DeviceBuffer", "Broker", "_ThreadPool", "Win_allocate_shared",
+           "PagedKVCache")
 
 
 class _OnCpu(ast.NodeTransformer):
@@ -187,7 +189,8 @@ def test_rebuilt_modules_write_nothing_under_a_fixed_tmp_path(ref):
 
 
 @pytest.mark.parametrize("ref", ["test_serve", "test_overlap",
-                                 "test_perfvars", "test_telemetry"])
+                                 "test_perfvars", "test_telemetry",
+                                 "test_infer", "test_elastic"])
 def test_rebuilt_module_names_only_the_port(ref):
     mod = port_module(ref)
     bound = {getattr(v, "__name__", "") for v in vars(mod).values()

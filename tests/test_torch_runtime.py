@@ -174,6 +174,42 @@ def test_port_scan_covers_the_serve_tier():
         assert f"tpu_mpi_torch/{mod}" in scanned, mod
 
 
+def test_port_scan_covers_infer_and_elastic():
+    """The import scan above reads the inference engine and the elastic
+    tier too."""
+    scanned = {f.relative_to(REPO).as_posix() for f in _port_sources()}
+    for mod in ("infer/__init__.py", "infer/engine.py", "infer/kvcache.py",
+                "infer/scheduler.py", "elastic/__init__.py",
+                "elastic/controller.py", "elastic/protocol.py",
+                "elastic/sidecar.py"):
+        assert f"tpu_mpi_torch/{mod}" in scanned, mod
+
+
+def test_infer_and_elastic_run_with_jax_blocked():
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['jaxlib'] = None\n"
+        "from tpu_mpi_torch import serve\n"
+        "import tpu_mpi_torch.infer, tpu_mpi_torch.elastic.sidecar\n"
+        "b = serve.Broker(nranks=2, token='t', device='cpu', infer=True,\n"
+        "                 elastic=True)\n"
+        "b.run_in_thread()\n"
+        "with serve.attach(b.address, token='t') as s:\n"
+        "    out = s.generate([1, 2, 3], max_new=3)\n"
+        "b.close()\n"
+        "assert len(out) == 3, out\n"
+        "leaked = [m for m in sys.modules if m == 'tpu_mpi'"
+        " or m.startswith('tpu_mpi.')]\n"
+        "assert not leaked, leaked\n"
+        "print('ok')\n")
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    proc = subprocess.run([sys.executable, "-c", code], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=120)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip().endswith("ok")
+
+
 def test_serve_tier_runs_with_jax_blocked():
     code = (
         "import sys\n"

@@ -6,14 +6,13 @@ each test under its reference name, and one seeded program driven
 through a JAX broker and a port broker on the same numpy payloads: every
 reply bitwise equal (all four reductions over float32/float64/int32/
 int64/uint8/bool, replicated and per-rank parts, NaN and signed zeros
-through SUM and PROD, Bcast from every root; MIN/MAX of NaN and ±0 are
-left out: torch's CPU kernels pick other zero bits than numpy, and on the
-card the serve tier's divergence is ROADMAP Queue C's, held by
+through all four, Bcast from every root; the pool folds with numpy's
+rules, ``operators.NUMPY_RULES``, held on the card by
 ``tests/test_torch_kernels_cuda.py``), every error frame of the same
 type and code, and
 the ledger's admitted counters equal. Also: the port broker's device rule
-(no card and no ``device="cpu"`` raises; ``infer=``/``elastic=`` raise
-typed), torch tensors from a client crossing as their numpy bits, and the
+(no card and no ``device="cpu"`` raises; an engine on an odd pool and an
+elastic pool asked for a missing card raise typed), torch tensors from a client crossing as their numpy bits, and the
 staging the pool does kept off the shared parts.
 """
 
@@ -46,6 +45,9 @@ def _payload(rng, dtype, n=37, specials=True):
     a = (rng.standard_normal(n) * 3).astype(dtype)
     if specials:
         a[:4] = [np.nan, 0.0, -0.0, np.inf]
+        # across the ranks: zeros of both signs against each other, NaNs
+        # of both signs, and NaN against a number
+        a[4:8] = rng.permutation([0.0, -0.0, -np.nan, 1.0])
     return a
 
 
@@ -71,12 +73,7 @@ def program(serve, b, nranks=NRANKS):
             serve.attach(b.address, tenant="bob", token=TOKEN) as t:
         for dtype in DTYPES:
             for red in REDUCES:
-                # NaN and ±0 through SUM and PROD; not through MIN and MAX
-                # (the CPU torch.minimum/maximum pick other zero bits than
-                # numpy; ROADMAP Queue C)
-                specials = red in ("sum", "prod")
-                parts = [_payload(rng, dtype, specials=specials)
-                         for _ in range(nranks)]
+                parts = [_payload(rng, dtype) for _ in range(nranks)]
                 call(s.allreduce, parts, op=red)
                 call(t.allreduce, parts[0], op=red)
         for root in range(nranks):
@@ -156,12 +153,22 @@ def test_broker_without_a_card_raises_unless_asked_for_cpu():
         serve.Broker(nranks=2, token=TOKEN, backend="procs")
 
 
-@pytest.mark.parametrize("kw,item", [({"infer": True}, "#11.3"),
-                                     ({"elastic": True}, "#11.4")])
+@pytest.mark.parametrize("kw,item", [
+    ({"infer": True, "nranks": 3, "device": "cpu"}, "even warm pool"),
+    ({"elastic": True, "nranks": 2}, 'device="cpu"')])
 def test_infer_and_elastic_raise_typed(kw, item):
+    """``Broker(infer=...)`` and ``Broker(elastic=...)`` are served (the
+    engine and the controller are ported); what they cannot serve raises a
+    typed error before a tenant can attach: an engine on an odd pool (it
+    needs two pipeline stages), an elastic pool asked for the card on a
+    host without one."""
     from tpu_mpi_torch import serve
-    with pytest.raises(NotImplementedError, match=item):
-        serve.Broker(nranks=2, token=TOKEN, device="cpu", **kw)
+    with pytest.raises(MPIError, match=item):
+        b = serve.Broker(token=TOKEN, **kw)
+        try:
+            b.start()
+        finally:
+            b.close()
 
 
 def test_client_tensors_cross_as_their_numpy_bits():

@@ -6,9 +6,8 @@ procs backend (pool workers as OS processes) and through a two-broker
 fleet behind each package's router: replies, error frames and ledgers
 bitwise equal.
 
-``test_procs_sigkill_is_typed_and_survivors_bitwise_stable`` needs
-``Broker(elastic=True)``; until ``elastic/`` is ported (ROADMAP Queue A
-#11.4) the port's case asserts that typed refusal.
+``test_procs_sigkill_is_typed_and_survivors_bitwise_stable`` (marked
+slow in the reference) runs the reference's body in every pass.
 ``test_router_pins_sessions_to_home_shard`` attaches 24 tenants where the
 reference attaches 5: its rendezvous hash keys on the brokers' ephemeral
 ports, and with 5 tenants all land on one broker in about one run of 16
@@ -21,9 +20,18 @@ import pytest
 from test_torch_refport import adopt, port_module
 from test_torch_serve import TOKEN, _drive, assert_same, bounded, program
 
-adopt(globals(), port_module("test_serve_scale"),
-      skip=("test_procs_sigkill_is_typed_and_survivors_bitwise_stable",
-            "test_router_pins_sessions_to_home_shard"))
+_REF = port_module("test_serve_scale")
+adopt(globals(), _REF,
+      skip=("test_router_pins_sessions_to_home_shard",
+            "test_procs_sigkill_is_typed_and_survivors_bitwise_stable"))
+
+
+def test_procs_sigkill_is_typed_and_survivors_bitwise_stable():
+    """The reference's check (marked slow there), run in every pass: a
+    SIGKILL'd pool worker process, typed errors through the window, the
+    elastic restore growing a replacement process, the surviving lease
+    bitwise stable."""
+    _REF.test_procs_sigkill_is_typed_and_survivors_bitwise_stable()
 
 
 def test_router_pins_sessions_to_home_shard(fleet):
@@ -46,13 +54,6 @@ def test_router_pins_sessions_to_home_shard(fleet):
         finally:
             s.detach()
     assert seen == {0, 1}       # both brokers actually took tenants
-
-
-def test_procs_sigkill_is_typed_and_survivors_bitwise_stable():
-    from tpu_mpi_torch import serve
-    with pytest.raises(NotImplementedError, match="#11.4"):
-        serve.Broker(nranks=3, token=TOKEN, backend="procs", elastic=True,
-                     device="cpu")
 
 
 @pytest.fixture

@@ -4,10 +4,7 @@ test under its reference name, plus the same sampled traffic through a
 JAX and a port broker: the same span tree (names, lanes, parenting) and
 the same replies, and the same flight-recorder notes for a lease's life.
 
-Written here for the port: ``test_slo_burn_reported_and_triggers_elastic_grow``
-keeps its burn checks and asserts the typed refusal of
-``Broker(elastic=True)`` where the reference grows the pool (ROADMAP
-Queue A #11.4). Not carried yet: ``test_analyze_flight_cli``,
+Not carried yet: ``test_analyze_flight_cli``,
 ``test_chrome_schema_v2_names_lanes`` and ``test_spans_to_chrome_lanes_and_args``
 read ``analyze/__main__.py`` and ``analyze/timeline.py`` (#11.5).
 """
@@ -15,42 +12,13 @@ read ``analyze/__main__.py`` and ``analyze/timeline.py`` (#11.5).
 import importlib
 
 import numpy as np
-import pytest
-
-from tpu_mpi_torch import config
 
 from test_torch_refport import adopt, port_module
 from test_torch_serve import TOKEN, _drive, bounded
 
 adopt(globals(), port_module("test_telemetry"),
-      skip=("test_slo_burn_reported_and_triggers_elastic_grow",
-            "test_analyze_flight_cli", "test_chrome_schema_v2_names_lanes",
+      skip=("test_analyze_flight_cli", "test_chrome_schema_v2_names_lanes",
             "test_spans_to_chrome_lanes_and_args"))
-
-
-def test_slo_burn_reported_and_triggers_elastic_grow(monkeypatch):
-    from tpu_mpi_torch import serve
-    monkeypatch.setenv("TPU_MPI_PVARS", "1")
-    config.load(refresh=True)
-    b = serve.Broker(nranks=2, token=TOKEN, device="cpu")
-    b.run_in_thread()
-    try:
-        b.ledger.set_objective("burny", target_us=1)   # everything misses
-        with serve.attach(b.address, tenant="burny", token=TOKEN) as s:
-            for _ in range(8):
-                s.allreduce(np.ones(256, np.float64))
-            s.pcontrol(2)                  # flush measured books
-        slo = b.ledger.report()["tenants"]["burny"].get("slo")
-        assert slo is not None and slo["ops"] >= 8
-        assert slo["burn"] > 1.0
-        assert b.ledger.max_burn_rate() == slo["burn"]
-        assert b.elastic_state["resizes"] == 0
-    finally:
-        b.close()
-        monkeypatch.delenv("TPU_MPI_PVARS", raising=False)
-        config.load(refresh=True)
-    with pytest.raises(NotImplementedError, match="#11.4"):
-        serve.Broker(nranks=2, token=TOKEN, device="cpu", elastic=True)
 
 
 def _traced(pkg):

@@ -230,16 +230,22 @@ _chained_lock = threading.Lock()
 def _kernel_op(op: Op, dtype: torch.dtype) -> Optional[str]:
     """The fused fold kernel's op name for ``op`` on ``dtype``, or None.
     A Python callable cannot enter a CUDA kernel, so only the predefined
-    ops the kernel implements for the dtype qualify (custom ops take the
+    ops and numpy's rules (``operators.NUMPY_RULES``, the serve tier's)
+    the kernel implements for the dtype qualify (custom ops take the
     chained fold, as the JAX package's host-only ops do); the
     ``fused_fold`` knob set to ``off`` sends every fold there too."""
     from . import config
-    from .operators import _PREDEFINED
-    if _PREDEFINED.get(op.name) is not op or not _fused.supports(op.name, dtype):
+    from .kernels.fold_ops import kernel_op
+    from .operators import _PREDEFINED, NUMPY_RULES
+    if (_PREDEFINED.get(op.name) is not op
+            and NUMPY_RULES.get(op.name) is not op):
+        return None
+    name = kernel_op(op.name, dtype)
+    if not _fused.supports(name, dtype):
         return None
     if config.load().fused_fold == "off":
         return None
-    return op.name
+    return name
 
 
 def _fused_reduce_candidate(op: Op, arrs: Sequence[Any]) -> Optional[str]:

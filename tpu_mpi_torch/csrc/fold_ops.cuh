@@ -15,6 +15,8 @@
 //   * integer SUM/PROD wrap modulo 2^bits (computed in unsigned arithmetic),
 //     signed and unsigned alike; MAX/MIN compare in the type's own order;
 //   * bool SUM/MAX/BOR are OR, PROD/MIN/BAND are AND, BXOR is XOR.
+// The NUMPY_* steps are the exception: they follow numpy's bits instead,
+// for the serve tier only (below).
 //
 // Also here: the dtype/op codes of the C interfaces, the launch-size rule,
 // and dispatch<L>(dtype, op, ...), which calls L<T, OP>::run(...) for the
@@ -38,6 +40,8 @@ enum Dtype {
 enum Op {
   OP_SUM = 0, OP_PROD = 1, OP_MAX = 2, OP_MIN = 3,
   OP_BAND = 4, OP_BOR = 5, OP_BXOR = 6,
+  // numpy's rules on the float dtypes (the serve tier's folds; below)
+  OP_NUMPY_SUM = 7, OP_NUMPY_PROD = 8, OP_NUMPY_MAX = 9, OP_NUMPY_MIN = 10,
 };
 
 // bool, stored as one byte holding 0 or 1
@@ -101,6 +105,94 @@ template <int OP> struct Step<__nv_bfloat16, OP> {
     return __float2bfloat16_rn(Step<float, OP>::f(__bfloat162float(a), __bfloat162float(b)));
   }
 };
+
+// numpy's rules: float / double / half ------------------------------------------
+//
+// The serve tier replies with numpy's bits (operators.py, NUMPY_RULES, has
+// the plain version and the rules as measured on x86): SUM/PROD take a NaN
+// operand, quieted — of two, the first's (float, double) or the second's
+// (half) — and give x86's default NaN (sign set) for an invalid operation;
+// MAX/MIN take the first operand's NaN, else the second's, bits unchanged,
+// and of two equal values the second (float, double) or the first (half).
+// NaNs are told apart on the bits, so no conversion or arithmetic ever
+// touches a NaN's payload.
+template <typename T> struct NpBits;
+template <> struct NpBits<float> {
+  typedef uint32_t U; typedef float W;
+  static constexpr U ABS = 0x7fffffffu, INF = 0x7f800000u, QUIET = 0x00400000u,
+                 DNAN = 0xffc00000u;
+  static constexpr bool TIES_FIRST = false, NAN_SECOND = false;
+  static __device__ __forceinline__ W widen(float x) { return x; }
+  static __device__ __forceinline__ float narrow(W x) { return x; }
+};
+template <> struct NpBits<double> {
+  typedef uint64_t U; typedef double W;
+  static constexpr U ABS = 0x7fffffffffffffffull, INF = 0x7ff0000000000000ull,
+                 QUIET = 0x0008000000000000ull, DNAN = 0xfff8000000000000ull;
+  static constexpr bool TIES_FIRST = false, NAN_SECOND = false;
+  static __device__ __forceinline__ W widen(double x) { return x; }
+  static __device__ __forceinline__ double narrow(W x) { return x; }
+};
+template <> struct NpBits<__half> {
+  typedef uint16_t U; typedef float W;
+  static constexpr U ABS = 0x7fff, INF = 0x7c00, QUIET = 0x0200, DNAN = 0xfe00;
+  static constexpr bool TIES_FIRST = true, NAN_SECOND = true;
+  static __device__ __forceinline__ W widen(__half x) { return __half2float(x); }
+  static __device__ __forceinline__ __half narrow(W x) { return __float2half_rn(x); }
+};
+
+template <typename T> struct NpStep {
+  typedef NpBits<T> B;
+  typedef typename B::U U;
+  typedef typename B::W W;
+  static __device__ __forceinline__ U bits(T x) { U u; memcpy(&u, &x, sizeof u); return u; }
+  static __device__ __forceinline__ T of(U u) { T x; memcpy(&x, &u, sizeof x); return x; }
+  static __device__ __forceinline__ bool nan(U u) { return (U)(u & B::ABS) > B::INF; }
+  static __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
+  static __device__ __forceinline__ double add(double a, double b) { return __dadd_rn(a, b); }
+  static __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b); }
+  static __device__ __forceinline__ double mul(double a, double b) { return __dmul_rn(a, b); }
+
+  template <bool PROD>
+  static __device__ __forceinline__ T arith(T a, T b) {
+    const U ua = bits(a), ub = bits(b);
+    const U u1 = B::NAN_SECOND ? ub : ua, u2 = B::NAN_SECOND ? ua : ub;
+    if (nan(u1)) return of((U)(u1 | B::QUIET));
+    if (nan(u2)) return of((U)(u2 | B::QUIET));
+    const W r = PROD ? mul(B::widen(a), B::widen(b)) : add(B::widen(a), B::widen(b));
+    if (r != r) return of(B::DNAN);
+    return B::narrow(r);
+  }
+
+  template <bool MAX>
+  static __device__ __forceinline__ T pick(T a, T b) {
+    if (nan(bits(a))) return a;
+    const W x = B::widen(a), y = B::widen(b);      // a NaN b loses every compare
+    const bool take_a = B::TIES_FIRST ? (MAX ? x >= y : x <= y)
+                                      : (MAX ? x > y : x < y);
+    return take_a ? a : b;
+  }
+};
+
+#define NUMPY_STEPS(T)                                                            \
+  template <> struct Step<T, OP_NUMPY_SUM> {                                      \
+    static __device__ __forceinline__ T f(T a, T b) { return NpStep<T>::template arith<false>(a, b); } \
+  };                                                                              \
+  template <> struct Step<T, OP_NUMPY_PROD> {                                     \
+    static __device__ __forceinline__ T f(T a, T b) { return NpStep<T>::template arith<true>(a, b); } \
+  };                                                                              \
+  template <> struct Step<T, OP_NUMPY_MAX> {                                      \
+    static __device__ __forceinline__ T f(T a, T b) { return NpStep<T>::template pick<true>(a, b); } \
+  };                                                                              \
+  template <> struct Step<T, OP_NUMPY_MIN> {                                      \
+    static __device__ __forceinline__ T f(T a, T b) { return NpStep<T>::template pick<false>(a, b); } \
+  };
+
+NUMPY_STEPS(float)
+NUMPY_STEPS(double)
+NUMPY_STEPS(__half)
+
+#undef NUMPY_STEPS
 
 // integers: wrap modulo 2^bits --------------------------------------------------
 template <typename T> struct Wide { typedef uint32_t type; };
@@ -212,6 +304,29 @@ static int dispatch_op(int op, A... a) {
       case OP_BOR: return L<T, OP_BOR>::run(a...);
       case OP_BXOR: return L<T, OP_BXOR>::run(a...);
     }
+  }
+  return TMT_EBADARG;
+}
+
+// numpy's rules: the float dtypes numpy has, OP_NUMPY_* only (the fused
+// fold's; the ring kernels never instantiate them)
+template <template <typename, int> class L, typename T, typename... A>
+static int dispatch_numpy_op(int op, A... a) {
+  switch (op) {
+    case OP_NUMPY_SUM: return L<T, OP_NUMPY_SUM>::run(a...);
+    case OP_NUMPY_PROD: return L<T, OP_NUMPY_PROD>::run(a...);
+    case OP_NUMPY_MAX: return L<T, OP_NUMPY_MAX>::run(a...);
+    case OP_NUMPY_MIN: return L<T, OP_NUMPY_MIN>::run(a...);
+  }
+  return TMT_EBADARG;
+}
+
+template <template <typename, int> class L, typename... A>
+static int dispatch_numpy(int dtype, int op, A... a) {
+  switch (dtype) {
+    case DT_F32: return dispatch_numpy_op<L, float>(op, a...);
+    case DT_F64: return dispatch_numpy_op<L, double>(op, a...);
+    case DT_F16: return dispatch_numpy_op<L, __half>(op, a...);
   }
   return TMT_EBADARG;
 }

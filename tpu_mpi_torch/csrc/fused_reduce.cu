@@ -16,7 +16,8 @@
 // accumulator back in as operand 0: still the same left fold, still bitwise.
 //
 // Exactness: every step is one Step<T, OP> of fold_ops.cuh, which rounds
-// exactly as PyTorch's own CUDA elementwise op does.
+// exactly as PyTorch's own CUDA elementwise op does; the OP_NUMPY_* ops
+// (the serve tier's) give numpy's bits instead.
 //
 // C interface (bound with ctypes): tmt_fused_reduce returns 0 on success, the
 // cudaError_t of a refused launch, or TMT_EBADARG for arguments the kernel
@@ -77,6 +78,9 @@ extern "C" int tmt_fused_reduce(const void* const* ptrs, int n, void* out,
                                 int64_t count, int dtype, int op, void* stream) {
   if (n < 1 || count < 0 || ptrs == 0 || out == 0) return TMT_EBADARG;
   if (count == 0) return 0;
+  if (op >= OP_NUMPY_SUM)
+    return dispatch_numpy<FoldLaunch>(dtype, op, ptrs, n, out, count,
+                                      static_cast<cudaStream_t>(stream));
   return dispatch<FoldLaunch>(dtype, op, ptrs, n, out, count,
                               static_cast<cudaStream_t>(stream));
 }

@@ -519,13 +519,15 @@ def transformer_pp_moe_specs(pp_axis: str, ep_axis: str) -> dict:
 
 def transformer_pp_moe_host_params(params: dict, cfg: TransformerConfig,
                                    n_experts: int, stage: int, n_stages: int,
-                                   expert: int) -> dict:
+                                   expert: int, device: Any = None) -> dict:
     """Numpy float32 slice of one (pipeline stage, expert) shard of
     :func:`transformer_pp_moe_init` params (tensors or arrays), for a
     host-path inference engine: the stage's slab of layer tensors plus
     only this rank's expert FFN weights (w_in/w_out lose their expert
     dim). ``embed``/``ln_f`` ride along on every rank — stage 0 embeds,
-    the last stage computes logits."""
+    the last stage computes logits. With ``device``, the same slices as
+    contiguous float32 tensors on that device instead (the port's
+    inference engine; params already there are sliced in place)."""
     if cfg.n_layers % n_stages:
         raise ValueError(f"n_layers={cfg.n_layers} must divide over "
                          f"{n_stages} pipeline stages")
@@ -535,6 +537,11 @@ def transformer_pp_moe_host_params(params: dict, cfg: TransformerConfig,
     lo, hi = stage * per, (stage + 1) * per
 
     def host(a):
+        if device is not None:
+            if not isinstance(a, torch.Tensor):
+                a = torch.from_numpy(np.asarray(a, dtype=np.float32))
+            return a.detach().to(device=device,
+                                 dtype=torch.float32).contiguous()
         if isinstance(a, torch.Tensor):
             a = a.detach().to(device="cpu", dtype=torch.float32).numpy()
         return np.ascontiguousarray(np.asarray(a, dtype=np.float32))

@@ -82,7 +82,8 @@ class Op:
         # Predefined ops unpickle to their canonical singletons, so identity
         # checks (``op is REPLACE``) hold across process boundaries (the RMA
         # wire engine and cross-process collectives ship ops by pickle).
-        if _PREDEFINED.get(self.name) is self:
+        if (_PREDEFINED.get(self.name) is self
+                or NUMPY_RULES.get(self.name) is self):
             return (_predefined_op, (self.name,))
         return (Op, (self.fn, self.commutative, self.name, self.ufunc))
 
@@ -197,8 +198,86 @@ _PREDEFINED = {op.name: op for op in (SUM, PROD, MIN, MAX, LAND, LOR, LXOR,
                                       BAND, BOR, BXOR, REPLACE, NO_OP)}
 
 
+# ---- numpy's rules for the float folds (the serve tier's replies) -----------
+#
+# The serve tier replies what the JAX broker replies: numpy's rank-ordered
+# fold on the host. Finite operands round alike everywhere, but numpy
+# (x86) and the card pick other bits where a fold meets a NaN or zeros of
+# both signs. These four ops fold float16/32/64 tensors with numpy's bits,
+# as measured against numpy 2 on x86 at lengths 1 to 4099, in the plain
+# version below and in the fold kernel (csrc/fold_ops.cuh, the NUMPY_*
+# steps); every other dtype, and numpy operands, fold as SUM/PROD/MAX/MIN.
+#
+# * SUM/PROD: a NaN operand wins, quieted with its payload kept — of two
+#   NaNs the first operand's (the accumulator's) for float32/float64 and
+#   the second's for float16, as numpy's scalar loops pick; an invalid
+#   operation (inf - inf, 0 * inf) gives x86's default NaN (sign set).
+#   numpy's vectorised float32/float64 loops pick either operand of two
+#   NaNs depending on the host (the second on some x86 hosts, the first
+#   on others), so only there numpy's bits vary from machine to machine;
+#   one NaN operand gives the same bits everywhere.
+# * MAX/MIN: a NaN operand wins, the first operand's first, its bits
+#   unchanged (a signalling NaN stays signalling); of two equal values
+#   (zeros of both signs) float32/float64 take the second operand and
+#   float16 the first.
+
+# dtype -> (integer view, quiet bit, x86's default NaN)
+_NP_BITS = {torch.float16: (torch.int16, 0x0200, -0x0200),
+            torch.float32: (torch.int32, 0x00400000, -0x00400000),
+            torch.float64: (torch.int64, 1 << 51, -(1 << 51))}
+
+
+def _np_arith(step: Callable[[Any, Any], Any], a: torch.Tensor,
+              b: torch.Tensor) -> torch.Tensor:
+    view, quiet, dnan = _NP_BITS[a.dtype]
+    r = step(a, b)
+    ia, ib, ir = a.view(view), b.view(view), r.view(view)
+    na, nb = torch.isnan(a), torch.isnan(b)
+    ir = torch.where(torch.isnan(r), ir.new_tensor(dnan), ir)
+    first, second = ((nb, ib), (na, ia)) if a.dtype == torch.float16 \
+        else ((na, ia), (nb, ib))
+    ir = torch.where(second[0], second[1] | quiet, ir)
+    ir = torch.where(first[0], first[1] | quiet, ir)
+    return ir.view(a.dtype)
+
+
+def _np_pick(greater: bool, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    view = _NP_BITS[a.dtype][0]
+    if a.dtype == torch.float16:                 # ties: the first operand
+        wins = a >= b if greater else a <= b
+    else:                                        # ties: the second operand
+        wins = a > b if greater else a < b
+    take_a = torch.isnan(a) | wins               # a NaN b loses every compare
+    return torch.where(take_a, a.view(view), b.view(view)).view(a.dtype)
+
+
+def _numpy_rules(base: Callable[[Any, Any], Any],
+                 rule: Callable[[torch.Tensor, torch.Tensor], torch.Tensor]):
+    def fn(a, b):
+        if (_is_torch(a) and _is_torch(b) and a.dtype == b.dtype
+                and a.dtype in _NP_BITS):
+            return rule(a, b)
+        return base(a, b)
+    fn.__name__ = f"numpy_rules_{base.__name__.lstrip('_')}"
+    return fn
+
+
+NUMPY_SUM = Op(_numpy_rules(_sum, lambda a, b: _np_arith(torch.add, a, b)),
+               commutative=True, name="NUMPY_SUM", ufunc=np.add)
+NUMPY_PROD = Op(_numpy_rules(_prod, lambda a, b: _np_arith(torch.mul, a, b)),
+                commutative=True, name="NUMPY_PROD", ufunc=np.multiply)
+NUMPY_MAX = Op(_numpy_rules(_max, lambda a, b: _np_pick(True, a, b)),
+               commutative=True, name="NUMPY_MAX", ufunc=np.maximum)
+NUMPY_MIN = Op(_numpy_rules(_min, lambda a, b: _np_pick(False, a, b)),
+               commutative=True, name="NUMPY_MIN", ufunc=np.minimum)
+
+# the fold kernel's ops that are not MPI's predefined ones
+NUMPY_RULES = {op.name: op for op in (NUMPY_SUM, NUMPY_PROD, NUMPY_MAX,
+                                      NUMPY_MIN)}
+
+
 def _predefined_op(name: str) -> Op:
-    return _PREDEFINED[name]
+    return _PREDEFINED.get(name) or NUMPY_RULES[name]
 
 
 def is_elementwise(op: Op) -> bool:

@@ -11,13 +11,16 @@ Two realizations, as in the JAX package:
 - :func:`moe_host_dispatch_combine` — the host-path variant with true
   variable counts over the port's ``Alltoall``/``Alltoallv`` on an ``ep``
   communicator, which visits the algorithm-selection layer on every call.
+  It takes numpy rows (the JAX package's route, bitwise as there) or
+  tensors on a device (the inference engine's): the routing stays on the
+  host, and the rows and the expert stay on the device.
 """
 
 from __future__ import annotations
 
 import math
 import threading
-from typing import Callable
+from typing import Any, Callable
 
 import numpy as np
 import torch
@@ -87,19 +90,24 @@ def moe_dispatch_combine(tokens: torch.Tensor, expert_idx: torch.Tensor,
     return torch.where(keep[..., None], gathered, 0.0).view(ranks_shape + (t, d))
 
 
-def moe_host_dispatch_combine(tokens: np.ndarray, expert_idx: np.ndarray,
-                              expert_fn: Callable[[np.ndarray], np.ndarray],
-                              comm, *, capacity: int) -> np.ndarray:
+def moe_host_dispatch_combine(tokens: Any, expert_idx: np.ndarray,
+                              expert_fn: Callable[[Any], Any],
+                              comm, *, capacity: int) -> Any:
     """Top-1 MoE dispatch/combine on the host path: rank == expert over an
     ``ep`` communicator, shipped with ``Alltoallv`` (true variable counts).
 
-    tokens: (t, d) float32 local tokens (t may be 0); expert_idx: (t,)
-    target rank per token; expert_fn: this rank's expert, applied row-wise
-    to whatever tokens arrive. Tokens beyond ``capacity`` per destination
-    are dropped and come back as exact zeros. Returns (t, d),
-    bitwise-deterministic for a fixed routing. Every call makes one int64
-    ``Alltoall`` of the counts and two ``Alltoallv`` (dispatch, combine).
+    tokens: (t, d) float32 local tokens (t may be 0), numpy or a tensor;
+    expert_idx: (t,) target rank per token, on the host; expert_fn: this
+    rank's expert, applied row-wise to whatever tokens arrive. Tokens
+    beyond ``capacity`` per destination are dropped and come back as exact
+    zeros. Returns (t, d) of the tokens' kind, bitwise-deterministic for a
+    fixed routing. Every call makes one int64 ``Alltoall`` of the counts
+    (numpy) and two ``Alltoallv`` (dispatch, combine) of the rows. Every
+    rank of ``comm`` passes the same kind of rows.
     """
+    if isinstance(tokens, torch.Tensor):
+        return _dispatch_combine_tensor(tokens, expert_idx, expert_fn, comm,
+                                        capacity)
     from .. import collective as _c
     tokens = np.ascontiguousarray(tokens)
     if tokens.ndim != 2:
@@ -108,12 +116,7 @@ def moe_host_dispatch_combine(tokens: np.ndarray, expert_idx: np.ndarray,
     n = comm.size()
     idx = np.asarray(expert_idx, dtype=np.int64).reshape(-1)
 
-    # sender-side capacity bound: the first `capacity` tokens per
-    # destination in original token order
-    picked = [np.flatnonzero(idx == e)[:capacity] for e in range(n)]
-    scounts = [int(p.size) for p in picked]
-    order = (np.concatenate(picked) if picked else
-             np.zeros(0, np.int64)).astype(np.int64)
+    scounts, order = _routing(idx, n, capacity)
     send = tokens[order] if t else tokens.reshape(0, d)
 
     sbuf, rbuf = _count_exchange_bufs(comm.cid, n)
@@ -141,4 +144,58 @@ def moe_host_dispatch_combine(tokens: np.ndarray, expert_idx: np.ndarray,
     combined = np.zeros((t, d), tokens.dtype)   # dropped rows: exact zeros
     if order.size:
         combined[order] = flat_back.reshape(-1, d)
+    return combined
+
+
+def _routing(idx: np.ndarray, n: int, capacity: int):
+    """The sender side's routing on the host: per destination, the first
+    ``capacity`` of its tokens in token order (routing decides the drop
+    set, not arrival jitter): ``(send counts, token order)``."""
+    picked = [np.flatnonzero(idx == e)[:capacity] for e in range(n)]
+    scounts = [int(p.size) for p in picked]
+    order = (np.concatenate(picked) if picked else
+             np.zeros(0, np.int64)).astype(np.int64)
+    return scounts, order
+
+
+def _dispatch_combine_tensor(tokens: torch.Tensor, expert_idx: np.ndarray,
+                             expert_fn: Callable[[torch.Tensor], torch.Tensor],
+                             comm, capacity: int) -> torch.Tensor:
+    """The tensor route of :func:`moe_host_dispatch_combine`: the same
+    routing and count exchange on the host, the rows moved by the two
+    ``Alltoallv`` as tensors on their device, the expert applied there one
+    row at a time."""
+    from .. import collective as _c
+    dev = tokens.device
+    tokens = tokens.reshape(-1, tokens.shape[-1]).contiguous()
+    t, d = tokens.shape
+    n = comm.size()
+    idx = np.asarray(expert_idx, dtype=np.int64).reshape(-1)
+    scounts, order = _routing(idx, n, capacity)
+    order_t = torch.from_numpy(order).to(dev)
+    send = tokens.index_select(0, order_t)
+
+    sbuf, rbuf = _count_exchange_bufs(comm.cid, n)
+    sbuf[:] = scounts
+    rbuf[:] = 0
+    _c.Alltoall(sbuf, rbuf, 1, comm)
+    rcounts = [int(c) for c in rbuf]
+    sc_el = [c * d for c in scounts]
+    rc_el = [c * d for c in rcounts]
+
+    flat_in = tokens.new_zeros(sum(rc_el))
+    _c.Alltoallv(send.reshape(-1), flat_in, sc_el, rc_el, comm)
+    arrived = flat_in.view(-1, d)
+    # the expert one row at a time: a row's result never depends on how
+    # many others shared its exchange (a product's kernel, and so its
+    # summation order, may change with the row count)
+    out = torch.empty_like(arrived)
+    for i in range(arrived.shape[0]):
+        out[i] = expert_fn(arrived[i:i + 1])[0]
+
+    flat_back = tokens.new_zeros(sum(sc_el))
+    _c.Alltoallv(out.reshape(-1), flat_back, rc_el, sc_el, comm)
+    combined = tokens.new_zeros((t, d))         # dropped rows: exact zeros
+    if order.size:
+        combined.index_copy_(0, order_t, flat_back.view(-1, d))
     return combined

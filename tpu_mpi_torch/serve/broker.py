@@ -81,11 +81,16 @@ _OPS = None                       # lazy operator table
 
 
 def _reduce_op(name: str):
+    """The pool's op for a client's reduce name: numpy's rules
+    (``operators.NUMPY_RULES``), so a fold that meets a NaN or zeros of
+    both signs replies the JAX broker's bits (its numpy fold), on the card
+    through the fold kernel's NUMPY_* steps, on the CPU through their plain
+    version."""
     global _OPS
     if _OPS is None:
         from .. import operators
-        _OPS = {"sum": operators.SUM, "prod": operators.PROD,
-                "min": operators.MIN, "max": operators.MAX}
+        _OPS = {"sum": operators.NUMPY_SUM, "prod": operators.NUMPY_PROD,
+                "min": operators.NUMPY_MIN, "max": operators.NUMPY_MAX}
     op = _OPS.get(name)
     if op is None:
         raise MPIError(f"unknown reduce op {name!r}; serve supports "
@@ -1246,14 +1251,6 @@ class Broker:
                  transport: Optional[str] = None,
                  shard=None, device: Any = "cuda"):
         cfg = config.load()
-        if infer:
-            raise NotImplementedError(
-                "Broker(infer=...): the inference engine (infer/) is not "
-                "ported yet (ROADMAP Queue A #11.3)")
-        if elastic or (elastic is None and cfg.elastic):
-            raise NotImplementedError(
-                "Broker(elastic=...): elastic capacity (elastic/) is not "
-                "ported yet (ROADMAP Queue A #11.4)")
         self.token = cfg.session_token if token is None else token
         self.max_tenants = (cfg.serve_max_tenants if max_tenants is None
                             else int(max_tenants))

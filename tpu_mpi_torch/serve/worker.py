@@ -162,9 +162,11 @@ class _PoolWorker:
         self.ctx.revoked_cids.update(range(base, limit))
 
     def _wop_round(self, meta: dict) -> tuple:
-        raise NotImplementedError(
-            "elastic rebind rounds: elastic/ is not ported yet (ROADMAP "
-            "Queue A #11.4)")
+        from ..elastic.protocol import rebind_round
+        comm = self._comm(_cidify(meta["cid"]))
+        rebind_round(comm, meta["op"], epoch=meta.get("epoch"),
+                     declared=tuple(meta.get("declared") or comm.group))
+        return {}, []
 
     def _wop_shrink(self, meta: dict) -> tuple:
         """Collapse the base comm to its survivors. The broker is the
