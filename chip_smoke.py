@@ -233,7 +233,9 @@ fatal on failure:
    in the ``row_loop`` and ``prefix_share`` lanes (a shared 24-token
    system prompt, spec_k 8). Every prompt's streams are one stream in a
    lane; a check set of 6 prompts streams bit for bit the same in both
-   lanes, batched and staggered; two prompts' streams equal the
+   lanes, batched and staggered (a check request evicted at its SLO
+   deadline, never scheduled, is asked again on its lease up to
+   ``INFER_CHECK_RETRIES`` times, the retries counted); two prompts' streams equal the
    ``device="cpu"`` engine's with the same weights and every sampled
    row's final-row logits within ``INFER_LOGIT_TOL`` (the smallest
    top-1/top-2 margin printed); meanwhile one tenant's 50 Allreduce SUM
@@ -254,12 +256,30 @@ fatal on failure:
    streams as an undisturbed one; the resize ms, attach and op p50/p99
    (steady and during the resize) and the rebinds.
 
+20. the analysis tier with ``TPU_MPI_TRACE=1`` on the card: (a) the main
+   path traced, 4 rank threads Allreducing phase 4's float32[2^26]
+   operands as raw CUDA tensors (22 a rank, each bitwise the plain fold,
+   one fold launch each), dumped (``TPU_MPI_TRACE_DUMP``) and merged into
+   a Chrome trace (one row a rank, an Allreduce slice a rank an op, fold
+   slices): ``verify_trace`` finds nothing, ``explore`` one schedule or
+   more, no deadlock, no orphan, not truncated; the host lane's ms per op
+   untraced and traced, in turns; (b) ``defect_buffer_reuse``'s program
+   on a raw CUDA tensor gives T206 at its Isend's line,
+   ``defect_dtype_mismatch``'s on float32/float64 CUDA tensors T202 in
+   the words the numpy program gets, ``defect_deadlock_cycle``'s the
+   DeadlockError dump; ms per Isend check of a 64 MiB tensor; (c) ``python
+   -m tpu_mpi_torch.analyze verify`` of the dump exits 0, ``explore`` of
+   ``defect_wildcard_deadlock``'s dump exits 1 with T210; (d) the lint and
+   the lock lint over ``tpu_mpi_torch/`` and ``examples/`` find nothing,
+   in seconds printed.
+
 Card comparisons run with TF32 off and bfloat16 reduced-precision
 reductions off (``torch.backends.cuda.matmul``), set at the start.
 
 It prints the card line, phase 17's ``serve`` JSON line, phases 18-19's
-``infer``/``elastic`` JSON line, the ``kernels`` JSON line, and last
-``{"ok": true, "device": {...}}``. Any failure exits non-zero before that.
+``infer``/``elastic`` JSON line, phase 20's ``analysis`` JSON line, the
+``kernels`` JSON line, and last ``{"ok": true, "device": {...}}``. Any
+failure exits non-zero before that.
 """
 
 from __future__ import annotations
@@ -402,6 +422,8 @@ INFER_COMPARE = 2           # prompts held against the CPU engine
 # layers; the logits are of order 1
 INFER_LOGIT_TOL = 1e-3
 INFER_PROFILE_DECODES = 8
+# a check-set request evicted at the SLO deadline is asked again this often
+INFER_CHECK_RETRIES = 3
 # phase 19: an elastic resize under load (benchmarks/elastic_sweep.py's
 # defaults: 30 arrivals/s for 6 s, 4 KiB float64 ops, 10 a tenant 5 ms
 # apart, 32 clients at once, the highest rank's verdict at a third of the
@@ -413,6 +435,11 @@ ELASTIC_GEN_NEW = 48
 PROC_RMA = 1 << 22          # window, Allgather and Alltoall elements a rank
 PROC_SPAWN = 1 << 20        # float32 elements of the merged-world Allreduce
 PROC_TIMEOUT = 600          # seconds the 4-process world may take
+# phase 20: the analysis tier (TPU_MPI_TRACE=1) on the main path's operands
+ANALYSIS_OPS = 20           # timed Allreduce SUMs a rank, after 2 warm-up ops
+ANALYSIS_TURNS = 3          # untraced / traced turns of the host lane
+ISEND_CHECK_BYTES = 64 << 20
+ANALYSIS_CHECK_ITERS = 10
 
 
 def log(msg: str) -> None:
@@ -4240,16 +4267,35 @@ def _drain(b) -> None:
     raise AssertionError("18: the engine did not drain in 120 s")
 
 
-def infer_check_set(serve, b, prompts: list, stagger: float) -> list:
+def infer_check_set(serve, b, prompts: list, stagger: float,
+                    retries: list) -> list:
     """``prompts`` generated together (stagger 0) or one after another
-    ``stagger`` s apart, each on its own lease: their streams in order."""
+    ``stagger`` s apart, each on its own lease: their streams in order.
+
+    A request the engine evicts at its SLO deadline (the typed, retriable
+    ``SLOExpiredError``: it was never scheduled, so it produced no token)
+    is asked again on its lease, as the engine's clients are told to, up
+    to ``INFER_CHECK_RETRIES`` times; each retry is appended to
+    ``retries``. Any other error, or a request evicted past its retries,
+    fails the phase."""
     import threading
+    from tpu_mpi_torch.error import SLOExpiredError
     outs, errs = [None] * len(prompts), []
 
     def worker(i):
         try:
             time.sleep(stagger * i)
-            outs[i] = _generate(serve, b, prompts[i], INFER_NEW, f"chk{i}")
+            with serve.attach(b.address, tenant=f"chk{i}",
+                              token=SERVE_TOKEN) as s:
+                for attempt in range(INFER_CHECK_RETRIES + 1):
+                    try:
+                        outs[i] = s.generate(prompts[i], max_new=INFER_NEW)
+                        break
+                    except SLOExpiredError:
+                        if attempt == INFER_CHECK_RETRIES:
+                            raise
+                        retries.append(i)
+                        time.sleep(0.1)
         except Exception as e:              # noqa: BLE001 - raised below
             errs.append(repr(e))
 
@@ -4443,8 +4489,11 @@ def infer_phase(fr, collective, device, logdir: str, where: str) -> dict:
                                      f"{list(split.items())[:2]}")
             lane["points"] = points
             lane["distinct_prompts"] = len(streams)
-            batched = infer_check_set(serve, b, check_prompts, 0.0)
-            staggered = infer_check_set(serve, b, check_prompts, 0.05)
+            retries: list = []
+            batched = infer_check_set(serve, b, check_prompts, 0.0, retries)
+            staggered = infer_check_set(serve, b, check_prompts, 0.05,
+                                        retries)
+            lane["check_slo_retries"] = len(retries)
             if batched != staggered:
                 raise AssertionError(f"18 {mode}: batched {batched} != "
                                      f"staggered {staggered}")
@@ -4499,8 +4548,9 @@ def infer_phase(fr, collective, device, logdir: str, where: str) -> dict:
     log(f"18 tenant beside the engine: {ti['ops']} Allreduce float32[4096], "
         f"each bitwise, {ti['fold_launches']} fold launches, latency p50 "
         f"{ti['latency']['p50_ms']:.4f} p99 {ti['latency']['p99_ms']:.4f} ms; "
-        f"check set streams equal across lanes and batching; phase 18 in "
-        f"{out['seconds']:.1f} s")
+        f"check set streams equal across lanes and batching (SLO retries "
+        f"{ {m: ln['check_slo_retries'] for m, ln in out['lanes'].items()} }); "
+        f"phase 18 in {out['seconds']:.1f} s")
     return out
 
 
@@ -4678,6 +4728,365 @@ def elastic_phase(fr, collective, device, where: str) -> dict:
         f"{len(gen_out['toks'])}-token generation spanning it streamed "
         f"bitwise as undisturbed; engine ranks {engine_ranks}; phase 19 in "
         f"{out['seconds']:.1f} s {where}")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# 20. the analysis tier on the card
+# ---------------------------------------------------------------------------
+
+def _sync(device) -> None:
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+
+
+def _set_trace(on: bool, dump: str = "", deadlock_s: str = "") -> None:
+    """Tracing on or off for the runs that follow: ``TPU_MPI_TRACE``, with
+    ``TPU_MPI_TRACE_DUMP`` when ``dump`` names a prefix and
+    ``TPU_MPI_DEADLOCK_TIMEOUT`` when ``deadlock_s`` is given."""
+    from tpu_mpi_torch import config
+    for key, val in (("TPU_MPI_TRACE", "1" if on else ""),
+                     ("TPU_MPI_TRACE_DUMP", dump),
+                     ("TPU_MPI_DEADLOCK_TIMEOUT", deadlock_s)):
+        if val:
+            os.environ[key] = val
+        else:
+            os.environ.pop(key, None)
+    config.load(refresh=True)
+
+
+def analysis_allreduce(MPI, host: list, device, ops: int,
+                       chrome: str = "") -> float:
+    """``ops`` host-lane ``MPI.Allreduce`` SUMs of raw tensors on
+    ``len(host)`` rank threads, each result bitwise the plain fold; ms per
+    op on rank 0's clock after two warm-up ops. With ``chrome`` a path,
+    the ranks then merge their traces into a Chrome trace there."""
+    import torch
+    from tpu_mpi_torch.kernels import fused_reduce as fr
+    want = fr.fused_multi_reduce_plain(
+        [torch.from_numpy(h).to(device) for h in host], "SUM")
+
+    def body():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        x = torch.from_numpy(host[r]).to(device)
+        y = torch.empty_like(x)
+        for _ in range(2):
+            MPI.Allreduce(x, y, MPI.SUM, comm)
+        _sync(device)
+        MPI.Barrier(comm)
+        t0 = time.perf_counter()
+        for _ in range(ops):
+            MPI.Allreduce(x, y, MPI.SUM, comm)
+        _sync(device)
+        MPI.Barrier(comm)
+        dt = time.perf_counter() - t0
+        if y.device.type != device.type or not same_bits(y, want):
+            raise AssertionError(f"rank {r}: traced Allreduce differs from "
+                                 f"the plain fold")
+        if chrome:
+            MPI.analyze.timeline.merge_trace(comm, chrome)
+        MPI.Finalize()
+        return dt
+
+    return max(MPI.spmd_run(body, len(host), timeout=600)) / ops * 1e3
+
+
+def check_chrome(path: str, nranks: int, ops: int) -> dict:
+    """The merged Chrome trace: one row per rank, every rank's ``ops``
+    Allreduce slices, and a fold slice inside some rank's slice of every
+    one of those ops."""
+    with open(path) as f:
+        rec = json.load(f)
+    evs = rec["traceEvents"]
+    rows = {e["pid"]: e["args"]["name"] for e in evs
+            if e["ph"] == "M" and e["name"] == "process_name"}
+    if rows != {r: f"rank {r}" for r in range(nranks)}:
+        raise AssertionError(f"chrome trace rows {rows}")
+    slices = [e for e in evs if e["ph"] == "X" and e["cat"] == "coll"
+              and e["name"].startswith("Allreduce")]
+    folds = [e for e in evs if e["ph"] == "X" and e["cat"] == "phase"
+             and e["name"] == "fold"]
+    ops_by_rank = {r: sum(e["pid"] == r for e in slices) for r in range(nranks)}
+    folded = {e["args"]["seq"] for e in slices
+              if any(f["pid"] == e["pid"] and e["ts"] <= f["ts"]
+                     and f["ts"] + f["dur"] <= e["ts"] + e["dur"] + 1e-3
+                     for f in folds)}
+    if set(ops_by_rank.values()) != {ops} or len(folded) != ops:
+        raise AssertionError(f"chrome trace: Allreduce slices {ops_by_rank}, "
+                             f"{len(folded)} ops with a fold slice, for {ops} "
+                             f"ops a rank")
+    if rec["otherData"]["schema"] != 2:
+        raise AssertionError(f"chrome schema {rec['otherData']}")
+    return {"rows": len(rows), "allreduce_slices": ops_by_rank,
+            "ops_with_fold": len(folded), "fold_slices": len(folds),
+            "events": len(evs)}
+
+
+def defect_isend(MPI, device):
+    """``defect_buffer_reuse``'s program on a raw tensor of ``device``."""
+    import torch
+
+    def body():
+        comm = MPI.COMM_WORLD
+        if MPI.Comm_rank(comm) == 0:
+            payload = torch.ones(4, dtype=torch.float64, device=device)
+            req = MPI.Isend(payload, 1, 3, comm)
+            payload[0] = 99.0
+            MPI.Wait(req)
+        else:
+            out = torch.zeros(4, dtype=torch.float64, device=device)
+            MPI.Recv(out, 0, 3, comm)
+        MPI.Barrier(comm)
+    return body
+
+
+DEFECT_ISEND_LINE = defect_isend.__code__.co_firstlineno + 8
+
+
+def defect_dtype(MPI, make):
+    """``defect_dtype_mismatch``'s program over ``make(numpy array)``."""
+    def body():
+        comm = MPI.COMM_WORLD
+        if MPI.Comm_rank(comm) == 0:
+            MPI.Bcast(make(np.zeros(4, dtype=np.float32)), 0, comm)
+        else:
+            MPI.Bcast(make(np.zeros(4, dtype=np.float64)), 0, comm)
+    return body
+
+
+def defect_cycle(MPI, device):
+    """``defect_deadlock_cycle``'s program on raw tensors of ``device``."""
+    import torch
+
+    def body():
+        comm = MPI.COMM_WORLD
+        rank, size = MPI.Comm_rank(comm), MPI.Comm_size(comm)
+        inbox = torch.zeros(1, device=device)
+        MPI.Recv(inbox, (rank - 1) % size, 0, comm)
+        MPI.Send(torch.ones(1, device=device), (rank + 1) % size, 0, comm)
+    return body
+
+
+def defect_wildcard(MPI, device):
+    """``defect_wildcard_deadlock``'s program on raw tensors of ``device``:
+    the recorded run is clean, another matching of its ANY_SOURCE receive
+    deadlocks (T210)."""
+    import torch
+
+    def body():
+        MPI.Init()
+        comm = MPI.COMM_WORLD
+        rank = MPI.Comm_rank(comm)
+        full = lambda v, n: torch.full((n,), v, device=device)  # noqa: E731
+        if rank == 2:
+            MPI.Send(full(2.0, 4), 0, 7, comm)
+            MPI.Send(full(1.0, 1), 1, 9, comm)
+        elif rank == 1:
+            MPI.Recv(full(0.0, 1), 2, 9, comm)
+            MPI.Send(full(1.0, 4), 0, 7, comm)
+        elif rank == 0:
+            MPI.Recv(full(0.0, 4), MPI.ANY_SOURCE, 7, comm)
+            MPI.Recv(full(0.0, 4), 1, 7, comm)
+        MPI.Barrier(comm)
+        MPI.Finalize()
+    return body
+
+
+def _findings(MPI, body, nranks: int) -> tuple:
+    """``body`` traced on ``nranks`` rank threads: the error (or None) and
+    the verifier's findings as (code, file, line, message)."""
+    err = None
+    try:
+        MPI.spmd_run(body, nranks, timeout=120)
+    except Exception as e:          # noqa: BLE001 — the defects raise
+        err = e
+    diags = MPI.analyze.verify_trace(MPI.analyze.last_trace())
+    return err, [(d.code, d.file, d.line, d.message) for d in diags]
+
+
+def _cli(args: list, timeout: float = 120) -> tuple:
+    """``python -m tpu_mpi_torch.analyze ARGS`` from the repo: exit code,
+    output and seconds."""
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "tpu_mpi_torch.analyze",
+                           *args], cwd=os.path.dirname(os.path.abspath(__file__)),
+                          capture_output=True, text=True, timeout=timeout)
+    return proc.returncode, proc.stdout + proc.stderr, time.perf_counter() - t0
+
+
+def isend_check_ms(device, nbytes: int, iters: int) -> dict:
+    """The Isend check's cost on one ``nbytes`` tensor: its two checksums
+    (at the Isend and at the Wait), each a device-to-host copy and a crc32
+    on the host, against the copy alone; medians of ``iters``."""
+    import torch
+    from tpu_mpi_torch.analyze import events
+    t = torch.randn(nbytes // 4, device=device)
+
+    def median_ms(fn):
+        fn()
+        out = []
+        for _ in range(iters):
+            _sync(device)
+            t0 = time.perf_counter()
+            fn()
+            out.append((time.perf_counter() - t0) * 1e3)
+        return float(np.median(out))
+    return {"bytes": nbytes,
+            "check_ms": median_ms(lambda: (events._buf_crc(t),
+                                           events._buf_crc(t))),
+            "d2h_ms": median_ms(lambda: t.cpu()),
+            "crc_ms": median_ms(lambda: events._buf_crc(t))}
+
+
+def analysis_phase(MPI, fr, collective, host: list, device, where: str,
+                   ops: int = ANALYSIS_OPS, turns: int = ANALYSIS_TURNS,
+                   check_bytes: int = ISEND_CHECK_BYTES) -> dict:
+    """Phase 20: the main path traced on the card, verified, explored and
+    merged into a Chrome trace; defects on CUDA tensors; the dump through
+    the analyze CLI; the lint and lock lint over the port and examples."""
+    import tempfile
+    import torch
+    from tpu_mpi_torch.analyze import concurrency, lint
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_analysis_")
+    out: dict = {}
+    try:
+        # (1) the main path traced, dumped and merged
+        prefix, chrome = os.path.join(tmp, "main"), os.path.join(tmp, "main.json")
+        _set_trace(True, dump=prefix)
+        fr.reset_launches()
+        collective.chained_folds = 0
+        try:
+            traced_ms = analysis_allreduce(MPI, host, device, ops, chrome)
+        finally:
+            _set_trace(False)
+        launches, chained = fr.launches, collective.chained_folds
+        # (a CPU rehearsal folds with the plain version: no launches)
+        if (device.type == "cuda" and launches != ops + 2) or chained:
+            raise AssertionError(f"traced main path: {launches} fold launches, "
+                                 f"{chained} chained, for {ops + 2} ops")
+        tr = MPI.analyze.last_trace()
+        diags = MPI.analyze.verify_trace(tr)
+        if diags:
+            raise AssertionError("traced main path: "
+                                 + "; ".join(map(str, diags)))
+        t0 = time.perf_counter()
+        res = MPI.analyze.explore.explore(tr)
+        explore_s = time.perf_counter() - t0
+        orphans = sum(d.code == "T211" for d in res.diagnostics)
+        if res.deadlocks or orphans or res.truncated or res.schedules < 1 \
+                or res.diagnostics:
+            raise AssertionError(f"explore of the traced main path: {res}")
+        out["main"] = {
+            "ops_a_rank": ops + 2, "fold_launches": launches,
+            "events": len(tr.events()), "explore": {
+                "schedules": res.schedules, "transitions": res.transitions,
+                "states": res.states, "deadlocks": res.deadlocks,
+                "orphans": orphans, "truncated": res.truncated,
+                "seconds": explore_s},
+            "chrome": check_chrome(chrome, len(host), ops + 2),
+            "traced_ms": traced_ms}
+        # host-lane ms per op, untraced and traced in turns
+        readings = {"untraced": [], "traced": []}
+        turn_launches = {"untraced": [], "traced": []}
+        for _ in range(turns):
+            for mode in ("untraced", "traced"):
+                _set_trace(mode == "traced")
+                fr.reset_launches()
+                try:
+                    readings[mode].append(analysis_allreduce(MPI, host, device,
+                                                             ops))
+                finally:
+                    _set_trace(False)
+                turn_launches[mode].append(fr.launches)
+        if device.type == "cuda" and min(n for v in turn_launches.values()
+                                         for n in v) < ops + 2:
+            raise AssertionError(f"fold launches by turn {turn_launches}, "
+                                 f"{ops + 2} ops a turn")
+        out["host_lane_ms_turns"] = readings
+        out["fold_launches_by_turn"] = turn_launches
+        out["host_lane_ms"] = {k: float(np.median(v)) for k, v in readings.items()}
+        # (2) defects on CUDA tensors
+        _set_trace(True, deadlock_s="2.0")
+        try:
+            err, got = _findings(MPI, defect_isend(MPI, device), 2)
+            want = [("T206", os.path.abspath(__file__), DEFECT_ISEND_LINE)]
+            if err or [(c, os.path.abspath(f), ln) for c, f, ln, _ in got] != want:
+                raise AssertionError(f"Isend of a mutated {device.type} tensor: "
+                                     f"{err!r} {got}")
+            err, on_np = _findings(MPI, defect_dtype(MPI, lambda a: a), 2)
+            err2, on_dev = _findings(MPI, defect_dtype(
+                MPI, lambda a: torch.from_numpy(a).to(device)), 2)
+            if err or err2 or [(c, m) for c, _, _, m in on_dev] \
+                    != [(c, m) for c, _, _, m in on_np] \
+                    or [c for c, *_ in on_np] != ["T202"]:
+                raise AssertionError(f"dtype mismatch: numpy {on_np}, "
+                                     f"{device.type} {on_dev}")
+            err, _ = _findings(MPI, defect_cycle(MPI, device), NRANKS)
+            msg = str(err)
+            if type(err).__name__ != "DeadlockError" \
+                    or "per-rank pending operations:" not in msg \
+                    or "wait-for cycle: rank" not in msg \
+                    or not all(f"world rank {r}: blocked" in msg
+                               for r in range(NRANKS)):
+                raise AssertionError(f"deadlock cycle on {device.type}: {err!r}")
+        finally:
+            _set_trace(False)
+        out["defects"] = {"t206_line": DEFECT_ISEND_LINE,
+                          "t202": on_dev[0][3], "deadlock_dump_lines":
+                          msg.count("\n") + 1}
+        out["isend_check"] = isend_check_ms(device, check_bytes,
+                                            ANALYSIS_CHECK_ITERS)
+        # (3) the dumps through the analyze CLI
+        bad = os.path.join(tmp, "wildcard")
+        _set_trace(True, dump=bad)
+        try:
+            MPI.spmd_run(defect_wildcard(MPI, device), NRANKS, timeout=120)
+        finally:
+            _set_trace(False)
+        rc_v, text_v, s_v = _cli(["verify", prefix])
+        rc_e, text_e, s_e = _cli(["explore", bad])
+        if rc_v != 0 or "trace verifies clean" not in text_v:
+            raise AssertionError(f"analyze verify {prefix}: rc {rc_v}\n{text_v}")
+        if rc_e != 1 or "T210" not in text_e:
+            raise AssertionError(f"analyze explore {bad}: rc {rc_e}\n{text_e}")
+        out["cli"] = {"verify_rc": rc_v, "verify_s": s_v, "explore_rc": rc_e,
+                      "explore_s": s_e}
+        # (4) the static passes over the port and the examples
+        root = os.path.dirname(os.path.abspath(__file__))
+        trees = [os.path.join(root, "tpu_mpi_torch"), os.path.join(root, "examples")]
+        static = {}
+        for name, run in (("lint", lint.lint_paths),
+                          ("locks", concurrency.lock_lint_paths)):
+            t0 = time.perf_counter()
+            found = run(trees)
+            static[name] = {"diagnostics": len(found),
+                            "seconds": time.perf_counter() - t0}
+            if found:
+                raise AssertionError(f"{name} over the port and examples: "
+                                     + "; ".join(map(str, found[:5])))
+        out["static"] = static
+    finally:
+        import shutil
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["fold_launches"] = out["main"]["fold_launches"]
+    out["seconds"] = time.perf_counter() - t_phase
+    h = out["host_lane_ms"]
+    log(f"analysis: traced main path {ops + 2} Allreduce a rank, "
+        f"{out['fold_launches']} fold launches, verify clean, explore "
+        f"{out['main']['explore']['schedules']} schedule(s) 0 deadlocks, chrome "
+        f"{out['main']['chrome']}; host lane untraced {h['untraced']:.4f} / traced "
+        f"{h['traced']:.4f} ms/op (turns {out['host_lane_ms_turns']}, fold "
+        f"launches {out['fold_launches_by_turn']}); Isend check "
+        f"of {check_bytes >> 20} MiB {out['isend_check']['check_ms']:.3f} ms "
+        f"(D2H alone {out['isend_check']['d2h_ms']:.3f}); T206, T202, the "
+        f"deadlock dump on {device.type}; CLI verify {out['cli']['verify_s']:.1f} s, "
+        f"explore {out['cli']['explore_s']:.1f} s; lint {static['lint']['seconds']:.2f} "
+        f"s, locks {static['locks']['seconds']:.2f} s; phase {out['seconds']:.1f} s "
+        f"{where}")
     return out
 
 
@@ -5143,6 +5552,10 @@ def main() -> int:
     elastic19 = elastic_phase(fr, collective, device, where)
     print(json.dumps({"infer": infer18, "elastic": elastic19},
                      default=str), flush=True)
+    # 20. the analysis tier: the main path traced, defects on CUDA
+    # tensors, the dumps through the analyze CLI, the static passes
+    analysis20 = analysis_phase(MPI, fr, collective, host, device, where)
+    print(json.dumps({"analysis": analysis20}), flush=True)
     for entry_ in kernels:
         key = {"fused_multi_reduce": "folds", "ring_attention": "attention",
                "collective_permute": "permute",
@@ -5159,6 +5572,8 @@ def main() -> int:
                       + served17["procs"]["fold_launches_by_worker"][0])
     kernels[0]["launches"] += (serve_launches + infer18["fold_launches"]
                                + elastic19["fold_launches"])
+    kernels[0]["launches"] += analysis20["fold_launches"]
+    kernels[0]["analysis_launches"] = analysis20["fold_launches"]
     kernels[0]["serve_launches"] = serve_launches
     kernels[0]["infer_launches"] = infer18["fold_launches"]
     kernels[0]["elastic_launches"] = elastic19["fold_launches"]

@@ -1278,3 +1278,92 @@ def test_elastic_resize_with_the_engine_live_on_card():
         assert str(b.pool.device).startswith("cuda")
     finally:
         b.close()
+
+
+def _traced_run(body, nprocs=2):
+    """``body`` on rank threads with tracing on; the error's type name (or
+    None) and the verifier's findings as (code, line, message)."""
+    import os
+    import tpu_mpi_torch as MPI
+    from tpu_mpi_torch import config
+    from tpu_mpi_torch.testing import run_spmd
+    os.environ["TPU_MPI_TRACE"] = "1"
+    config.load(refresh=True)
+    err = None
+    try:
+        run_spmd(body, nprocs=nprocs)
+    except Exception as e:          # noqa: BLE001 — defects are expected
+        err = type(e).__name__
+    finally:
+        os.environ.pop("TPU_MPI_TRACE")
+        config.load(refresh=True)
+    diags = MPI.analyze.verify_trace(MPI.analyze.last_trace())
+    return err, [(d.code, d.line, d.message) for d in diags]
+
+
+def _isend_cuda(make, mutate):
+    import tpu_mpi_torch as MPI
+
+    def body():
+        comm = MPI.COMM_WORLD
+        if MPI.Comm_rank(comm) == 0:
+            x = make()
+            req = MPI.Isend(x, 1, 3, comm)
+            if mutate:
+                with torch.no_grad():
+                    x[0] = 99
+            MPI.Wait(req)
+        else:
+            out = torch.zeros(4099, dtype=make().dtype, device="cuda")
+            MPI.Recv(out, 0, 3, comm)
+        MPI.Barrier(comm)
+    return body
+
+
+_ISEND_CUDA_LINE = _isend_cuda.__code__.co_firstlineno + 7
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "requires_grad"])
+def test_trace_isend_mutation_of_cuda_tensor_is_t206_on_card(kind):
+    """The Isend check reads a raw CUDA tensor's bytes (one copy to the
+    host at the Isend and one at its Wait): a write before the Wait is
+    T206 at the Isend's line, an untouched buffer is clean."""
+    _card()
+
+    def make():
+        if kind == "bfloat16":
+            return torch.ones(4099, dtype=torch.bfloat16, device="cuda")
+        return torch.ones(4099, device="cuda",
+                          requires_grad=kind == "requires_grad")
+    err, diags = _traced_run(_isend_cuda(make, True))
+    assert err is None
+    assert [(c, ln) for c, ln, _ in diags] == [("T206", _ISEND_CUDA_LINE)]
+    assert _traced_run(_isend_cuda(make, False)) == (None, [])
+
+
+@pytest.mark.cuda
+def test_trace_names_cuda_dtypes_as_numpy_on_card():
+    """A numpy float32 and a CUDA float32 tensor on two ranks agree (no
+    T202); CUDA float32 against float64 is T202 in numpy's words."""
+    import numpy as np
+    import tpu_mpi_torch as MPI
+    _card()
+
+    def mixed():
+        comm = MPI.COMM_WORLD
+        x = np.arange(8, dtype=np.float32)
+        if MPI.Comm_rank(comm) == 1:
+            x = torch.from_numpy(x).cuda()
+        MPI.Allreduce(x, MPI.SUM, comm)
+        MPI.Bcast(x, 0, comm)
+    assert _traced_run(mixed) == (None, [])
+
+    def mismatch():
+        comm = MPI.COMM_WORLD
+        dt = torch.float32 if MPI.Comm_rank(comm) == 0 else torch.float64
+        MPI.Bcast(torch.zeros(4, dtype=dt, device="cuda"), 0, comm)
+    _, diags = _traced_run(mismatch)
+    assert [(c, m) for c, _, m in diags] == [(
+        "T202", "dtype disagrees across ranks in Bcast@0: ['float32', "
+        "'float64'] (collective round 0 of comm 0)")]

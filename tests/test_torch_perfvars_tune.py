@@ -7,8 +7,8 @@ and ``stats`` report, held to the JAX package's: ``tests/test_perfvars.py``,
 Three reference tests name what differs by design and are written here
 for the port: the capability table (an H100 row, not TPU generations)
 and the two ``profile_trace`` cases (``torch.profiler`` in place of the
-JAX profiler). ``test_merged_chrome_trace`` reads ``analyze.timeline``,
-which is not ported yet (ROADMAP Queue A #11.5).
+JAX profiler). ``test_merged_chrome_trace`` merges the ranks' traces
+through the port's ``analyze.timeline``.
 """
 
 import threading
@@ -25,7 +25,7 @@ _PORT_OWN = ("test_capability_tables", "test_profile_trace_single_starter",
              "test_profile_trace_exception_safe")
 for _ref in ("test_perfvars", "test_tune", "test_tune_online", "test_config"):
     adopt(globals(), port_module(_ref),
-          skip=_PORT_OWN + ("test_merged_chrome_trace",))
+          skip=_PORT_OWN)
 
 
 def test_capability_tables():

@@ -105,6 +105,39 @@ def _scratch() -> str:
     return _SCRATCH[0]
 
 
+CORPUS = os.path.join(TESTS, "analyze_corpus")
+# the reference's own line that names its corpus directory
+CORPUS_LINE = (r'CORPUS = os\.path\.join\(os\.path\.dirname\(os\.path\.abspath'
+               r'\(__file__\)\),\s*"analyze_corpus"\)')
+
+
+def port_corpus() -> str:
+    """The analysis corpus (``tests/analyze_corpus/``) rewritten for the
+    port in this process's scratch directory: every ``tpu_mpi`` name
+    points at ``tpu_mpi_torch``, line for line, so each ``# lint:`` /
+    ``# trace:`` marker keeps its line. Returns the directory."""
+    out = os.path.join(_scratch(), "analyze_corpus")
+    if not os.path.isdir(out):
+        tmp = out + ".part"
+        os.makedirs(tmp)
+        for name in sorted(os.listdir(CORPUS)):
+            if not name.endswith(".py"):
+                continue
+            with open(os.path.join(CORPUS, name)) as f:
+                lines = f.read().split("\n")
+            with open(os.path.join(tmp, name), "w") as f:
+                f.write("\n".join(re.sub(r"\btpu_mpi\b", "tpu_mpi_torch", ln)
+                                  for ln in lines))
+        os.rename(tmp, out)
+    return out
+
+
+def corpus_subs() -> tuple:
+    """``port_module`` rewrites that point a reference analysis test's
+    ``CORPUS`` at :func:`port_corpus`'s copy."""
+    return ((CORPUS_LINE, f"CORPUS = {port_corpus()!r}"),)
+
+
 def port_module(ref: str, subs=()) -> types.ModuleType:
     """``tests/<ref>.py`` rebuilt against the port (module docstring).
     ``subs`` are extra ``(pattern, replacement)`` rewrites of its source,

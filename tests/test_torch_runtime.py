@@ -5,6 +5,7 @@ carried across between numpy and torch."""
 
 import ast
 import os
+import re
 import subprocess
 import sys
 import threading
@@ -282,6 +283,9 @@ def test_import_with_jax_blocked():
         "import tpu_mpi_torch.backend, tpu_mpi_torch.launcher\n"
         "import tpu_mpi_torch._native, tpu_mpi_torch._rma_wire\n"
         "import tpu_mpi_torch._spawn_child\n"
+        "import tpu_mpi_torch.lint, tpu_mpi_torch.analyze.concurrency\n"
+        "import tpu_mpi_torch.analyze.explore, tpu_mpi_torch.analyze.timeline\n"
+        "import tpu_mpi_torch.analyze.__main__\n"
         "out = MPI.testing.run_spmd(lambda: MPI.Allreduce(1, MPI.SUM,"
         " MPI.COMM_WORLD), 2, timeout=30)\n"
         "assert out == [2, 2], out\n"
@@ -400,3 +404,16 @@ def test_raw_tensor_operands():
 
     res = run_spmd(body, 3, timeout=TIMEOUT)
     assert all(v == [6.0] * 4 and snap for v, snap in res)
+
+
+def test_port_scan_covers_the_analysis_tier():
+    """The import scan above reads the analysis modules and the lint CLI
+    too, and none of them names the JAX package."""
+    scanned = {f.relative_to(REPO).as_posix() for f in _port_sources()}
+    for mod in ("lint.py", "analyze/__init__.py", "analyze/__main__.py",
+                "analyze/lint.py", "analyze/concurrency.py",
+                "analyze/explore.py", "analyze/timeline.py",
+                "analyze/matcher.py", "analyze/events.py"):
+        assert f"tpu_mpi_torch/{mod}" in scanned, mod
+        text = (REPO / "tpu_mpi_torch" / mod).read_text()
+        assert not re.search(r"\btpu_mpi\b(?!_torch)", text), mod

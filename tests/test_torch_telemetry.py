@@ -3,10 +3,9 @@
 test under its reference name, plus the same sampled traffic through a
 JAX and a port broker: the same span tree (names, lanes, parenting) and
 the same replies, and the same flight-recorder notes for a lease's life.
-
-Not carried yet: ``test_analyze_flight_cli``,
-``test_chrome_schema_v2_names_lanes`` and ``test_spans_to_chrome_lanes_and_args``
-read ``analyze/__main__.py`` and ``analyze/timeline.py`` (#11.5).
+Its analysis cases (``test_analyze_flight_cli``,
+``test_chrome_schema_v2_names_lanes``, ``test_spans_to_chrome_lanes_and_args``)
+read the port's ``analyze/__main__.py`` and ``analyze/timeline.py``.
 """
 
 import importlib
@@ -16,9 +15,7 @@ import numpy as np
 from test_torch_refport import adopt, port_module
 from test_torch_serve import TOKEN, _drive, bounded
 
-adopt(globals(), port_module("test_telemetry"),
-      skip=("test_analyze_flight_cli", "test_chrome_schema_v2_names_lanes",
-            "test_spans_to_chrome_lanes_and_args"))
+adopt(globals(), port_module("test_telemetry"))
 
 
 def _traced(pkg):

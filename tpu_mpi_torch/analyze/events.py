@@ -236,6 +236,28 @@ class persistent_scope:
         return False
 
 
+def dtype_name(dtype: Any) -> Optional[str]:
+    """An element type as the trace records it: numpy's name (``float32``,
+    ``bfloat16``), whether the operand was a numpy array, a CPU tensor or
+    a CUDA tensor, so ranks that pass different kinds of one type agree."""
+    if dtype is None:
+        return None
+    return str(dtype).removeprefix("torch.")
+
+
+def _datatype_name(dtype: Any) -> Optional[str]:
+    """A send's Datatype as the trace records it: a tensor's predefined
+    type under numpy's name, as a numpy operand's reads."""
+    if dtype is None:
+        return None
+    from ..datatypes import _TORCH_TO_DATATYPE
+    for t, dt in _TORCH_TO_DATATYPE.items():
+        if dtype is dt:
+            return (f"<Datatype {dtype_name(t)} size={dt.size_bytes} "
+                    f"extent={dt.extent_bytes}>")
+    return str(dtype)
+
+
 def record_collective(comm: Any, opname: str,
                       sig: Optional[dict] = None) -> Optional[Event]:
     """One collective entry on this rank; ``sig`` carries the cross-rank-
@@ -253,7 +275,7 @@ def record_collective(comm: Any, opname: str,
     extra = {k: list(sig[k]) for k in ("scounts", "rcounts") if k in sig}
     ev = Event("coll", wrank, op=str(opname), cid=comm.cid,
                grp=tuple(comm.group), root=sig.get("root"),
-               dtype=sig.get("dtype"), count=sig.get("count"),
+               dtype=dtype_name(sig.get("dtype")), count=sig.get("count"),
                algo=sig.get("algo"), bufid=sig.get("bufid"),
                handle=ptag[0] if ptag else None,
                round=ptag[1] if ptag else None,
@@ -275,7 +297,7 @@ def record_send(comm: Any, dest: int, tag: Any, count: Any, dtype: Any,
     f, ln = call_site()
     ev = Event("send", wrank, op=op, cid=comm.cid, peer=peer,
                tag=tag if isinstance(tag, tuple) else int(tag),
-               count=count, dtype=str(dtype) if dtype is not None else None,
+               count=count, dtype=_datatype_name(dtype),
                bufid=buf_id(buf), file=f, line=ln)
     return tr.record(ev)
 
@@ -366,6 +388,21 @@ def clear_blocked(ctx: Any, ev: Optional[Event]) -> None:
 # ---------------------------------------------------------------------------
 
 def _buf_crc(buf: Any) -> Optional[int]:
+    """crc32 of an Isend buffer's bytes as they stand, or None for a
+    payload numpy cannot read. A tensor (or a DeviceBuffer's) is read where
+    it lies: detached, bfloat16 as its raw bits, a CUDA tensor through one
+    device-to-host copy; the crc is what numpy's bytes of the same values
+    give."""
+    import torch
+
+    from ..buffers import DeviceBuffer
+    if isinstance(buf, DeviceBuffer):
+        buf = buf.value
+    if isinstance(buf, torch.Tensor):
+        t = buf.detach().resolve_conj().resolve_neg()
+        if t.device.type != "cpu":
+            t = t.cpu()
+        return zlib.crc32(t.contiguous().reshape(-1).view(torch.uint8).numpy())
     try:
         import numpy as np
         arr = np.ascontiguousarray(np.asarray(buf))
