@@ -3,9 +3,10 @@
 
     python3 chip_smoke.py [--against LABEL=DIR ...]
 
-(``--against`` also times, in phase 6's turns, the ``ring_reduce_scatter``
-kernel of the tree at DIR: a checkout of an earlier commit, whose kernel
-entry takes no route argument.)
+(``--against`` also builds the ``fused_reduce.cu`` and ``ring.cu`` of the
+tree at DIR, a checkout of an earlier commit, holds its fold and
+reduce-scatter kernels bitwise to this tree's and times them in phase 6's
+turns; an entry of that tree with or without a route argument.)
 
 Needs one CUDA card (an H100 is what the port targets) and ``nvcc``; it
 imports torch, numpy and the port, never jax or tpu_mpi. Phases, each
@@ -26,25 +27,38 @@ fatal on failure:
    serve tier's steps) on float16/32/64, random and special operands
    (quiet and signalling NaNs with payloads, infinities, signed zeros),
    bit for bit with NaN payloads; non-contiguous operands must raise;
+   the fold's two routes, each forced through ``via``, at n in {1 into an
+   out, 2, 4, 5, 16, 17}, every dtype and op, counts 1, 3, 127, 4097,
+   2^20+5 on the direct route and rounded up to whole 16-byte words on
+   both, views at a 1-element offset (the direct route, chosen; the
+   staged one refused), ``out`` aliasing operand 0, float32[2^26] at n 4
+   and 17;
 4. host main path: ``spmd_run`` on 4 rank threads — Init, COMM_WORLD, a
    ``DeviceBuffer`` of float32[2^26] per rank from a numpy seed, repeated
    ``MPI.Allreduce(x, y, MPI.SUM, comm)`` (the repeats arm the auto-arm
    lane), ``Allreduce_init`` Start/Wait rounds, ``Reduce`` to root 0 — with
    every result bitwise equal to the plain fold, every tensor on cuda, the
-   fold kernel's launch count rising by at least one per operation and the
-   chained-fold count still;
+   fold kernel launched once per operation, each launch on its staged
+   route, and the chained-fold count still;
 5. in-graph path: ``xla.make_mesh({"x": 4})`` on the card, the same
    float32[2^26] per rank stacked to (4, 2^26): the DDP-shaped
    ``ring_allreduce``, the FSDP round trip ``ring_reduce_scatter`` to
    (4, 2^24) shards and ``ring_allgather`` back, and ``xla.allreduce``,
    ``xla.reduce_scatter``, ``xla.allgather`` — every result bitwise equal
    to its plain version and on cuda, every ring kernel's launch count
-   rising (every reduce-scatter on the staged route), the callable-ring
-   and chained-fold counts still;
+   rising (every reduce-scatter on the staged route), the fold launched
+   twice, both on its staged route, the callable-ring and chained-fold
+   counts still;
 6. times with CUDA events at the main paths' shapes: each kernel, its
    bound, its plain version, one PyTorch call computing the same function
    as the library yardstick (timed only; the port never calls it), a 1 GiB
    ``copy_`` bandwidth control, and the host-lane ``MPI.Allreduce`` per op;
+   the fold in turns on the host operands and on the stacked rows with
+   ``xs.sum(0)`` on the stacked (4, 2^26) tensor (its yardstick), its own
+   direct route and the ``--against`` trees' kernels, with
+   ``torch.stack(xs).sum(0)`` beside the host operands; tiny folds
+   (float32[8] x 4, float64[1] x 2) per call and per span on each route
+   that takes them;
    ``ring_reduce_scatter`` in turns with ``xs.view(n, n, per).sum(0)`` and
    with its own direct route, ``ring_allgather`` in turns with
    ``expand(n, -1).contiguous()`` and ``repeat(n, 1)``;
@@ -304,6 +318,15 @@ PARITY_NS = (2, 4, 5, 17)
 PARITY_SIZES = (1, 127, 4097)
 BIG_SIZE = (1 << 26) + 3
 BIG_NS = (4, 17)
+# the fold kernel's two routes, each forced: n = 1 folds into an out; the
+# counts are ragged (direct only) and rounded up to whole 16-byte words
+# (both routes)
+ROUTES = ("staged", "direct")
+ROUTE_NS = (1, 2, 4, 5, 16, 17)
+ROUTE_COUNTS = (1, 3, 127, 4097, (1 << 20) + 5)
+ROUTE_BIG = 1 << 26
+FOLD_TURNS = 5              # readings of each call in phase 6's fold turns
+TINY_ITERS = 200            # launches a reading of the tiny folds
 RING_NS = (2, 4, 5, 8)
 # 4198400 gives blocks of whole 16-byte words at every n and dtype, so the
 # reduce-scatter kernel takes its staged route over many tiles
@@ -629,6 +652,95 @@ def check_parity(fr, device, sizes=PARITY_SIZES, ns=PARITY_NS,
     return {"cases": cases, "max_abs_err": worst}
 
 
+def check_fold_routes(fr, device, ns=ROUTE_NS, counts=ROUTE_COUNTS,
+                      big=ROUTE_BIG) -> dict:
+    """Each route of the fold kernel, forced through the wrapper's ``via``,
+    against the plain version, bitwise (the numpy rules bit for bit): every
+    dtype and op at each n (n = 1 into an ``out``), ragged counts on the
+    direct route and the same counts rounded up to whole 16-byte words on
+    both; views at a 1-element storage offset (the direct route, chosen
+    and refused the staged one); ``out`` aliasing operand 0 on both; and
+    ``big`` float32 elements at n 4 and 17 on both. Returns the cases,
+    the largest absolute difference and the launches by route."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 2)
+    fr.reset_launches()
+    cases, worst = 0, 0.0
+
+    def one(xs, op, way, what, out=None, chosen=False):
+        """One fold on ``way``: forced, or (``chosen``) the wrapper's pick."""
+        nonlocal cases, worst
+        want = fr.fused_multi_reduce_plain(xs, op)
+        if out is not None and any(out.data_ptr() == x.data_ptr() for x in xs):
+            want = want.clone()
+        before = fr.route_launches[way]
+        got = fr.fused_multi_reduce(xs, op, out=out, via=None if chosen else way)
+        torch.cuda.synchronize()
+        if fr.route_launches[way] != before + 1:
+            raise AssertionError(f"fold on {way} not counted there: {what}")
+        if out is not None and got is not out:
+            raise AssertionError(f"fold did not fill its out: {what}")
+        if not (exact_bits if op.startswith("NUMPY") else same_bits)(got, want):
+            raise AssertionError(f"fold kernel != plain on the {way} route: {what} "
+                                 f"max_abs_err={max_abs_err(got, want)}")
+        worst = max(worst, max_abs_err(got, want))
+        cases += 1
+
+    def refuses_staged(xs, what):
+        try:
+            fr.fused_multi_reduce(xs, "SUM", out=torch.empty_like(xs[0]), via="staged")
+        except ValueError:
+            return
+        raise AssertionError(f"the staged route took {what}")
+
+    for dname in FOLD_DTYPES:
+        dtype = getattr(torch, dname)
+        ops = [op for op in ALL_OPS + NUMPY_OPS if fr.supports(op, dtype)]
+        v = 16 // dtype.itemsize
+        for n in ns:
+            for count in counts:
+                words = -(-count // v) * v
+                for size, ways in {count: ("direct",), words: ROUTES}.items():
+                    # each operand its own allocation (16-byte aligned)
+                    xs = [x.clone() for x in operands(dtype, n, size, device,
+                                                      gen).unbind(0)]
+                    if size % v:
+                        refuses_staged(xs, f"{dname} n={n} size={size}")
+                    for op in ops:
+                        for way in ways:
+                            one(xs, op, way, f"{dname} {op} n={n} size={size}",
+                                out=torch.empty_like(xs[0]))
+                # views at a 1-element offset: the direct route, chosen
+                base = operands(dtype, n + 1, count + 1, device, gen)
+                xs = [base[k, 1:] for k in range(n)]
+                if fr.route(xs, base[n, 1:]) != "direct":
+                    raise AssertionError(f"offset views staged: {dname} n={n}")
+                refuses_staged(xs, f"offset views {dname} n={n} size={count}")
+                for op in ops:
+                    one(xs, op, "direct", f"offset {dname} {op} n={n} size={count}",
+                        out=base[n, 1:], chosen=True)
+            # out aliasing operand 0 on both routes (n = 17: a chained launch)
+            for way in ROUTES:
+                for op in ("SUM", "MAX"):
+                    xs = [x.clone() for x in operands(dtype, n, 4096 * v, device,
+                                                      gen).unbind(0)]
+                    one(xs, op, way, f"{dname} {op} n={n} into operand 0",
+                        out=xs[0])
+    for n in (4, 17):
+        for size, ways in ((big, ROUTES), (big + 3, ("direct",))):
+            xs = [torch.randn(size, generator=gen, device=device) for _ in range(n)]
+            for way in ways:
+                for op in ("SUM", "NUMPY_SUM"):
+                    one(xs, op, way, f"float32 {op} n={n} size={size}",
+                        out=torch.empty_like(xs[0]))
+            del xs
+    routes = dict(fr.route_launches)
+    if min(routes.values()) < 1:
+        raise AssertionError(f"a fold route went untested: {routes}")
+    return {"cases": cases, "max_abs_err": worst, "routes": routes}
+
+
 def check_ring_parity(MPI, ring, device, ns=RING_NS, sizes=RING_SIZES) -> dict:
     """Each ring kernel against its plain version on every case; returns
     per-kernel case counts and largest absolute differences."""
@@ -922,30 +1034,115 @@ def turns(kernel, library, readings: int = 3, others: dict = None) -> dict:
 
 def reduce_scatter_from(lib, xs):
     """``ring_reduce_scatter(xs, "sum")`` through another tree's build of
-    ``ring.cu`` whose entry takes no route (the form before the staged
-    route), uncounted."""
+    ``ring.cu``, uncounted: an entry that takes no route (the form before
+    the staged route) or one that does (given the staged route, which
+    phase 5 holds the in-graph operands to)."""
     from tpu_mpi_torch.kernels import _build
     from tpu_mpi_torch.kernels.fold_ops import DTYPE_CODE, OP_CODE
     n = xs.shape[0]
     out = xs.new_empty((n, xs.shape[1] // n))
+    routed = hasattr(lib.load(), "tmt_ring_reduce_scatter_tile")
     _build.call(lib.fn("tmt_ring_reduce_scatter"), xs.device, "ring_reduce_scatter",
-                xs.data_ptr(), out.data_ptr(), n, out.shape[1],
-                DTYPE_CODE[xs.dtype], OP_CODE["SUM"])
+                xs.data_ptr(), out.data_ptr(), n, out.shape[1], DTYPE_CODE[xs.dtype],
+                OP_CODE["SUM"], *((0,) if routed else ()))
     return out
+
+
+def fold_from(lib, xs, out):
+    """``fused_multi_reduce(xs, "SUM", out=out)`` through another tree's
+    build of ``fused_reduce.cu``, uncounted: an entry that takes no route
+    (the design before the staged route) or one that does (given the route
+    this tree's wrapper picks)."""
+    import ctypes
+    from tpu_mpi_torch.kernels import _build, fused_reduce as fr
+    from tpu_mpi_torch.kernels.fold_ops import DTYPE_CODE, OP_CODE
+    routed = hasattr(lib.load(), "tmt_fused_reduce_tile")
+    ptrs = (ctypes.c_void_p * len(xs))(*[x.data_ptr() for x in xs])
+    _build.call(lib.fn("tmt_fused_reduce"), xs[0].device, "fused_multi_reduce",
+                ptrs, len(xs), out.data_ptr(), xs[0].numel(),
+                DTYPE_CODE[xs[0].dtype], OP_CODE["SUM"],
+                *((fr.ROUTES.index(fr.route(xs, out)),) if routed else ()))
+    return out
+
+
+def fold_times(fr, xl: list, xs, caps: dict, against: dict, logdir: str) -> dict:
+    """The fold at the main paths' shape, n x float32[2^26]: on the host
+    path's operands (``xl``, one tensor a rank) and on the rows of the
+    stacked (n, 2^26) tensor ``xs`` (the in-graph path's), each in turns
+    with ``xs.sum(0)`` (the same function over the same bytes in one
+    PyTorch call: the library yardstick), the kernel's own direct route and
+    other trees' kernels (``against``, each first held bitwise to this
+    tree's); ``torch.stack(xl).sum(0)`` joins the host operands' turns.
+    Then the tiny folds (the serve tier's float32[8] x 4, RMA's 8-byte
+    float64[1] x 2) per call and per device span, on each route that
+    takes them."""
+    import torch
+    n, count = xs.shape
+    out = torch.empty_like(xl[0])
+    rows = list(xs)
+    want = fr.fused_multi_reduce_plain(xl, "SUM")
+    for ops in (xl, rows):
+        if fr.route(ops, out) != "staged":
+            raise AssertionError("the main paths' fold operands would not stage")
+        if not same_bits(fr.fused_multi_reduce(ops, "SUM", out=out), want):
+            raise AssertionError("the fold at the main paths' shape != plain")
+        for label, lib in against.items():
+            if not same_bits(fold_from(lib["fold"], ops, out), want):
+                raise AssertionError(f"fused_multi_reduce of {label} != this tree's")
+    del want
+
+    def kernel(ops, way=None):
+        return lambda: fr.fused_multi_reduce(ops, "SUM", out=out, via=way)
+
+    def others(ops):
+        return {"direct": kernel(ops, "direct"),
+                **{label: (lambda lib=lib: fold_from(lib["fold"], ops, out))
+                   for label, lib in against.items()}}
+
+    res = turns(kernel(xl), lambda: xs.sum(0), readings=FOLD_TURNS,
+                others={**others(xl), "stack_sum": lambda: torch.stack(xl).sum(0)})
+    res["rows"] = turns(kernel(rows), lambda: xs.sum(0), readings=FOLD_TURNS,
+                        others=others(rows))
+    res["plain_ms"] = time_ms(lambda: fr.fused_multi_reduce_plain(xl, "SUM"))
+    res["bound"] = bound((n + 1) * count * xs.element_size(), (n - 1) * count, caps)
+    res["staged_tile"] = fr.staged_tile(n, xs.dtype)
+    gen = torch.Generator(device=xs.device)
+    gen.manual_seed(SEED + 3)
+    res["tiny"] = {}
+    for name, dtype, m, size in (("serve float32[8] x 4", torch.float32, 4, 8),
+                                 ("rma float64[1] x 2", torch.float64, 2, 1)):
+        ops = [torch.randn(size, generator=gen, device=xs.device, dtype=dtype)
+               for _ in range(m)]
+        o = torch.empty_like(ops[0])
+        ways = [w for w in ROUTES if w == "direct" or fr.route(ops, o) == w]
+        calls = {w: (lambda w=w: fr.fused_multi_reduce(ops, "SUM", out=o, via=w))
+                 for w in ways}
+        got = {w: [] for w in ways}
+        for i in range(3):
+            for w in (ways if i % 2 == 0 else ways[::-1]):
+                got[w].append(time_ms(calls[w], iters=TINY_ITERS))
+        entry = {"chosen": fr.route(ops, o)}
+        for w in ways:
+            entry[f"{w}_ms"] = float(np.median(got[w]))
+            entry[f"{w}_ms_turns"] = got[w]
+            entry[f"{w}_span_ms"] = kernel_span_ms(calls[w], f"fused_fold_kernel_{w}",
+                                                   logdir, iters=50)
+        res["tiny"][name] = entry
+    return res
 
 
 def ring_times(ring, xs, shards, caps: dict, against: dict) -> dict:
     """Each ring kernel at the in-graph path's shapes: kernel, plain and
     library times (ms) and the bound. ``xs`` is (n, count) float32,
     ``shards`` (n, count / n). ``against`` maps a label to another tree's
-    ``ring.cu`` library, whose reduce-scatter kernel joins the turns
+    libraries, whose reduce-scatter kernel (``ring.cu``) joins the turns
     (after a bitwise check against this tree's)."""
     n, count = xs.shape
     size = xs.element_size()
     per = count // n
     want = ring.ring_reduce_scatter(xs, "sum")
     for label, lib in against.items():
-        if not same_bits(reduce_scatter_from(lib, xs), want):
+        if not same_bits(reduce_scatter_from(lib["ring"], xs), want):
             raise AssertionError(f"ring_reduce_scatter of {label} != this tree's")
     del want
     return {
@@ -968,7 +1165,7 @@ def ring_times(ring, xs, shards, caps: dict, against: dict) -> dict:
                     lambda: xs.view(n, n, per).sum(0),
                     others={"direct": lambda: ring._reduce_scatter_kernel(
                         xs, "SUM", per, via="direct"),
-                        **{label: (lambda lib=lib: reduce_scatter_from(lib, xs))
+                        **{label: (lambda lib=lib: reduce_scatter_from(lib["ring"], xs))
                            for label, lib in against.items()}}),
             "staged_tile": ring.staged_tile(n, xs.dtype),
             "plain_ms": time_ms(lambda: ring.ring_reduce_scatter_plain(
@@ -5090,25 +5287,37 @@ def analysis_phase(MPI, fr, collective, host: list, device, where: str,
     return out
 
 
-def against_libraries(ring, _build, specs: list) -> dict:
-    """``--against LABEL=DIR``: LABEL -> the reduce-scatter entry of the
-    ``ring.cu`` of the tree at DIR (a checkout of another commit), built
-    beside this tree's kernels."""
+def against_libraries(_build, specs: list) -> dict:
+    """``--against LABEL=DIR``: LABEL -> {"ring": the ``ring.cu``, "fold":
+    the ``fused_reduce.cu``} of the tree at DIR (a checkout of another
+    commit), built beside this tree's kernels. Each entry is typed with or
+    without a route argument, as that tree has one."""
     import ctypes
     from pathlib import Path
+    p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
 
-    def bind(lib):
-        p, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
-        lib.tmt_ring_reduce_scatter.argtypes = [p, p, i, i64, i, i, p]
+    def bind_ring(lib):
+        route = [i] if hasattr(lib, "tmt_ring_reduce_scatter_tile") else []
+        lib.tmt_ring_reduce_scatter.argtypes = [p, p, i, i64, i, i, *route, p]
         lib.tmt_ring_reduce_scatter.restype = ctypes.c_int
+
+    def bind_fold(lib):
+        route = [i] if hasattr(lib, "tmt_fused_reduce_tile") else []
+        lib.tmt_fused_reduce.argtypes = [ctypes.POINTER(p), i, p, i64, i, i,
+                                         *route, p]
+        lib.tmt_fused_reduce.restype = ctypes.c_int
 
     libs = {}
     for spec in specs:
         label, _, tree = spec.partition("=")
-        source = Path(tree).resolve() / "tpu_mpi_torch" / "csrc" / "ring.cu"
-        if not label or not source.exists():
-            raise SystemExit(f"chip_smoke: --against LABEL=DIR, no {source}")
-        libs[label] = _build.Library(f"ring_{label}", source, bind)
+        csrc = Path(tree).resolve() / "tpu_mpi_torch" / "csrc"
+        sources = (csrc / "ring.cu", csrc / "fused_reduce.cu")
+        if not label or not all(src.exists() for src in sources):
+            raise SystemExit(f"chip_smoke: --against LABEL=DIR, no {csrc}/"
+                             f"ring.cu and fused_reduce.cu")
+        libs[label] = {"ring": _build.Library(f"ring_{label}", sources[0], bind_ring),
+                       "fold": _build.Library(f"fused_reduce_{label}", sources[1],
+                                              bind_fold)}
     return libs
 
 
@@ -5117,8 +5326,9 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--against", action="append", default=[], metavar="LABEL=DIR",
-        help="also time the ring_reduce_scatter kernel of the tree at DIR "
-             "(a checkout of another commit) in phase 6's turns")
+        help="also time the fused_multi_reduce and ring_reduce_scatter "
+             "kernels of the tree at DIR (a checkout of another commit) in "
+             "phase 6's turns")
     args = parser.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -5150,9 +5360,10 @@ def main() -> int:
     where = f"[{card}]"
 
     t0 = time.perf_counter()
-    against = against_libraries(ring, _build, args.against)
+    against = against_libraries(_build, args.against)
     libs = (fr.LIBRARY, ring.LIBRARY, permute.LIBRARY, attention.LIBRARY,
-            attention.LIBRARY_SM90, *against.values())
+            attention.LIBRARY_SM90, *(lib for tree in against.values()
+                                      for lib in tree.values()))
     built = _build.build_all(libs)
     for lib in libs:
         lib.load()
@@ -5163,6 +5374,12 @@ def main() -> int:
     parity = check_parity(fr, device)
     log(f"fused fold kernel == plain, bitwise, on {parity['cases']} cases "
         f"({time.perf_counter() - t0:.1f} s)")
+    t0 = time.perf_counter()
+    fold_routes = check_fold_routes(fr, device)
+    log(f"fused fold kernel == plain, bitwise, on both routes forced "
+        f"({fold_routes['cases']} cases: ragged and whole-word counts, offset "
+        f"views, out aliasing operand 0, n up to 17), launches by route "
+        f"{fold_routes['routes']} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     ring_parity = check_ring_parity(MPI, ring, device)
     log(f"ring kernels == plain, bitwise, on {ring_parity['cases']} cases, "
@@ -5178,13 +5395,16 @@ def main() -> int:
     t0 = time.perf_counter()
     path = main_path(MPI, host, device)
     launches, chained = fr.launches, collective.chained_folds
+    main_routes = dict(fr.route_launches)
     log(f"host main path: {path['ops']} collectives on {NRANKS} rank threads in "
-        f"{time.perf_counter() - t0:.1f} s; fold kernel launches {launches}, "
-        f"chained folds {chained}, auto-armed hits "
+        f"{time.perf_counter() - t0:.1f} s; fold kernel launches {launches} by "
+        f"route {main_routes}, chained folds {chained}, auto-armed hits "
         f"{collective._plans.auto_hits - auto_hits0}")
-    if launches < path["ops"]:
+    if launches != path["ops"]:
         raise AssertionError(f"{launches} kernel launches for {path['ops']} "
                              f"collectives")
+    if main_routes["staged"] != launches:
+        raise AssertionError(f"a host-path fold left the staged route: {main_routes}")
     if chained != 0:
         raise AssertionError(f"{chained} folds left the kernel")
     if collective._plans.auto_hits == auto_hits0:
@@ -5200,13 +5420,17 @@ def main() -> int:
     graph = ingraph_path(MPI, xla, xs)
     graph_folds, graph_rings = fr.launches, dict(ring.launches)
     graph_routes = dict(ring.route_launches)
+    graph_fold_routes = dict(fr.route_launches)
     callables, chained = ring.callable_rings, collective.chained_folds
     log(f"in-graph path on {mesh}: {len(graph)} calls in "
         f"{time.perf_counter() - t0:.2f} s; ring launches {graph_rings}, fold "
-        f"launches {graph_folds}, callable rings {callables}, chained folds "
-        f"{chained}")
-    if min(graph_rings.values()) < 1 or graph_folds < 2:
-        raise AssertionError("the in-graph path did not launch every kernel")
+        f"launches {graph_folds} by route {graph_fold_routes}, callable rings "
+        f"{callables}, chained folds {chained}")
+    if min(graph_rings.values()) < 1 or graph_folds != 2:
+        raise AssertionError("the in-graph path did not launch every kernel once")
+    if graph_fold_routes["staged"] != graph_folds:
+        raise AssertionError(f"an in-graph fold left the staged route: "
+                             f"{graph_fold_routes}")
     if graph_routes["staged"] != graph_rings["ring_reduce_scatter"]:
         raise AssertionError(f"an in-graph reduce-scatter left the staged route: "
                              f"{graph_routes}")
@@ -5224,32 +5448,43 @@ def main() -> int:
     copy_ms = time_ms(lambda: dst.copy_(src))
     copy_gbps = 2 * gib / (copy_ms * 1e-3) / 1e9
     del src, dst
+    logdir = str(_build.BUILD_DIR / "traces")
     # the host path's operands, one tensor per rank; the in-graph path
     # folds the rows of the stacked tensor instead
     xl = [torch.from_numpy(h).to(device) for h in host]
-    out = torch.empty_like(xl[0])
-    err = max_abs_err(fr.fused_multi_reduce(xl, "SUM"),
-                      fr.fused_multi_reduce_plain(xl, "SUM"))
-    kern_ms = time_ms(lambda: fr.fused_multi_reduce(xl, "SUM", out=out))
-    rows = list(xs)
-    rows_ms = time_ms(lambda: fr.fused_multi_reduce(rows, "SUM", out=out))
-    plain_ms = time_ms(lambda: fr.fused_multi_reduce_plain(xl, "SUM"))
-    lib_ms = time_ms(lambda: torch.stack(xl).sum(0))
-    nbytes = (len(xl) + 1) * xl[0].numel() * xl[0].element_size()
-    bound_ms, bound_by = bound(nbytes, (len(xl) - 1) * xl[0].numel(), caps)
+    fold = fold_times(fr, xl, xs, caps, against, logdir)
+    kern_ms, plain_ms, lib_ms = fold["ms"], fold["plain_ms"], fold["library_ms"]
+    bound_ms, bound_by = fold["bound"]
+    nbytes = (NRANKS + 1) * N_MAIN * xl[0].element_size()
     rings = ring_times(ring, xs, shards, caps, against)
-    del xl, rows, out, xs, shards
+    del xl, xs, shards
     host_ms = host_lane_ms(MPI, host, device)
     algbw = N_MAIN * 4 / (host_ms * 1e-3) / 1e9
-    logdir = str(_build.BUILD_DIR / "traces")
     prof = host_lane_profile(MPI, host, device, logdir)
     log(f"1 GiB copy_ {copy_ms:.4f} ms = {copy_gbps:.1f} GB/s read+write {where}")
-    log(f"fold 4 x float32[2^26]: kernel {kern_ms:.4f} ms "
-        f"({nbytes / (kern_ms * 1e-3) / 1e9:.1f} GB/s, "
-        f"{nbytes / (kern_ms * 1e-3) / 1e9 / copy_gbps:.3f} of the copy), bound "
-        f"{bound_ms:.4f} ms (bytes at the {caps['hbm_gbps']:.0f} GB/s spec), plain "
-        f"{plain_ms:.4f} ms, torch.stack(xs).sum(0) {lib_ms:.4f} ms; on the rows "
-        f"of the stacked (4, 2^26) tensor {rows_ms:.4f} ms {where}")
+    log(f"fold 4 x float32[2^26] (staged tile {fold['staged_tile']} elements): "
+        f"kernel {kern_ms:.4f} ms ({nbytes / (kern_ms * 1e-3) / 1e9:.1f} GB/s, "
+        f"{nbytes / (kern_ms * 1e-3) / 1e9 / copy_gbps:.3f} of the copy, "
+        f"{bound_ms / kern_ms:.3f} of the bound), bound {bound_ms:.4f} ms (bytes at "
+        f"the {caps['hbm_gbps']:.0f} GB/s spec), plain {plain_ms:.4f} ms, xs.sum(0) "
+        f"on the stacked tensor {lib_ms:.4f} ms, torch.stack(xs).sum(0) "
+        f"{fold['stack_sum_ms']:.4f} ms {where}")
+    for what, t in (("host operands", fold), ("stacked rows", fold["rows"])):
+        log(f"fold on the {what} in turns: kernel {t['ms_turns']} ms, xs.sum(0) "
+            f"{t['library_ms_turns']} ms"
+            + "".join(f", {label} {t[label + '_ms_turns']} ms"
+                      for label in ("direct", *against, "stack_sum")
+                      if label + "_ms_turns" in t)
+            + f"; medians kernel {t['ms']:.4f}, xs.sum(0) {t['library_ms']:.4f}"
+            + "".join(f", {label} {t[label + '_ms']:.4f}"
+                      for label in ("direct", *against) if label + "_ms" in t)
+            + f" ms {where}")
+    for name, t in fold["tiny"].items():
+        log(f"fold {name} (the wrapper picks {t['chosen']}): "
+            + "; ".join(f"{w} {t[w + '_ms']:.4f} ms per call {t[w + '_ms_turns']}, "
+                        f"span {t[w + '_span_ms']:.4f} ms"
+                        for w in ROUTES if w + "_ms" in t)
+            + f" {where}")
     for name, t in rings.items():
         gbps = t["bound"][0] * caps["hbm_gbps"] / t["ms"]
         log(f"{name} at the in-graph shapes: kernel {t['ms']:.4f} ms ({gbps:.1f} "
@@ -5286,16 +5521,25 @@ def main() -> int:
         "source": str(fr.SOURCE.relative_to(repo)),
         "replaces": fr.REPLACES,
         "launches": launches,
-        "max_abs_err": max(err, parity["max_abs_err"], graph_err),
+        "max_abs_err": max(parity["max_abs_err"], fold_routes["max_abs_err"],
+                           graph_err),   # phase 6's folds are held bitwise too
         "ms": kern_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": bound_by,
         "library_ms": lib_ms,
+        "library_call": "xs.sum(0) on the stacked (4, 2^26) tensor",
         "parity": "bitwise",
-        "parity_cases": parity["cases"],
+        "parity_cases": parity["cases"] + fold_routes["cases"],
+        "parity_launches_by_route": fold_routes["routes"],
+        "launches_by_route": {"host": main_routes, "ingraph": graph_fold_routes},
         "ingraph_launches": graph_folds,
-        "ingraph_rows_ms": rows_ms,
+        "ingraph_rows_ms": fold["rows"]["ms"],
+        "staged_tile": fold["staged_tile"],
+        **{k: v for k, v in fold.items() if k.endswith("_turns")
+           or k in ("direct_ms", "stack_sum_ms", "rows", "tiny")
+           or k.removesuffix("_ms") in against},
+        "stack_sum_call": "torch.stack(xs).sum(0)",
         "copy_gbps": copy_gbps,
         "host_lane_ms": host_ms,
         "host_lane_algbw_gbps": algbw,

@@ -131,3 +131,88 @@ def test_library_path_keyed_by_source():
     p = fr.LIBRARY.path()
     assert p.parent == _build.BUILD_DIR and p.name.startswith("fused_reduce-")
     assert fr.LIBRARY.path() == p
+
+
+# ---------------------------------------------------------------------------
+# The kernel's route, chosen up front from pointers and sizes (plain Python,
+# so it is checked here; the card tests force each route and hold both to
+# the plain fold)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("n", [1, 2, 4, 16, 17])
+def test_route_stages_aligned_tensors_at_any_n(n):
+    xs = [torch.zeros(1024) for _ in range(n)]
+    assert fr.route(xs, torch.empty(1024)) == "staged"
+    # the in-graph path's operands: the rows of one stacked tensor
+    rows = torch.zeros(n, 1024)
+    assert fr.route(list(rows), torch.empty(1024)) == "staged"
+    # out may be operand 0 itself (the RMA accumulate, a chained launch)
+    assert fr.route(xs, xs[0]) == "staged"
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_route_views_at_an_offset_go_direct(offset):
+    base = torch.zeros(4, 1024 + 4)
+    xs = [base[k, offset:offset + 1024] for k in range(4)]
+    assert all(x.is_contiguous() for x in xs)
+    assert fr.route(xs, torch.empty(1024)) == "direct"
+    # one misaligned operand among aligned ones, or a misaligned out
+    aligned = [torch.zeros(1024) for _ in range(3)]
+    assert fr.route(aligned + xs[:1], torch.empty(1024)) == "direct"
+    assert fr.route(aligned, base[0, offset:offset + 1024]) == "direct"
+
+
+@pytest.mark.parametrize("dtype,count,want", [
+    (torch.float32, 8, "staged"),        # the serve tier's float32[8]
+    (torch.float32, 4, "staged"),
+    (torch.float32, 1027, "direct"),     # a ragged tail of 12 bytes
+    (torch.float32, 1, "direct"),
+    (torch.float64, 1, "direct"),        # RMA's 8-byte Fetch_and_op
+    (torch.float64, 2, "staged"),
+    (torch.int8, 16, "staged"),
+    (torch.int8, 17, "direct"),
+    (torch.bool, 4097, "direct"),
+    (torch.float16, 4096, "staged"),
+])
+def test_route_whole_words_or_direct(dtype, count, want):
+    xs = [torch.zeros(count, dtype=dtype) for _ in range(3)]
+    assert fr.route(xs, torch.empty(count, dtype=dtype)) == want
+
+
+def test_more_than_16_operands_fold_left_on_cpu():
+    # 2^24 + 1 rounds back to 2^24 in float32, so only the left fold of
+    # 2^24 and sixteen ones ends at 2^24 (any other order keeps some ones)
+    xs = [torch.ones(5) for _ in range(17)]
+    xs[0][0] = 2.0 ** 24
+    got = fr.fused_multi_reduce(xs, "SUM")
+    assert torch.equal(got, fr.fused_multi_reduce_plain(xs, "SUM"))
+    assert got[0].item() == 2.0 ** 24 and got[1].item() == 17.0
+
+
+def test_out_may_be_operand_0_on_cpu():
+    xs = [torch.arange(6, dtype=torch.int32) + i for i in range(3)]
+    want = fr.fused_multi_reduce_plain(xs, "SUM")
+    assert fr.fused_multi_reduce(xs, "SUM", out=xs[0]) is xs[0]
+    assert torch.equal(xs[0], want)
+
+
+@pytest.mark.parametrize("window", ["shifted out", "shifted operand"])
+def test_partially_overlapping_out_is_refused(window):
+    base = torch.zeros(10)
+    if window == "shifted out":
+        xs, out = [base[:8], torch.zeros(8)], base[1:9]
+    else:
+        xs, out = [torch.zeros(8), base[2:10]], base[:8]
+    with pytest.raises(ValueError, match="partially overlaps"):
+        fr.fused_multi_reduce(xs, "SUM", out=out)
+
+
+def test_unknown_route_is_refused_and_counts_reset():
+    with pytest.raises(ValueError, match="no route"):
+        fr.fused_multi_reduce([torch.zeros(4), torch.zeros(4)], "SUM", via="fast")
+    before = dict(fr.route_launches)
+    fr.fused_multi_reduce([torch.zeros(4), torch.zeros(4)], "SUM", via="direct")
+    assert fr.route_launches == before          # the plain fold is no launch
+    fr.reset_launches()
+    assert fr.launches == 0 and set(fr.route_launches.values()) == {0}
+    assert tuple(fr.route_launches) == fr.ROUTES == ("staged", "direct")

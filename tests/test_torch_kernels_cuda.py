@@ -55,6 +55,176 @@ def test_kernel_rejects_non_contiguous_on_card():
         fr.fused_multi_reduce([x[::2], x[1::2]], "SUM")
 
 
+# ---------------------------------------------------------------------------
+# The fold kernel's two routes, each forced through the wrapper's ``via``
+# ---------------------------------------------------------------------------
+
+_FOLD_DTYPES = [torch.float32, torch.float64, torch.float16, torch.bfloat16,
+                torch.int8, torch.int16, torch.int32, torch.int64, torch.uint8,
+                torch.uint16, torch.uint32, torch.uint64, torch.bool]
+_FOLD_OPS = ("SUM", "PROD", "MAX", "MIN", "BAND", "BOR", "BXOR",
+             "NUMPY_SUM", "NUMPY_PROD", "NUMPY_MAX", "NUMPY_MIN")
+_ROUTE_COUNTS = (1, 3, 127, 4097, (1 << 20) + 5)
+
+
+def _draw(dtype, shape, dev, gen):
+    """Normal floats, 0/1 bools, and random bytes for every integer type
+    (so SUM and PROD wrap and the unsigned types reach their top bit)."""
+    if dtype.is_floating_point:
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+    if dtype == torch.bool:
+        return torch.randint(0, 2, shape, generator=gen, device=dev).bool()
+    width = torch.empty((), dtype=dtype).element_size()
+    return torch.randint(0, 256, (*shape[:-1], shape[-1] * width), generator=gen,
+                         device=dev, dtype=torch.uint8).view(dtype)
+
+
+def _same_bits(got, want, exact=False):
+    """Bit for bit; floats under the predefined ops by NaN position and the
+    bits of every other element (``exact``: NaN payloads too)."""
+    if got.shape != want.shape or got.dtype != want.dtype:
+        return False
+    if got.dtype.is_floating_point and not exact:
+        nan = torch.isnan(want)
+        if not torch.equal(torch.isnan(got), nan):
+            return False
+        got, want = got[~nan], want[~nan]
+    return torch.equal(got.contiguous().view(torch.uint8),
+                       want.contiguous().view(torch.uint8))
+
+
+def _fold_via(xs, op, way, out=None):
+    """One forced-route call: its result, after checking it was counted once
+    on that route."""
+    before, routes = fr.launches, dict(fr.route_launches)
+    got = fr.fused_multi_reduce(xs, op, out=out, via=way)
+    torch.cuda.synchronize()
+    assert fr.launches == before + 1
+    assert fr.route_launches[way] == routes[way] + 1
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [1, 2, 4, 5, 16, 17])
+@pytest.mark.parametrize("dtype", _FOLD_DTYPES, ids=str)
+def test_fold_routes_match_plain_on_card(dtype, n):
+    """Both routes, forced, bitwise against the plain fold, for every op the
+    kernel takes on the dtype: the ragged counts on the direct route (the
+    staged route refuses them), the same counts rounded up to whole 16-byte
+    words on both. n = 1 folds into an ``out`` (the persistent lane's copy);
+    n = 17 is a chained launch."""
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(15 + n)
+    v = 16 // dtype.itemsize
+    ops = [op for op in _FOLD_OPS if fr.supports(op, dtype)]
+    for count in _ROUTE_COUNTS:
+        words = -(-count // v) * v
+        sizes = {count: ("direct",), words: ("staged", "direct")}
+        for size, ways in sizes.items():
+            xs = [_draw(dtype, (size,), dev, gen) for _ in range(n)]
+            if size % v:
+                with pytest.raises(ValueError, match="staged route"):
+                    fr.fused_multi_reduce(xs, "SUM", out=torch.empty_like(xs[0]),
+                                          via="staged")
+            for op in ops:
+                want = fr.fused_multi_reduce_plain(xs, op)
+                for way in ways:
+                    out = torch.empty_like(xs[0])
+                    got = _fold_via(xs, op, way, out=out)
+                    assert got is out
+                    assert _same_bits(got, want, op.startswith("NUMPY")), \
+                        (dtype, op, n, size, way)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", _FOLD_DTYPES, ids=str)
+def test_fold_offset_views_take_the_direct_route_on_card(dtype):
+    """Operands and out that are views at a 1-element storage offset take
+    the direct route on their own, refuse the staged one, and fold bitwise
+    as the plain version does."""
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(16)
+    ops = [op for op in _FOLD_OPS if fr.supports(op, dtype)]
+    for n in (2, 5, 17):
+        for count in (127, 4097, (1 << 20) + 5):
+            base = _draw(dtype, (n + 1, count + 1), dev, gen)
+            xs = [base[k, 1:] for k in range(n)]
+            assert fr.route(xs, torch.empty_like(xs[0])) == "direct"
+            with pytest.raises(ValueError, match="staged route"):
+                fr.fused_multi_reduce(xs, "SUM", via="staged")
+            for op in ops:
+                want = fr.fused_multi_reduce_plain(xs, op)
+                routes = dict(fr.route_launches)
+                got = fr.fused_multi_reduce(xs, op, out=base[n, 1:])
+                torch.cuda.synchronize()
+                assert fr.route_launches["direct"] == routes["direct"] + 1
+                assert _same_bits(got, want, op.startswith("NUMPY")), (dtype, op, n, count)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("way", ["staged", "direct"])
+@pytest.mark.parametrize("n", [1, 2, 4, 16, 17])
+def test_fold_into_operand_0_on_card(n, way):
+    """``out`` aliasing operand 0 (the RMA accumulate in place, the
+    accumulator of a chained launch) on each route, bitwise."""
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(17)
+    counts = ((1 << 20) + 16, 4096) + (((1 << 20) + 5, 3) if way == "direct" else ())
+    for dtype in (torch.float32, torch.float16, torch.int64, torch.bool):
+        for count in counts:
+            for op in ("SUM", "MAX"):
+                xs = [_draw(dtype, (count,), dev, gen) for _ in range(n)]
+                want = fr.fused_multi_reduce_plain(xs, op).clone()
+                got = _fold_via(xs, op, way, out=xs[0])
+                assert got is xs[0] and _same_bits(got, want), (dtype, count, op)
+
+
+_NAN_BITS = {   # a signalling NaN with a payload, then a quiet negative one
+    "float16": (0x7C05, 0xFE34, 0x0200),
+    "float32": (0x7F800005, 0xFFC05678, 0x00400000),
+    "float64": (0x7FF0000000000005, 0xFFF8000000005678, 0x0008000000000000),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("way", ["staged", "direct"])
+@pytest.mark.parametrize("dtype", ["float16", "float32", "float64"])
+def test_numpy_rule_nan_payloads_of_two_ranks_on_card(dtype, way):
+    """Ranks 1 and 2 of 4 hold NaNs with payloads at every element. Every
+    NUMPY_* step gives the plain version's bits, NaN payload and all: rank
+    1's payload survives (quieted by SUM/PROD), as the accumulator-first
+    step order gives it, except float16 SUM/PROD, where numpy's half loop
+    keeps the later operand's (rank 2's)."""
+    import numpy as np
+    dev = _card()
+    tdt = getattr(torch, dtype)
+    first, second, quiet = _NAN_BITS[dtype]
+    sint = {2: torch.int16, 4: torch.int32, 8: torch.int64}[tdt.itemsize]
+    ubits = np.dtype(f"u{tdt.itemsize}")
+
+    def nan_tensor(bits, count):
+        raw = np.full(count, bits, ubits).view(np.dtype(dtype))
+        return torch.from_numpy(raw).to(dev)
+
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(18)
+    for count in (4096, 8, (1 << 20) + 8):
+        xs = [_draw(tdt, (count,), dev, gen), nan_tensor(first, count),
+              nan_tensor(second, count), _draw(tdt, (count,), dev, gen)]
+        for op in ("NUMPY_SUM", "NUMPY_PROD", "NUMPY_MAX", "NUMPY_MIN"):
+            want = fr.fused_multi_reduce_plain(xs, op)
+            got = _fold_via(xs, op, way)
+            assert _same_bits(got, want, exact=True), (op, count)
+            later = dtype == "float16" and op in ("NUMPY_SUM", "NUMPY_PROD")
+            kept = second if later else first
+            bits = got.view(sint).cpu().numpy().view(ubits)
+            want_bits = np.array(kept | quiet, ubits)
+            assert ((bits | np.array(quiet, ubits)) == want_bits).all(), (op, count)
+
+
 @pytest.mark.cuda
 def test_allreduce_main_path_on_card():
     import numpy as np

@@ -19,8 +19,9 @@
 // for the serve tier only (below).
 //
 // Also here: the dtype/op codes of the C interfaces, the launch-size rule,
-// and dispatch<L>(dtype, op, ...), which calls L<T, OP>::run(...) for the
-// (type, op) pair the codes name, or returns TMT_EBADARG.
+// the word types of 16-byte accesses, and dispatch<L>(dtype, op, ...),
+// which calls L<T, OP>::run(...) for the (type, op) pair the codes name, or
+// returns TMT_EBADARG.
 
 #pragma once
 
@@ -267,6 +268,16 @@ static int grid_for(int64_t items, int threads) {
   int64_t cap = (int64_t)sms * 16;
   if (blocks > cap) blocks = cap;
   return (int)(blocks < 1 ? 1 : blocks);
+}
+
+// ---- words -----------------------------------------------------------------------
+
+// V consecutive elements moved as one access of sizeof(T) * V bytes.
+template <typename T, int V>
+struct alignas(sizeof(T) * V) Vec { T v[V]; };
+
+static bool aligned(const void* p, int bytes) {
+  return ((uintptr_t)p % (uintptr_t)bytes) == 0;
 }
 
 // ---- word width of a byte copy -------------------------------------------------

@@ -43,14 +43,6 @@
 #include "fold_ops.cuh"
 #include "mbarrier.cuh"
 
-// V consecutive elements moved as one access of sizeof(T) * V bytes.
-template <typename T, int V>
-struct alignas(sizeof(T) * V) Vec { T v[V]; };
-
-static bool aligned(const void* p, int bytes) {
-  return ((uintptr_t)p % (uintptr_t)bytes) == 0;
-}
-
 static const int kThreads = 256;
 
 // ---- allreduce -----------------------------------------------------------------
@@ -124,27 +116,7 @@ struct AllreduceLaunch {
 
 namespace rs {
 
-const int kSliceBudget = 24 * 1024;    // shared bytes of one tile's n slices
-const int kMinSlice = 1024;
 const int kDirectGroups = 4;           // V-groups a thread takes per direct tile
-
-// One 1-D bulk asynchronous copy of `bytes` (a multiple of 16; both addresses
-// 16-byte aligned) from global to shared memory, completed on the mbarrier
-// `bar` by its byte count.
-__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_t bytes,
-                                          uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1], %2, [%3];\n"
-      :: "r"(dst), "l"(src), "r"(bytes), "r"(bar) : "memory");
-}
-
-// A 16-byte store that streams past the caches (st.global.cs).
-template <typename W>
-__device__ __forceinline__ void store_streaming(W* p, const W& w) {
-  static_assert(sizeof(W) == 16, "one 16-byte word");
-  __stcs(reinterpret_cast<uint4*>(p), *reinterpret_cast<const uint4*>(&w));
-}
 
 // Tile t: output block c, its first element e0, and its length.
 struct Tile {
@@ -223,13 +195,6 @@ direct_kernel(const T* __restrict__ x, T* __restrict__ out, int n, int64_t per,
     }
     *reinterpret_cast<W*>(o + e) = acc;
   }
-}
-
-// Bytes of one rank's slice of a staged tile for n ranks (a multiple of 1
-// KiB), or 0 when even kMinSlice bytes cannot be staged.
-static int64_t staged_slice(int n) {
-  const int64_t b = ((int64_t)kSliceBudget / n) & ~(int64_t)1023;
-  return b >= kMinSlice ? b : 0;
 }
 
 template <typename T, int OP>
@@ -325,7 +290,7 @@ extern "C" int tmt_ring_reduce_scatter(const void* x, void* out, int n, int64_t 
 // words).
 extern "C" int64_t tmt_ring_reduce_scatter_tile(int n, int itemsize) {
   if (n < 1 || itemsize < 1 || 16 % itemsize) return 0;
-  return rs::staged_slice(n) / itemsize;
+  return staged_slice(n) / itemsize;
 }
 
 extern "C" int tmt_ring_allgather(const void* x, void* out, int n, int64_t nbytes,
