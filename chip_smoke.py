@@ -31,7 +31,8 @@ fatal on failure:
    out, 2, 4, 5, 16, 17}, every dtype and op, counts 1, 3, 127, 4097,
    2^20+5 on the direct route and rounded up to whole 16-byte words on
    both, views at a 1-element offset (the direct route, chosen; the
-   staged one refused), ``out`` aliasing operand 0, float32[2^26] at n 4
+   staged one refused), ``out`` aliasing operand 0, ``out`` aliasing each
+   operand k of 17 (float32 and int64, SUM and MAX), float32[2^26] at n 4
    and 17;
 4. host main path: ``spmd_run`` on 4 rank threads — Init, COMM_WORLD, a
    ``DeviceBuffer`` of float32[2^26] per rank from a numpy seed, repeated
@@ -157,7 +158,10 @@ fatal on failure:
    float32 Accumulate one origin per epoch against the plain fold, 1000
    ``Fetch_and_op`` SUMs a rank on rank 0's int64 counter (4000, every
    fetched value once), the dynamic window of test_fetch_and_op_dynamic on
-   raw CUDA tensors: all bitwise, one fold launch per CUDA accumulate and
+   raw CUDA tensors, and on raw CUDA tensors each rank's Accumulate SUM,
+   Get_accumulate REPLACE, Put and Get of 2^24 elements whose origin
+   overlaps the target range at displacement 2, each against plain PyTorch
+   on a copy: all bitwise, one fold launch per CUDA accumulate and
    none chained; then ms per Put and Get epoch against the bytes bound, us
    per 8-byte Put, Get and Fetch_and_op, ms per 8-byte Put into a 256 MiB
    DeviceBuffer window (the cell copies on write); (b) ``write_at_all`` of
@@ -325,6 +329,8 @@ ROUTES = ("staged", "direct")
 ROUTE_NS = (1, 2, 4, 5, 16, 17)
 ROUTE_COUNTS = (1, 3, 127, 4097, (1 << 20) + 5)
 ROUTE_BIG = 1 << 26
+# every operand k of ALIAS_N as the fold's out, on both routes
+ALIAS_N, ALIAS_DTYPES = 17, ("float32", "int64")
 FOLD_TURNS = 5              # readings of each call in phase 6's fold turns
 TINY_ITERS = 200            # launches a reading of the tiny folds
 RING_NS = (2, 4, 5, 8)
@@ -389,6 +395,7 @@ FETCHES = 1000              # Fetch_and_op SUMs a rank on rank 0's counter
 RMA_EPOCH_ITERS = 5         # timed Put and Get epochs (median)
 RMA_SMALL_ITERS = 200       # timed 8-byte ops on raw-tensor windows
 RMA_CELL_ITERS = 20         # ... on DeviceBuffer windows (copy on write)
+OVERLAP_SHIFT = 2           # target displacement of the overlapping origins
 IO_STRIDED = 1 << 18        # float32 elements a rank reads through a strided view
 # phase 15: meshes of several axes, the flagship's width and batch
 MESH_A = {"dp": 2, "tp": 2, "sp": 2}
@@ -659,8 +666,10 @@ def check_fold_routes(fr, device, ns=ROUTE_NS, counts=ROUTE_COUNTS,
     dtype and op at each n (n = 1 into an ``out``), ragged counts on the
     direct route and the same counts rounded up to whole 16-byte words on
     both; views at a 1-element storage offset (the direct route, chosen
-    and refused the staged one); ``out`` aliasing operand 0 on both; and
-    ``big`` float32 elements at n 4 and 17 on both. Returns the cases,
+    and refused the staged one); ``out`` aliasing operand 0 on both, and
+    every operand k of ALIAS_N (float32 and int64, SUM and MAX; k = 16 is
+    past the first launch); and ``big`` float32 elements at n 4 and 17 on
+    both. Returns the cases,
     the largest absolute difference and the launches by route."""
     import torch
     gen = torch.Generator(device=device)
@@ -727,6 +736,18 @@ def check_fold_routes(fr, device, ns=ROUTE_NS, counts=ROUTE_COUNTS,
                                                       gen).unbind(0)]
                     one(xs, op, way, f"{dname} {op} n={n} into operand 0",
                         out=xs[0])
+    # out aliasing every operand k of 17 on both routes: past the first
+    # launch's 16 (k = 16) the wrapper folds fresh and copies in
+    for dname in ALIAS_DTYPES:
+        dtype = getattr(torch, dname)
+        v = 16 // dtype.itemsize
+        for k in range(ALIAS_N):
+            for way in ROUTES:
+                for op in ("SUM", "MAX"):
+                    xs = [x.clone() for x in operands(dtype, ALIAS_N, 4096 * v,
+                                                      device, gen).unbind(0)]
+                    one(xs, op, way, f"{dname} {op} n={ALIAS_N} into operand "
+                        f"{k}", out=xs[k])
     for n in (4, 17):
         for size, ways in ((big, ROUTES), (big + 3, ("direct",))):
             xs = [torch.randn(size, generator=gen, device=device) for _ in range(n)]
@@ -2457,7 +2478,8 @@ def rma_checks(MPI, host: list, ops: dict, device, kind: str) -> dict:
     float32 Accumulate, one origin per epoch, against the plain fold;
     FETCHES Fetch_and_op SUMs per rank on rank 0's int64 counter, which
     must end at n * FETCHES with every fetched value distinct; for raw
-    tensors also test_fetch_and_op_dynamic's dynamic window."""
+    tensors also test_fetch_and_op_dynamic's dynamic window and
+    :func:`overlapping_origins`."""
     import torch
     from tpu_mpi_torch.kernels import fused_reduce as fr
     n, B = len(host), RMA_BLOCK
@@ -2522,6 +2544,8 @@ def rma_checks(MPI, host: list, ops: dict, device, kind: str) -> dict:
         MPI.Win_fence(0, cwin)
         total = int(_val(counter).item()) if r == 0 else None
         dynamic = dynamic_window(MPI, comm, device) if kind == "tensor" else None
+        if kind == "tensor":
+            overlapping_origins(MPI, comm, host[r], device)
         for w in (win, iwin, cwin):
             w.free()
         MPI.Finalize()
@@ -2534,6 +2558,53 @@ def rma_checks(MPI, host: list, ops: dict, device, kind: str) -> dict:
         raise AssertionError(f"14a {kind}: counter {total}, fetched values not "
                              f"0..{n * FETCHES - 1} once each")
     return {"counter": total, "dynamic": out[0][2]}
+
+
+def overlapping_origins(MPI, comm, start: np.ndarray, device) -> None:
+    """14a on a raw CUDA tensor window of 2 RMA_BLOCK float32 (the head of
+    the rank's host operand), each rank at its own: four fence epochs whose
+    origin views the window's first RMA_BLOCK elements and whose target
+    starts at OVERLAP_SHIFT (Get: the origin at OVERLAP_SHIFT, read from 0)
+    — Accumulate SUM, Get_accumulate REPLACE into the window's second
+    block, Put, Get. Each window is held bitwise to plain PyTorch on a copy
+    taken before the epoch, which reads the source in full before writing
+    (numpy's rule). Only the Accumulate launches the fold kernel."""
+    import torch
+    from tpu_mpi_torch.kernels import fused_reduce as fr
+    r, B = MPI.Comm_rank(comm), RMA_BLOCK
+    lo, hi = OVERLAP_SHIFT, OVERLAP_SHIFT + B
+    w = torch.from_numpy(start[:2 * B]).to(device)
+    win = MPI.Win_create(w, comm)
+
+    def plain_accumulate(x):
+        x[lo:hi] = fr.fused_multi_reduce_plain([x[lo:hi].clone(), x[:B].clone()],
+                                               "SUM")
+
+    def plain_get_accumulate(x):
+        x[B:] = x[lo:hi].clone()
+        x[lo:hi] = x[:B].clone()
+
+    def plain_move(x):
+        x[lo:hi] = x[:B].clone()
+
+    epochs = {
+        "Accumulate SUM": (lambda: MPI.Accumulate(w[:B], B, r, lo, MPI.SUM, win),
+                           plain_accumulate),
+        "Get_accumulate REPLACE": (lambda: MPI.Get_accumulate(
+            w[:B], w[B:], B, r, lo, MPI.REPLACE, win), plain_get_accumulate),
+        "Put": (lambda: MPI.Put(w[:B], B, r, lo, win), plain_move),
+        "Get": (lambda: MPI.Get(w[lo:hi], B, r, 0, win), plain_move),
+    }
+    MPI.Win_fence(0, win)
+    for what, (call, plain) in epochs.items():
+        want = w.clone()
+        plain(want)
+        call()
+        MPI.Win_fence(0, win)
+        if not same_bits(w, want):
+            raise AssertionError(f"14a tensor: {what} with an overlapping origin "
+                                 f"differs from plain")
+    win.free()
 
 
 def dynamic_window(MPI, comm, device) -> list:
@@ -2939,7 +3010,10 @@ def rma_io_ckpt_phase(MPI, collective, fr, host: list, start: dict, device,
         f0 = fr.launches
         checks = rma_checks(MPI, host, ops, device, kind)
         launches = fr.launches - f0
-        expected = 2 * n + n * FETCHES
+        # one a CUDA accumulate: two Accumulate epochs and FETCHES
+        # Fetch_and_op a rank, and the overlapping-origin Accumulate on raw
+        # tensors
+        expected = (2 + (kind == "tensor")) * n + n * FETCHES
         if launches != expected or collective.chained_folds:
             raise AssertionError(f"14a {kind}: {launches} fold launches for "
                                  f"{expected} CUDA accumulates, "
@@ -2951,7 +3025,9 @@ def rma_io_ckpt_phase(MPI, collective, fr, host: list, start: dict, device,
             f"{FETCHES} Fetch_and_op a rank (counter {checks['counter']}, every "
             f"fetched value once): all bitwise; {launches} fold launches = one per "
             f"CUDA accumulate, 0 chained"
-            + (f"; dynamic window on raw CUDA tensors fetched {checks['dynamic']}"
+            + (f"; dynamic window on raw CUDA tensors fetched {checks['dynamic']}; "
+               f"overlapping origins (Accumulate SUM, Get_accumulate REPLACE, Put, "
+               f"Get at displacement {OVERLAP_SHIFT}) == plain"
                if checks["dynamic"] is not None else ""))
     rma_launches = fr.launches
     release_world_plans()
@@ -5378,7 +5454,8 @@ def main() -> int:
     fold_routes = check_fold_routes(fr, device)
     log(f"fused fold kernel == plain, bitwise, on both routes forced "
         f"({fold_routes['cases']} cases: ragged and whole-word counts, offset "
-        f"views, out aliasing operand 0, n up to 17), launches by route "
+        f"views, out aliasing operand 0 and each operand of 17, n up to 17), "
+        f"launches by route "
         f"{fold_routes['routes']} ({time.perf_counter() - t0:.1f} s)")
     t0 = time.perf_counter()
     ring_parity = check_ring_parity(MPI, ring, device)

@@ -9,6 +9,8 @@ tests/test_torch_kernels_cuda.py and by chip_smoke.py. Tolerance: none — every
 case is bitwise (bfloat16 compared as raw bits, NaN positions as masks).
 """
 
+import ctypes
+
 import numpy as np
 import pytest
 
@@ -194,6 +196,48 @@ def test_out_may_be_operand_0_on_cpu():
     want = fr.fused_multi_reduce_plain(xs, "SUM")
     assert fr.fused_multi_reduce(xs, "SUM", out=xs[0]) is xs[0]
     assert torch.equal(xs[0], want)
+
+
+def _chained_launches(fn, device, what, ptrs, n, out, count, dtype, op, route,
+                      stream=None):
+    """The kernel's launch protocol (``FoldLaunch::run`` in
+    csrc/fused_reduce.cu) on CPU memory, found by pointer: up to ``N_MAX``
+    operands a launch, every launch after the first leading with the
+    accumulator in ``out``; a launch reads its operands before it writes."""
+    dt = {code: t for t, code in fr.DTYPE_CODE.items()}[dtype]
+    step = fr.PLAIN_STEP[{code: o for o, code in fr.OP_CODE.items()}[op]]
+
+    def at(ptr):
+        raw = (ctypes.c_char * (count * dt.itemsize)).from_address(ptr)
+        return torch.frombuffer(raw, dtype=dt)
+
+    done = 0
+    while done < n:
+        srcs = [out] if done else []
+        take = fr.N_MAX - len(srcs)
+        srcs += [ptrs[k] for k in range(done, min(n, done + take))]
+        done += take
+        vals = [at(p).clone() for p in srcs]
+        acc = vals[0]
+        for v in vals[1:]:
+            acc = step(acc, v)
+        at(out).copy_(acc)
+
+
+@pytest.mark.parametrize("k", range(17))
+def test_chained_launch_into_every_operand(k, monkeypatch):
+    """``out`` = operand k of 17 through the wrapper's launch path, the
+    kernel played by its launch protocol on CPU memory: operand 16 is past
+    the first launch, so the wrapper folds it fresh (else 136 + 136 = 272,
+    not 153); one counted launch either way."""
+    monkeypatch.setattr(fr.LIBRARY, "fn", lambda name: name)
+    monkeypatch.setattr(fr._build, "call", _chained_launches)
+    xs = [torch.full((8,), float(i + 1)) for i in range(17)]
+    want = fr.fused_multi_reduce_plain(xs, "SUM")
+    before = fr.launches
+    assert fr._launch(xs, "SUM", xs[k], None) is xs[k]
+    assert torch.equal(xs[k], want) and want[0].item() == 153.0
+    assert fr.launches == before + 1
 
 
 @pytest.mark.parametrize("window", ["shifted out", "shifted operand"])

@@ -182,6 +182,26 @@ def test_fold_into_operand_0_on_card(n, way):
                 assert got is xs[0] and _same_bits(got, want), (dtype, count, op)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("way", ["staged", "direct"])
+def test_fold_into_every_operand_on_card(way):
+    """``out`` aliasing operand k of 17 for every k, bitwise: operand 16 is
+    past the first launch's 16, whose chained launch leads with the
+    accumulator, so the wrapper folds it fresh and copies it in."""
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(19)
+    counts = (4096,) + ((4097,) if way == "direct" else ())
+    for dtype in (torch.float32, torch.int64):
+        for count in counts:
+            for op in ("SUM", "MAX"):
+                for k in range(17):
+                    xs = [_draw(dtype, (count,), dev, gen) for _ in range(17)]
+                    want = fr.fused_multi_reduce_plain(xs, op)
+                    got = _fold_via(xs, op, way, out=xs[k])
+                    assert got is xs[k] and _same_bits(got, want), (dtype, count, op, k)
+
+
 _NAN_BITS = {   # a signalling NaN with a payload, then a quiet negative one
     "float16": (0x7C05, 0xFE34, 0x0200),
     "float32": (0x7F800005, 0xFFC05678, 0x00400000),
@@ -897,6 +917,63 @@ def test_accumulate_folds_on_card(kind):
     want = fr.fused_multi_reduce_plain([start] + origins, "SUM")
     assert outs[0][0].is_cuda and torch.equal(outs[0][0], want)
     assert outs[0][1] == 40
+
+
+@pytest.mark.cuda
+def test_overlapping_origin_rma_on_card():
+    """On a raw CUDA tensor window, each rank's own: an Accumulate SUM,
+    Get_accumulate REPLACE, Put and Get whose origin views the window's
+    first 5000 elements and whose target starts at displacement 2 (Get:
+    the origin at 2, read from 0). Each window is bitwise the plain
+    computation on a copy, which reads the source in full first; the one
+    Accumulate is one fold launch, none chained."""
+    import numpy as np
+    import tpu_mpi_torch as MPI
+    from tpu_mpi_torch import collective
+    dev = _card()
+    B, lo, hi = 5000, 2, 5002
+    rng = np.random.default_rng(4)
+    starts = [torch.from_numpy(rng.standard_normal(2 * B).astype(np.float32)).to(dev)
+              for _ in range(2)]
+
+    def plain(x, what):
+        if what == "acc":
+            x[lo:hi] = fr.fused_multi_reduce_plain([x[lo:hi].clone(), x[:B].clone()],
+                                                   "SUM")
+        elif what == "gacc":
+            x[B:] = x[lo:hi].clone()
+            x[lo:hi] = x[:B].clone()
+        else:
+            x[lo:hi] = x[:B].clone()
+
+    def body():
+        comm = MPI.COMM_WORLD
+        r = MPI.Comm_rank(comm)
+        w = starts[r].clone()
+        win = MPI.Win_create(w, comm)
+        calls = {
+            "acc": lambda: MPI.Accumulate(w[:B], B, r, lo, MPI.SUM, win),
+            "gacc": lambda: MPI.Get_accumulate(w[:B], w[B:], B, r, lo, MPI.REPLACE,
+                                               win),
+            "put": lambda: MPI.Put(w[:B], B, r, lo, win),
+            "get": lambda: MPI.Get(w[lo:hi], B, r, 0, win),
+        }
+        MPI.Win_fence(0, win)
+        wrong = []
+        for what, call in calls.items():
+            want = w.clone()
+            plain(want, what)
+            call()
+            MPI.Win_fence(0, win)
+            if not _same_bits(w, want):
+                wrong.append(what)
+        win.free()
+        return wrong
+
+    folds, chained = fr.launches, collective.chained_folds
+    outs = MPI.spmd_run(body, 2, timeout=120)
+    assert outs == [[], []]
+    assert fr.launches - folds == 2 and collective.chained_folds == chained
 
 
 @pytest.mark.cuda

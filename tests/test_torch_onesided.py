@@ -11,7 +11,9 @@ Beyond them: ``Get_address`` on tensors and cells (the dynamic-window
 address rule), Accumulate on tensor windows as the fold of
 ``operators.acc_combine`` (REPLACE, NO_OP, predefined ops through the
 fold's candidate check, custom ops counted as chained folds), windows over
-raw tensors written in place, the CPU device rule of
+raw tensors written in place, origins and results that overlap the target
+range in part (numpy's rule: the source is read in full first), the CPU
+device rule of
 ``Win_allocate_shared``, and the multi-process branch that raises.
 """
 
@@ -449,6 +451,87 @@ def test_proc_mode_raises(monkeypatch):
                      ("Win_create_dynamic", None, True)]
     with pytest.raises(MPI.MPIError, match='device="cpu"'):
         MPI.Win_allocate_shared(np.float32, 2, comm)
+
+
+# ---------------------------------------------------------------------------
+# Origins and results that overlap the target range
+# ---------------------------------------------------------------------------
+
+OVERLAP_OPS = ["Accumulate-SUM", "Accumulate-MAX", "Accumulate-REPLACE",
+               "Get_accumulate-SUM", "Get_accumulate-REPLACE", "Put", "Get"]
+
+
+def p_overlapping_origin(M, AT, op, shift):
+    """Rank 0 aims one operation at its own window (float32 0..7) in one
+    fence epoch: the origin views the window's first four elements and the
+    target range starts at ``shift`` (Get: the origin is the four at
+    ``shift``, read from 0); Get_accumulate's result is the window's last
+    four. Each package reads the source in full before writing (numpy's
+    rule), so a partial overlap gives the same bytes as a copy would."""
+    def body():
+        comm = M.COMM_WORLD
+        rank = M.Comm_rank(comm)
+        buf = AT.array(np.arange(8, dtype=np.float32))
+        win = M.Win_create(buf, comm)
+        M.Win_fence(0, win)
+        if rank == 0:
+            name, _, red = op.partition("-")
+            if name == "Accumulate":
+                M.Accumulate(buf[0:4], 4, 0, shift, getattr(M, red), win)
+            elif name == "Get_accumulate":
+                M.Get_accumulate(buf[0:4], buf[4:8], 4, 0, shift,
+                                 getattr(M, red), win)
+            elif name == "Put":
+                M.Put(buf[0:4], 4, 0, shift, win)
+            else:
+                M.Get(buf[shift:shift + 4], 4, 0, 0, win)
+        M.Win_fence(0, win)
+        out = host(buf)
+        M.Barrier(comm)
+        win.free()
+        return out
+    return body
+
+
+@pytest.mark.parametrize("shift", [0, 1, 2, 4])
+@pytest.mark.parametrize("op", OVERLAP_OPS)
+@pytest.mark.parametrize("kind", ["numpy", "tensor"])
+def test_overlapping_origin_parity(kind, op, shift):
+    before = collective.chained_folds
+    assert_parity(p_overlapping_origin, kind, 2, op=op, shift=shift)
+    assert collective.chained_folds == before
+
+
+def p_cell_window_origin_views_its_cell(M, AT):
+    """A DeviceBuffer window whose origins view the cell's own tensor (a
+    raw tensor in the port, an array slice in the JAX package): Accumulate
+    SUM at displacement 2, Put at 3 and Get_accumulate MAX at 1 into a
+    second cell, one fence epoch each."""
+    def body():
+        comm = M.COMM_WORLD
+        rank = M.Comm_rank(comm)
+        buf = AT.array(np.arange(8, dtype=np.float32))
+        got = AT.zeros(4, dtype=np.float32)
+        win = M.Win_create(buf, comm)
+        M.Win_fence(0, win)
+        if rank == 0:
+            M.Accumulate(buf.value[0:4], 4, 0, 2, M.SUM, win)
+        M.Win_fence(0, win)
+        if rank == 0:
+            M.Put(buf.value[1:5], 4, 0, 3, win)
+        M.Win_fence(0, win)
+        if rank == 0:
+            M.Get_accumulate(buf.value[0:4], got, 4, 0, 1, M.MAX, win)
+        M.Win_fence(0, win)
+        out = host(buf), host(got)
+        M.Barrier(comm)
+        win.free()
+        return out
+    return body
+
+
+def test_cell_window_origin_views_its_cell_parity():
+    assert_parity(p_cell_window_origin_views_its_cell, "devicebuffer", 2)
 
 
 # ---------------------------------------------------------------------------

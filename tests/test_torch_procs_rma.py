@@ -2,7 +2,9 @@
 against the JAX package's wire engine (``tests/test_procs.py``'s RMA
 cases): windows over numpy arrays, CPU tensors and
 ``DeviceBuffer(device="cpu")`` give the JAX package's bytes after fence,
-lock, deferred and dynamic epochs; shared windows are host shared memory.
+lock, deferred and dynamic epochs, and after own-rank Puts and
+accumulates whose origin overlaps the target range in part; shared
+windows are host shared memory.
 The harness is ``tests/test_torch_coll_algos.py``'s and
 ``tests/test_torch_procs.py``'s.
 """
@@ -43,6 +45,21 @@ for kind in KINDS:
     MPI.Win_fence(0, win)
     emit("fence/window", buf, kind)
     win.free()
+
+    # own-rank Put and Accumulate SUM whose origin views the window's first
+    # four elements, aimed at displacement 2: the origin is read in full
+    # before the target range is written, as numpy reads it
+    obuf = mk(np.arange(8, dtype=np.float32) + rank, kind)
+    owin = MPI.Win_create(obuf, comm)
+    MPI.Win_fence(0, owin)
+    MPI.Put((obuf.value if kind == "db" else obuf)[0:4], 4, rank, 2, owin)
+    MPI.Win_fence(0, owin)
+    emit("self/put", obuf, kind)
+    MPI.Accumulate((obuf.value if kind == "db" else obuf)[0:4], 4, rank, 2,
+                   MPI.SUM, owin)
+    MPI.Win_fence(0, owin)
+    emit("self/accumulate", obuf, kind)
+    owin.free()
 
     # passive target: a read-modify-write counter under LOCK_EXCLUSIVE
     ctr = mk(np.zeros(1, dtype=np.int64), kind)
@@ -150,7 +167,8 @@ def rma(tmp_path_factory):
 
 @pytest.mark.parametrize("prefix", [
     "fence/get", "fence/fetch", "fence/window", "lock/counter", "lazy/get",
-    "lazy/fetch", "lazy/window", "bulk/window", "dynamic"])
+    "lazy/fetch", "lazy/window", "bulk/window", "dynamic", "self/put",
+    "self/accumulate"])
 def test_rma_bitwise_equals_the_jax_package(rma, prefix):
     assert_parity(rma, prefix)
 

@@ -40,6 +40,13 @@ Operands carried across: :func:`from_numpy` and :func:`to_numpy` move
 arrays between numpy and torch, bfloat16 as its raw 16 bits in a
 ``uint16`` array (numpy has no bfloat16).
 
+Overlapping operands: a write whose source overlaps its destination in
+part reads the source in full first, as numpy's assignment does (a
+one-sided Put, Get or accumulate whose origin views the target range of
+its own window). :func:`detach_overlap` owns that rule; where the two do
+not meet it is pointer arithmetic only, and a source that starts where
+its destination does (the same elements) is written in place.
+
 Send snapshots: :func:`to_wire` copies a host array or a raw tensor into
 a private snapshot and marks it (:func:`is_wire_snapshot`), so a send of
 a snapshot (``Sendrecv_replace`` makes one) posts it without a second
@@ -61,6 +68,7 @@ import torch
 from .datatypes import Datatype, to_datatype, torch_dtype
 from . import error as _ec
 from .error import MPIError
+from .kernels.fused_reduce import overlaps
 
 _wire_snapshots: "weakref.WeakValueDictionary[int, Any]" = \
     weakref.WeakValueDictionary()
@@ -316,6 +324,16 @@ def is_writable(x: Any) -> bool:
     return False
 
 
+def detach_overlap(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
+    """``src`` as the source of a write into ``dst``: a copy where the two
+    byte ranges intersect and start at different addresses, so the source
+    is read in full before ``dst`` is written; ``src`` itself otherwise
+    (pointer arithmetic, no device work)."""
+    if src.data_ptr() != dst.data_ptr() and overlaps(src, dst):
+        return src.clone()
+    return src
+
+
 def write_flat(dest: Any, src: Any, count: Optional[int] = None) -> Any:
     """Write the first ``count`` flat elements of src into dest.
 
@@ -347,9 +365,10 @@ def write_flat(dest: Any, src: Any, count: Optional[int] = None) -> Any:
         t = as_tensor(src, dest.dtype, dest.device)
         n = t.numel() if count is None else count
         if n == dest.numel() and t.numel() == dest.numel():
-            dest.copy_(t.reshape(dest.shape))
+            dest.copy_(detach_overlap(t.reshape(dest.shape), dest))
         elif dest.is_contiguous():
-            dest.view(-1)[:n].copy_(t.reshape(-1)[:n])
+            part = dest.view(-1)[:n]
+            part.copy_(detach_overlap(t.reshape(-1)[:n], part))
         else:
             raise MPIError("partial write into a non-contiguous tensor",
                            code=_ec.ERR_BUFFER)
@@ -375,7 +394,8 @@ def write_range(buf: Any, off: int, new: Any) -> None:
             raise MPIError("partial write into a non-contiguous tensor",
                            code=_ec.ERR_BUFFER)
         src = as_tensor(new, buf.dtype, buf.device).reshape(-1)
-        buf.view(-1)[off:off + src.numel()].copy_(src)
+        part = buf.view(-1)[off:off + src.numel()]
+        part.copy_(detach_overlap(src, part))
         return
     arr = extract_array(buf)
     if arr is None:

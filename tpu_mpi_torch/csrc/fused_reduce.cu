@@ -170,6 +170,9 @@ static int launch_direct(const Operands& ops, int n, T* out, int64_t count,
 // route: 0 staged (refused where it does not apply), 1 direct. Up to N_MAX
 // operands a launch; beyond that, chained launches on the same route, each
 // leading with the accumulator in `out`.
+// So `out` may alias an operand of the first launch only: the wrapper
+// (kernels/fused_reduce.py) folds into a fresh tensor when `out` is an
+// operand past the first N_MAX.
 template <typename T, int OP>
 struct FoldLaunch {
   static int run(const void* const* ptrs, int n, void* out, int64_t count, int route,

@@ -45,6 +45,8 @@ REPLACES = "tpu_mpi/xla/pallas_kernels.py:655"     # fused_multi_reduce
 
 SOURCE = _build.CSRC / "fused_reduce.cu"
 
+N_MAX = 16          # operands one launch folds (N_MAX in the kernel source)
+
 # Launches of the kernel, one per wrapper call that launched it, and the
 # same calls by route.
 launches = 0
@@ -71,8 +73,9 @@ def fused_multi_reduce(xs: Sequence[torch.Tensor], op: str, *,
                        via: Optional[str] = None) -> torch.Tensor:
     """Fold ``xs`` (same shape and dtype) under the predefined op named
     ``op`` in rank order. ``out``, when given, receives the result and is
-    returned (the persistent lane's preallocated slot); it may be operand
-    0 itself, never a window that overlaps an operand in part. Otherwise
+    returned (the persistent lane's preallocated slot); it may be any
+    operand itself, never a window that overlaps an operand in part (that
+    raises on every device). Otherwise
     the output is allocated. One operand and no ``out`` returns it
     unchanged. CPU tensors take the plain fold; CUDA tensors launch the
     kernel on the route :func:`route` gives, or on ``via`` (for tests and
@@ -132,6 +135,9 @@ def _launch(xs: list, op: str, out: Optional[torch.Tensor],
         out = torch.empty_like(x0, memory_format=torch.contiguous_format)
     elif not out.is_contiguous():
         raise ValueError("fused_multi_reduce kernel takes a contiguous out")
+    elif any(x.data_ptr() == out.data_ptr() for x in xs[N_MAX:]):
+        # a chained launch would read the accumulator in place of that operand
+        return out.copy_(_launch(xs, op, None, via))
     way = route(xs, out)
     if via == "staged" and way != "staged":
         raise ValueError("fused_multi_reduce: the staged route takes 16-byte-"
@@ -163,9 +169,10 @@ def overlaps(a: torch.Tensor, b: torch.Tensor) -> bool:
 
 
 def _check_no_partial_overlap(xs: list, out: torch.Tensor) -> None:
-    """``out`` may be one of the operands exactly (the kernel reads each
-    element, or its CTA's whole tile, before writing it), never a shifted
-    window over one."""
+    """``out`` may be any operand exactly: a launch reads each element, or
+    its CTA's whole tile, before writing it, and an operand past the first
+    launch folds into a fresh tensor first (:func:`_launch`). A window that
+    overlaps an operand in part raises on every device."""
     for x in xs:
         if overlaps(x, out) and x.data_ptr() != out.data_ptr():
             raise ValueError("fused_multi_reduce: out partially overlaps an operand")

@@ -532,14 +532,20 @@ def _apply_op(win: Win, target_rank: int, target_disp: int, origin_flat,
         buf, tarr, off = _target_view(win, target_rank, target_disp, count)
         if isinstance(tarr, torch.Tensor):
             flat = tarr.reshape(-1)
+            old = None
             if fetch_into is not None:
-                write_flat(fetch_into, flat[off:off + count].clone(), count)
+                old = flat[off:off + count].clone()
+                write_flat(fetch_into, old, count)
             if op is NO_OP:
                 return
             cell = isinstance(buf, DeviceBuffer)
             if cell:
                 flat = flat.clone()             # copy on write
-            acc_combine(flat[off:off + count], origin_flat, op)
+            # with a fetch, the fold starts from the values fetched, which a
+            # result overlapping the target range has overwritten since
+            target = flat[off:off + count]
+            acc_combine(target if old is None else old, origin_flat, op,
+                        out=target)
             if cell:
                 buf.value = flat.view(tarr.shape)
             return

@@ -289,27 +289,31 @@ def is_elementwise(op: Op) -> bool:
     return op.ufunc is not None or _PREDEFINED.get(op.name) is op
 
 
-def acc_combine(old: Any, incoming: Any, op: Op):
+def acc_combine(old: Any, incoming: Any, op: Op, out: Any = None):
     """MPI accumulate semantics for a target range: the new target values,
     or None to leave the target unchanged (NO_OP). The single owner of the
     REPLACE/NO_OP dispatch of ``onesided._apply_op``.
 
-    A numpy ``old`` gives a fresh array. A tensor ``old`` (the target range
-    itself, a contiguous view) is written IN PLACE and returned: REPLACE
-    copies the origin in, and every other op is the two-operand rank-ordered
-    fold ``op(old, incoming)`` through the Allreduce fold's candidate check
-    — one launch of the fused fold kernel on a CUDA tensor for a predefined
-    op it takes, else the chained fold (counted in
-    ``collective.chained_folds``)."""
+    A numpy ``old`` gives a fresh array. A tensor result is written IN
+    PLACE into ``out``, the target range itself (a contiguous view; by
+    default ``old``), and returned: REPLACE copies the origin in, and every
+    other op is the two-operand rank-ordered fold ``op(old, incoming)``
+    through the Allreduce fold's candidate check — one launch of the fused
+    fold kernel on a CUDA tensor for a predefined op it takes, else the
+    chained fold (counted in ``collective.chained_folds``). An origin that
+    overlaps the target range in part is read in full first, as numpy's
+    assignment reads it (``buffers.detach_overlap``)."""
     if op is NO_OP:
         return None
     if _is_torch(old):
-        from .buffers import as_tensor
+        from .buffers import as_tensor, detach_overlap
         from .collective import _tensor_fold
-        inc = as_tensor(incoming, old.dtype, old.device).reshape(-1)
+        out = old if out is None else out
+        inc = detach_overlap(
+            as_tensor(incoming, old.dtype, old.device).reshape(-1), out)
         if op is REPLACE:
-            return old.copy_(inc)
-        return _tensor_fold([old, inc.contiguous()], op, out=old)
+            return out.copy_(inc)
+        return _tensor_fold([old, inc.contiguous()], op, out=out)
     if op is REPLACE:
         return np.asarray(incoming, dtype=old.dtype)
     return np.asarray(op(old, np.asarray(incoming, dtype=old.dtype)))
