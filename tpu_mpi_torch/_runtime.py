@@ -734,13 +734,14 @@ class CollectiveChannel(_Waitable):
             self.rank_round[rank] += 1
             st = self._round_state(rnd)
             self._deposit(st, rank, contrib, opname, stamp)
-            # pvar phase spans: last arriver's combine is the fold; every
-            # other rank's block below is the rendezvous. One TLS read when
-            # no scope is open (pvars and tracing both off).
+            # pvar phase spans: the op's start to here is enter; last
+            # arriver's combine is the fold; every other rank's block below
+            # is the rendezvous. One TLS read when no scope is open (pvars
+            # and tracing both off).
             sc = _pv.scope()
+            t0 = sc.enter() if sc is not None else 0.0
             if st["arrived"] == self.size:
                 contribs = list(st["contribs"])
-                t0 = _pv.monotonic() if sc is not None else 0.0
                 try:
                     if unlocked_fold:
                         self.cond.release()
@@ -754,7 +755,7 @@ class CollectiveChannel(_Waitable):
                     self.ctx.fail(e)
                     raise
                 if sc is not None:
-                    sc.spans.append(("fold", t0, _pv.monotonic()))
+                    sc.phase("fold", t0)
                 if len(results) != self.size:
                     err = MPIError(f"combine for {opname} returned {len(results)} "
                                    f"results for {self.size} ranks")
@@ -764,12 +765,11 @@ class CollectiveChannel(_Waitable):
                 st["contribs"] = []      # contributions are dead: release refs
                 self.cond.notify_all()
             else:
-                t0 = _pv.monotonic() if sc is not None else 0.0
                 self._wait_for(lambda: st["results"] is not None,
                                f"collective {opname}",
                                limit=collective_wait_limit(opname))
                 if sc is not None:
-                    sc.spans.append(("rendezvous", t0, _pv.monotonic()))
+                    sc.phase("rendezvous", t0)
             res = st["results"][rank]
             st["picked"] += 1
             if st["picked"] == self.size:
@@ -810,9 +810,9 @@ class CollectiveChannel(_Waitable):
                 self.rank_round[rank] += 1
                 st = self._round_state(rnd)
                 self._deposit(st, rank, contrib, opname, stamp)
+                t0 = sc.enter() if sc is not None else 0.0
                 if st["arrived"] == self.size:
                     contribs = list(st["contribs"])
-                    t0 = _pv.monotonic() if sc is not None else 0.0
                     try:
                         if ufold:
                             # safe for the same reason as in run(): this
@@ -830,7 +830,7 @@ class CollectiveChannel(_Waitable):
                         self.ctx.fail(e)
                         raise
                     if sc is not None:
-                        sc.spans.append(("fold", t0, _pv.monotonic()))
+                        sc.phase("fold", t0)
                     if len(results) != self.size:
                         err = MPIError(
                             f"combine for {opname} returned {len(results)} "
@@ -846,13 +846,12 @@ class CollectiveChannel(_Waitable):
             out = []
             for rnd, st, opname in deposited:
                 if st["results"] is None:
-                    t0 = _pv.monotonic() if sc is not None else 0.0
+                    t0 = sc.start() if sc is not None else 0.0
                     self._wait_for(lambda st=st: st["results"] is not None,
                                    f"collective {opname}",
                                    limit=collective_wait_limit(opname))
                     if sc is not None:
-                        sc.spans.append(
-                            ("rendezvous", t0, _pv.monotonic()))
+                        sc.phase("rendezvous", t0)
                 out.append(st["results"][rank])
                 st["picked"] += 1
                 if st["picked"] == self.size:

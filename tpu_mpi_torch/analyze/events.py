@@ -97,7 +97,7 @@ class Event:
                  "algo", "file", "line", "t",
                  # pvar span fields (perfvars.op_end stamps them): wall-clock
                  # bracket of the whole op plus the phase spans the channels
-                 # observed inside it, as (name, t0, t1) monotonic tuples —
+                 # observed inside it, as (name, t0, t1) perf_counter tuples —
                  # analyze.timeline renders these as nested Perfetto slices.
                  "t_start", "t_end", "phases",
                  # schedule-exploration fields: the POSTED source/tag of a
@@ -116,7 +116,7 @@ class Event:
         for name in self.__slots__[2:]:
             setattr(self, name, kw.get(name))
         if self.t is None:
-            self.t = time.monotonic()
+            self.t = time.perf_counter()
 
     def describe(self) -> str:
         """Human-readable one-liner (used by the deadlock dump)."""

@@ -471,7 +471,7 @@ def deadlock_report(ctx: Any) -> str:
             with tr.lock:
                 blocked = dict(tr.blocked)
         if blocked:
-            now = time.monotonic()
+            now = time.perf_counter()
             lines.append("per-rank pending operations:")
             edges: Dict[int, List[int]] = {}
             for r in sorted(blocked):

@@ -8,8 +8,8 @@ one process row per rank (``pid`` = world rank), the whole op as a
 complete-event slice, its phases as nested slices, and point events
 (sends, receives, RMA accesses) as instants.
 
-Ranks on the multi-process tier each run their own monotonic clock, so a
-naive merge skews rows by process start time. :func:`clock_offsets` fixes
+Ranks on the multi-process tier each run their own ``perf_counter``
+clock, so a naive merge skews rows by process start time. :func:`clock_offsets` fixes
 that with the classic Barrier-exchange estimate: every rank samples its
 clock immediately after leaving a Barrier (all ranks exit within one
 rendezvous wakeup of each other), Allgathers the samples, and the median
@@ -38,7 +38,7 @@ SCHEMA = 2
 def clock_offsets(comm: Any, rounds: int = 5) -> List[float]:
     """Per-comm-rank clock offsets to rank 0 (collective: all ranks call).
 
-    ``aligned_t = t - offsets[rank]`` puts every rank's ``time.monotonic``
+    ``aligned_t = t - offsets[rank]`` puts every rank's ``time.perf_counter``
     readings on rank 0's clock, up to the Barrier-exit skew (microseconds
     on one host). The median over ``rounds`` rounds rejects stragglers
     (a rank descheduled between Barrier exit and its clock sample)."""
@@ -50,7 +50,7 @@ def clock_offsets(comm: Any, rounds: int = 5) -> List[float]:
     mine = np.empty(1, dtype=np.float64)
     for i in range(rounds):
         Barrier(comm)
-        mine[0] = time.monotonic()
+        mine[0] = time.perf_counter()
         samples[i] = np.asarray(Allgather(mine, comm)).reshape(-1)
     deltas = samples - samples[:, :1]          # per-round offset to rank 0
     return [float(x) for x in np.median(deltas, axis=0)]
@@ -87,36 +87,42 @@ def local_events(ctx: Any = None) -> List[dict]:
     return _event_dicts(tr.events())
 
 
+# the lane of span-ring records taken outside every rank (rank -1 there)
+OUTSIDE_RANKS = -2
+
+
 def to_chrome(event_dicts: Sequence[dict],
-              offsets: Optional[Dict[int, float]] = None) -> dict:
-    """Chrome trace-event JSON object from event dicts.
+              offsets: Optional[Dict[int, float]] = None,
+              ring: Sequence[Any] = ()) -> dict:
+    """Chrome trace-event JSON object from event dicts and span-ring
+    records (``perfvars.take_spans``).
 
     ``offsets`` maps world rank -> clock offset (seconds, subtracted from
     that rank's timestamps). Spanned events (t_start/t_end) become ph="X"
     complete slices with their phases nested inside; point events become
-    ph="i" instants at ``t``. Timestamps are microseconds from the
-    earliest aligned instant in the batch."""
+    ph="i" instants at ``t``; ring records become ph="X" slices on their
+    rank's row, one thread a ``tid``, with their CPU time (where read) in
+    ``args``. Timestamps are microseconds from the earliest aligned
+    instant in the batch."""
     offsets = offsets or {}
-    base = None
-    for d in event_dicts:
-        off = offsets.get(d["rank"], 0.0)
-        t0 = d["t_start"] if d["t_start"] is not None else d["t"]
-        if t0 is not None:
-            t0 -= off
-            if base is None or t0 < base:
-                base = t0
-    base = base or 0.0
+    ring = [(r.rank if r.rank >= 0 else OUTSIDE_RANKS, r) for r in ring]
+    starts = [(d["rank"], d["t_start"] if d["t_start"] is not None else d["t"])
+              for d in event_dicts]
+    starts += [(pid, r.t0_ns / 1e9) for pid, r in ring]
+    base = min((t - offsets.get(rank, 0.0) for rank, t in starts if t is not None),
+               default=0.0)
 
     def us(t: float, rank: int) -> float:
         return round((t - offsets.get(rank, 0.0) - base) * 1e6, 3)
 
     trace: List[dict] = []
-    pids = sorted({d["rank"] for d in event_dicts})
+    pids = sorted({d["rank"] for d in event_dicts} | {pid for pid, _ in ring})
     for pid in pids:
         # negative pids are synthetic lanes (events.BROKER_RANK) — name
         # them for what they are so Perfetto rows read "broker", not
         # "rank -1"
-        lane = f"rank {pid}" if pid >= 0 else "broker"
+        lane = f"rank {pid}" if pid >= 0 else \
+            "outside ranks" if pid == OUTSIDE_RANKS else "broker"
         trace.append({"ph": "M", "pid": pid, "tid": 0,
                       "name": "process_name",
                       "args": {"name": lane}})
@@ -155,15 +161,26 @@ def to_chrome(event_dicts: Sequence[dict],
                 "cat": d["kind"], "ts": us(d["t"], rank), "s": "t",
                 "args": args,
             })
+    for pid, r in ring:
+        args = {"depth": r.depth}
+        if r.cpu_ns >= 0:
+            args["cpu_us"] = round(r.cpu_ns / 1e3, 3)
+        trace.append({
+            "ph": "X", "pid": pid, "tid": r.thread, "name": r.name,
+            "cat": "ring", "ts": us(r.t0_ns / 1e9, pid),
+            "dur": max(0.001, round((r.t1_ns - r.t0_ns) / 1e3, 3)),
+            "args": args,
+        })
     return {"traceEvents": trace, "displayTimeUnit": "ms",
             "otherData": {"tool": "tpu_mpi_torch.analyze.timeline",
                           "schema": SCHEMA}}
 
 
 def write_chrome(path: str, event_dicts: Sequence[dict],
-                 offsets: Optional[Dict[int, float]] = None) -> str:
+                 offsets: Optional[Dict[int, float]] = None,
+                 ring: Sequence[Any] = ()) -> str:
     """Write :func:`to_chrome` output as JSON; returns the path."""
-    rec = to_chrome(event_dicts, offsets)
+    rec = to_chrome(event_dicts, offsets, ring)
     d = os.path.dirname(os.path.abspath(path))
     os.makedirs(d, exist_ok=True)
     tmp = f"{path}.tmp.{os.getpid()}"

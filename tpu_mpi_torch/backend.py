@@ -1260,7 +1260,7 @@ class ProcChannel(_Waitable):
         # phase 1 (intra gather): my piece of segment q goes to my
         # domain's position-q member; I collect my co-members' pieces of
         # MY segment, in position (= rank) order
-        t0 = _pv.monotonic() if sc is not None else 0.0
+        t0 = sc.start() if sc is not None else 0.0
         for q in range(r):
             if q == pos:
                 continue
@@ -1273,8 +1273,7 @@ class ProcChannel(_Waitable):
                 pieces[q] = np.asarray(self._wait_alg(
                     rnd, ("hrs", dom * r + q), opname)).reshape(-1)
         if sc is not None:
-            sc.spans.append(("intra_fold", t0, _pv.monotonic()))
-            t0 = _pv.monotonic()
+            t0 = sc.phase("intra_fold", t0)
 
         # phase 2 (inter chain): fold and carry the partial down the
         # domain chain; the last domain ends with the full rank-order fold
@@ -1296,8 +1295,7 @@ class ProcChannel(_Waitable):
                 self._send_alg(self.group[d * r + pos], rnd, ("hbf", rank),
                                rank, opname, final)
         if sc is not None:
-            sc.spans.append(("inter_exchange", t0, _pv.monotonic()))
-            t0 = _pv.monotonic()
+            t0 = sc.phase("inter_exchange", t0)
 
         # phase 3 (intra allgather): everyone shares their finished
         # segment with their co-members and reassembles in segment order
@@ -1313,7 +1311,7 @@ class ProcChannel(_Waitable):
                     rnd, ("hag", dom * r + q), opname)).reshape(-1)
         out = np.concatenate(segs)
         if sc is not None:
-            sc.spans.append(("allgather", t0, _pv.monotonic()))
+            sc.phase("allgather", t0)
         return out.reshape(host.shape)
 
     def _run_hier_allgather(self, rank: int, rnd: int, contrib: Any,
@@ -1329,7 +1327,7 @@ class ProcChannel(_Waitable):
         blk = np.asarray(contrib).reshape(-1)
         dom, pos = rank // r, rank % r
         sc = _pv.scope()
-        t0 = _pv.monotonic() if sc is not None else 0.0
+        t0 = sc.start() if sc is not None else 0.0
         for q in range(r):
             if q != pos:
                 self._send_alg(self.group[dom * r + q], rnd, ("hga", rank),
@@ -1349,8 +1347,7 @@ class ProcChannel(_Waitable):
                     raise err
                 bundle[q] = got
         if sc is not None:
-            sc.spans.append(("intra_fold", t0, _pv.monotonic()))
-            t0 = _pv.monotonic()
+            t0 = sc.phase("intra_fold", t0)
         for d in range(D):
             if d != dom:
                 self._send_alg(self.group[d * r + pos], rnd, ("hgb", rank),
@@ -1372,11 +1369,10 @@ class ProcChannel(_Waitable):
             for q in range(r):
                 blocks[d * r + q] = got[q * blk.size:(q + 1) * blk.size]
         if sc is not None:
-            sc.spans.append(("inter_exchange", t0, _pv.monotonic()))
-            t0 = _pv.monotonic()
+            t0 = sc.phase("inter_exchange", t0)
         out = np.concatenate(blocks)
         if sc is not None:
-            sc.spans.append(("allgather", t0, _pv.monotonic()))
+            sc.phase("allgather", t0)
         return out
 
     def _run_hier_alltoall(self, rank: int, rnd: int, contrib: Any,
@@ -1394,15 +1390,14 @@ class ProcChannel(_Waitable):
         segs = arr.reshape(n, arr.size // n)
         dom, pos = rank // r, rank % r
         sc = _pv.scope()
-        t0 = _pv.monotonic() if sc is not None else 0.0
+        t0 = sc.start() if sc is not None else 0.0
         # intra: direct segment to each co-member
         for q in range(r):
             if q != pos:
                 self._send_alg(self.group[dom * r + q], rnd, ("hai", rank),
                                rank, opname, segs[dom * r + q])
         if sc is not None:
-            sc.spans.append(("intra_fold", t0, _pv.monotonic()))
-            t0 = _pv.monotonic()
+            t0 = sc.phase("intra_fold", t0)
         # inter: one bundle (their domain's r segments, position order)
         # to my position peer in every other domain
         for d in range(D):
@@ -1428,8 +1423,7 @@ class ProcChannel(_Waitable):
                     self._send_alg(self.group[dom * r + q], rnd,
                                    ("haf", src), rank, opname, got[q])
         if sc is not None:
-            sc.spans.append(("inter_exchange", t0, _pv.monotonic()))
-            t0 = _pv.monotonic()
+            t0 = sc.phase("inter_exchange", t0)
         # collect: co-members' direct segments, then forwarded foreign
         # segments (from the co-member at the original sender's position)
         for q in range(r):
@@ -1444,7 +1438,7 @@ class ProcChannel(_Waitable):
                     out[d * r + q] = self._wait_alg(
                         rnd, ("haf", d * r + q), opname)
         if sc is not None:
-            sc.spans.append(("allgather", t0, _pv.monotonic()))
+            sc.phase("allgather", t0)
         return out.reshape(-1)
 
     def _run_tree_gather_fold(self, rank: int, rnd: int, contrib: Any,
@@ -1984,7 +1978,7 @@ class ProcChannel(_Waitable):
         prog = progress_begin(K, "chunks")
         sc = _pv.scope()    # pvar phase spans; None when pvars+tracing off
         if ctx.local_rank != root_world:
-            t0 = _pv.monotonic() if sc is not None else 0.0
+            t0 = sc.start() if sc is not None else 0.0
             # one coalesced flush for the whole chunk run: K contribution
             # frames ride one framed message / one writev
             self._send_batch(
@@ -1993,8 +1987,7 @@ class ProcChannel(_Waitable):
                   _pack(arr[lo:hi])) for idx, (lo, hi) in enumerate(schedule)],
                 opname)
             if sc is not None:
-                sc.spans.append(("copy", t0, _pv.monotonic()))
-                t0 = _pv.monotonic()
+                t0 = sc.phase("copy", t0)
             parts = []
             for idx in range(K):
                 parts.append(np.asarray(_unpack(
@@ -2002,7 +1995,7 @@ class ProcChannel(_Waitable):
                     .reshape(-1))
                 progress_note(prog)
             if sc is not None:
-                sc.spans.append(("rendezvous", t0, _pv.monotonic()))
+                sc.phase("rendezvous", t0)
             return np.concatenate(parts)
 
         # root: per-chunk gather -> rank-order fold -> immediate scatter.
@@ -2013,7 +2006,7 @@ class ProcChannel(_Waitable):
         res_parts = []
         fold_ns = wait_after_first_ns = 0
         for idx, (lo, hi) in enumerate(schedule):
-            tw = _pv.monotonic() if sc is not None else 0.0
+            tw = sc.start() if sc is not None else 0.0
             with self.cond:
                 self._wait_for(
                     lambda: all((rnd, r, "c", idx) in self.inbox
@@ -2023,8 +2016,7 @@ class ProcChannel(_Waitable):
                 gathered = {r: self.inbox.pop((rnd, r, "c", idx))
                             for r in others}
             if sc is not None:
-                tw1 = _pv.monotonic()
-                sc.spans.append(("rendezvous", tw, tw1))
+                tw1 = sc.phase("rendezvous", tw)
                 if idx > 0:
                     wait_after_first_ns += int((tw1 - tw) * 1e9)
             for r, (got_op, got_k, _) in gathered.items():
@@ -2043,7 +2035,7 @@ class ProcChannel(_Waitable):
                     raise err
             # fold OUTSIDE the cond hold: the drainer delivers later chunks
             # while this one reduces — that concurrency IS the overlap
-            tf = _pv.monotonic() if sc is not None else 0.0
+            tf = sc.start() if sc is not None else 0.0
             pieces = [arr[lo:hi] if r == rank
                       else np.asarray(_unpack(gathered[r][2], ctx)).reshape(-1)
                       for r in range(n)]
@@ -2056,8 +2048,7 @@ class ProcChannel(_Waitable):
             else:
                 red = np.asarray(_ft.reduce(op, pieces))
             if sc is not None:
-                tf1 = _pv.monotonic()
-                sc.spans.append(("fold", tf, tf1))
+                tf1 = sc.phase("fold", tf)
                 fold_ns += int((tf1 - tf) * 1e9)
                 tf = tf1
             res_parts.append(red)
@@ -2066,7 +2057,7 @@ class ProcChannel(_Waitable):
                            ("collcres", self.cid, rnd, idx, _pack(red)),
                            opname)
             if sc is not None:
-                sc.spans.append(("copy", tf, _pv.monotonic()))
+                sc.phase("copy", tf)
             progress_note(prog)
         if sc is not None and _pv.enabled():
             _pv.note_pipelined(self.cid, K, fold_ns, wait_after_first_ns)
@@ -2080,19 +2071,18 @@ class ProcChannel(_Waitable):
         root_world = self.group[0]
         sc = _pv.scope()    # pvar phase spans; None when pvars+tracing off
         if ctx.local_rank != root_world:
-            t0 = _pv.monotonic() if sc is not None else 0.0
+            t0 = sc.start() if sc is not None else 0.0
             self._send(root_world, ("coll", self.cid, rnd, rank, opname,
                                     _pack(contrib)), opname)
             if sc is not None:
-                sc.spans.append(("copy", t0, _pv.monotonic()))
-                t0 = _pv.monotonic()
+                t0 = sc.phase("copy", t0)
             res = self._result_wait(rnd, (rnd,), opname)
             if sc is not None:
-                sc.spans.append(("rendezvous", t0, _pv.monotonic()))
+                sc.phase("rendezvous", t0)
             return _unpack(res, ctx)
 
         # root: gather, verify, combine, scatter
-        t0 = _pv.monotonic() if sc is not None else 0.0
+        t0 = sc.start() if sc is not None else 0.0
         with self.cond:
             self._wait_for(
                 lambda: all((rnd, r) in self.inbox for r in range(n) if r != rank),
@@ -2104,7 +2094,7 @@ class ProcChannel(_Waitable):
                 else:
                     gathered[r] = self.inbox.pop((rnd, r))
         if sc is not None:
-            sc.spans.append(("rendezvous", t0, _pv.monotonic()))
+            sc.phase("rendezvous", t0)
         names = {op for op, _ in gathered}
         if len(names) > 1:
             err = CollectiveMismatchError(
@@ -2112,27 +2102,27 @@ class ProcChannel(_Waitable):
                 f"{sorted(names)}")
             self.ctx.fail(err)
             raise err
-        t0 = _pv.monotonic() if sc is not None else 0.0
+        t0 = sc.start() if sc is not None else 0.0
         try:
             results = list(combine([_unpack(c, ctx) for _, c in gathered]))
         except BaseException as e:
             self.ctx.fail(e)
             raise
         if sc is not None:
-            sc.spans.append(("fold", t0, _pv.monotonic()))
+            sc.phase("fold", t0)
         if len(results) != n:
             err = MPIError(f"combine for {opname} returned {len(results)} "
                            f"results for {n} ranks")
             self.ctx.fail(err)
             raise err
-        t0 = _pv.monotonic() if sc is not None else 0.0
+        t0 = sc.start() if sc is not None else 0.0
         for r in range(n):
             if r == rank:
                 continue
             self._send(self.group[r],
                        ("collres", self.cid, rnd, _pack(results[r])), opname)
         if sc is not None:
-            sc.spans.append(("copy", t0, _pv.monotonic()))
+            sc.phase("copy", t0)
         return results[rank]
 
     def _send(self, world_dst: int, item: Any, opname: str) -> None:

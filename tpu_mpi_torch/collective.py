@@ -1277,9 +1277,9 @@ def _reduce_family(args, has_root: bool, mode: str, name: str) -> Any:
             if sc is None:
                 out = clone_like(sendbuf, shaped)
             else:
-                t0 = _pv.monotonic()
+                t0 = sc.start()
                 out = clone_like(sendbuf, shaped)
-                sc.spans.append(("copy", t0, _pv.monotonic()))
+                sc.phase("copy", t0)
             if _model is not None:
                 _model(out)     # R302 donation-window model (auto-arm)
             return out
@@ -1287,9 +1287,9 @@ def _reduce_family(args, has_root: bool, mode: str, name: str) -> Any:
         if sc is None:
             write_flat(target, result, count)
         else:
-            t0 = _pv.monotonic()
+            t0 = sc.start()
             write_flat(target, result, count)
-            sc.spans.append(("copy", t0, _pv.monotonic()))
+            sc.phase("copy", t0)
         return target
     finally:
         if sc is not None:
@@ -1955,9 +1955,9 @@ def _register_allreduce(comm: Comm, args,
                               plan=hint, stamp=pkey, **runkw)
             if sc is None:
                 return copyout(res)
-            t0 = _pv.monotonic()
+            t0 = sc.start()
             val = copyout(res)
-            sc.spans.append(("copy", t0, _pv.monotonic()))
+            sc.phase("copy", t0)
             return val
         finally:
             if sc is not None:

@@ -21,6 +21,7 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Callable, Sequence
@@ -76,7 +77,13 @@ def call(fn: Callable[..., int], device: torch.device, what: str, *args) -> None
 
 class Library:
     """One CUDA source, built and loaded at first use (thread-safe).
-    ``bind(lib)`` sets the ``argtypes``/``restype`` of its functions."""
+    ``bind(lib)`` sets the ``argtypes``/``restype`` of its functions.
+    ``builds``/``build_ns`` count this process's ``nvcc`` runs and their
+    time, ``loads``/``load_ns`` its loads of the built file (the
+    ``kernels`` block of ``perfvars.snapshot``); ``instances`` lists every
+    library."""
+
+    instances: list = []
 
     def __init__(self, name: str, source: Path,
                  bind: Callable[[ctypes.CDLL], None]):
@@ -86,6 +93,8 @@ class Library:
         self._lib = None
         self._fns: dict = {}
         self._lock = threading.Lock()
+        self.builds = self.build_ns = self.loads = self.load_ns = 0
+        Library.instances.append(self)
 
     def path(self) -> Path:
         """Where the build of the current sources and flags lives."""
@@ -108,7 +117,10 @@ class Library:
                     return so
                 tmp = so.with_suffix(f".{os.getpid()}.tmp")
                 cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(self.source)]
+                t0 = time.perf_counter_ns()
                 proc = subprocess.run(cmd, capture_output=True, text=True)
+                self.builds += 1
+                self.build_ns += time.perf_counter_ns() - t0
                 if proc.returncode != 0:
                     raise RuntimeError(f"{self.name}: nvcc failed\n"
                                        + " ".join(cmd) + "\n" + proc.stderr)
@@ -123,8 +135,12 @@ class Library:
             return self._lib
         with self._lock:
             if self._lib is None:
-                lib = ctypes.CDLL(str(self.build()))
+                so = self.build()
+                t0 = time.perf_counter_ns()
+                lib = ctypes.CDLL(str(so))
                 self._bind(lib)
+                self.loads += 1
+                self.load_ns += time.perf_counter_ns() - t0
                 self._lib = lib
         return self._lib
 

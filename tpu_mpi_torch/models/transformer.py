@@ -41,6 +41,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from .. import perfvars as _pv
 from .. import xla
 from ..buffers import resolve_device
 from ..operators import SUM
@@ -308,8 +309,12 @@ def transformer_forward(cfg: TransformerConfig, params: dict,
         positions = _sp_positions(tokens.shape[sp_dim], t, tokens.device)
     else:
         positions = torch.arange(t, device=tokens.device)
-    logits = _logits(cfg, params, tokens, positions, tp_axis=tp_axis,
-                     sp_axis=sp_axis, sp_dim=sp_dim or 0)
+    s = _pv.span_begin()
+    try:
+        logits = _logits(cfg, params, tokens, positions, tp_axis=tp_axis,
+                         sp_axis=sp_axis, sp_dim=sp_dim or 0)
+    finally:
+        _pv.span_end("model.forward", s)
     if tp_axis is None:
         return logits
     n = _tp_size(cfg, params)
@@ -324,8 +329,12 @@ def _logits(cfg: TransformerConfig, params: dict, tokens: torch.Tensor,
     with its own)."""
     x = _embed(params["embed"], tokens)
     for layer in params["layers"]:
-        x = _attn_ffn_block(cfg, layer, x, positions, tp_axis=tp_axis,
-                            sp_axis=sp_axis, sp_dim=sp_dim)
+        s = _pv.span_begin(cpu=False)
+        try:
+            x = _attn_ffn_block(cfg, layer, x, positions, tp_axis=tp_axis,
+                                sp_axis=sp_axis, sp_dim=sp_dim)
+        finally:
+            _pv.span_end("model.block", s)
     x = _rms_norm(x, params["ln_f"])
     return _matmul(x, params["embed"].transpose(-1, -2)).to(torch.float32)
 
@@ -425,7 +434,13 @@ def transformer_train_step(cfg: TransformerConfig, mesh, lr: float = 1e-2, *,
     gradients are summed over (dp, sp) (the fused fold kernel, one launch
     per parameter tensor for all tp ranks), tp gradients come out whole
     from the f/g pair, the update is ``(p - lr * g).to(p.dtype)`` and the
-    loss is the (dp, sp) ranks' mean."""
+    loss is the (dp, sp) ranks' mean.
+
+    Each step is timed into the ``perfvars`` model block (``step_ns`` and
+    the four phases that tile it: ``forward_ns`` the placement, logits and
+    loss, ``backward_ns`` the autograd pass, ``grad_sum_ns`` the gradient
+    folds, ``update_ns`` the loss mean and the SGD update), and with the
+    span ring on recorded as ``model.step`` over ``model.<phase>`` spans."""
     specs = transformer_param_specs(cfg, tp_axis)
     names = (dp_axis, tp_axis, sp_axis)
     if len(set(names)) != 3:
@@ -456,24 +471,40 @@ def transformer_train_step(cfg: TransformerConfig, mesh, lr: float = 1e-2, *,
                 return _leaf(_place(p, [tp_axis], sharded_layout))
             return _leaf(_place(p, [], held))
 
-        own = _dp.tree_map(ranked, params, specs)
-        cut_over_tp = _dp.leaves(_dp.tree_map(lambda p, s: sharded and tp_axis in s,
-                                              params, specs))
-        positions = _sp_positions(n_sp, t // n_sp, tokens.device)
-        logits = _logits(cfg, own, cut(tokens), positions,
-                         tp_axis=tp_axis if sharded else None,
-                         sp_axis=sp_axis if n_sp > 1 else None, sp_dim=1)
-        losses = _xent_ranked(logits, cut(labels), 2)             # (n_dp, n_sp)
-        grads = torch.autograd.grad(losses.sum(), _dp.leaves(own))
-        summed = []
-        for g, over_tp in zip(grads, cut_over_tp):
-            if over_tp:
-                summed.append(_unplace(_psum(g, data, sharded_layout), [tp_axis],
-                                       sharded_layout))
-            else:
-                summed.append(_unplace(_psum(g, data, held), [], held))
-        loss = _pmean(losses.detach(), data, held)[0, 0]
-        return _sgd(params, summed, lr), loss
+        ph = _pv.Phases("model.step")
+        try:
+            own = _dp.tree_map(ranked, params, specs)
+            cut_over_tp = _dp.leaves(_dp.tree_map(lambda p, s: sharded and tp_axis in s,
+                                                  params, specs))
+            positions = _sp_positions(n_sp, t // n_sp, tokens.device)
+            logits = _logits(cfg, own, cut(tokens), positions,
+                             tp_axis=tp_axis if sharded else None,
+                             sp_axis=sp_axis if n_sp > 1 else None, sp_dim=1)
+            losses = _xent_ranked(logits, cut(labels), 2)             # (n_dp, n_sp)
+            ph.lap("model.forward")
+            grads = torch.autograd.grad(losses.sum(), _dp.leaves(own))
+            ph.lap("model.backward")
+            summed = []
+            for g, over_tp in zip(grads, cut_over_tp):
+                if over_tp:
+                    summed.append(_unplace(_psum(g, data, sharded_layout), [tp_axis],
+                                           sharded_layout))
+                else:
+                    summed.append(_unplace(_psum(g, data, held), [], held))
+            ph.lap("model.grad_sum")
+            loss = _pmean(losses.detach(), data, held)[0, 0]
+            new = _sgd(params, summed, lr)
+            ph.lap("model.update")
+        finally:
+            step_ns = ph.close()
+        if _pv.enabled():
+            ns = ph.ns
+            _pv.note_model(steps=1, step_ns=step_ns,
+                           forward_ns=ns["model.forward"],
+                           backward_ns=ns["model.backward"],
+                           grad_sum_ns=ns["model.grad_sum"],
+                           update_ns=ns["model.update"])
+        return new, loss
 
     return step, specs
 

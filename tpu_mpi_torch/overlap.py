@@ -722,9 +722,9 @@ def _flush_group(cid: Any, group: list) -> None:
             if sc is None:
                 r.result = p["copyout"](res)
             else:
-                t0 = _pv.monotonic()
+                t0 = sc.start()
                 r.result = p["copyout"](res)
-                sc.spans.append(("copy", t0, _pv.monotonic()))
+                sc.phase("copy", t0)
             r.status = STATUS_EMPTY
             r._trace_complete()
     finally:
@@ -903,7 +903,7 @@ class PersistentCollRequest:
             return self.status or STATUS_EMPTY
         # Wait-time ownership (the outermost-owner rule):
         # the round's wall clock is already fully accounted by the op scope
-        # its worker owns (phase_ns + times), so the inner CollRequest.wait
+        # its worker owns (its phases + times), so the inner CollRequest.wait
         # must not ALSO bump wait_ns for the same interval.
         from . import perfvars as _pv
         claimed = _pv.own_wait()

@@ -29,6 +29,7 @@ from typing import Optional
 
 import torch
 
+from .. import perfvars as _pv
 from ..kernels import attention as _attention
 from ..xla.collectives import Layout, _layout_shape
 
@@ -46,9 +47,13 @@ class _RingAttention(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        grads = _attention.attention_backward(q, k, v, out, dout.contiguous(),
-                                              causal=ctx.causal, scale=ctx.scale)
+        s = _pv.span_begin(cpu=False)
+        try:
+            q, k, v, out = ctx.saved_tensors
+            grads = _attention.attention_backward(q, k, v, out, dout.contiguous(),
+                                                  causal=ctx.causal, scale=ctx.scale)
+        finally:
+            _pv.span_end("attend_along.backward", s)
         return (*grads, None, None)
 
 
@@ -78,9 +83,13 @@ def attend_along(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dim: int, *,
     """Ring attention over the rank dim ``dim`` of q, k, v (..., t, d):
     that dim leads, every other dim before (t, d) joins the batch, and one
     kernel launch serves them all."""
-    n, t, d = q.shape[dim], q.shape[-2], q.shape[-1]
-    scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-    flat = [x.movedim(dim, 0).reshape(n, -1, t, d).contiguous() for x in (q, k, v)]
-    out = _RingAttention.apply(*flat, bool(causal), scale)
-    front = q.movedim(dim, 0).shape
-    return out.view(front).movedim(0, dim)
+    s = _pv.span_begin(cpu=False)
+    try:
+        n, t, d = q.shape[dim], q.shape[-2], q.shape[-1]
+        scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
+        flat = [x.movedim(dim, 0).reshape(n, -1, t, d).contiguous() for x in (q, k, v)]
+        out = _RingAttention.apply(*flat, bool(causal), scale)
+        front = q.movedim(dim, 0).shape
+        return out.view(front).movedim(0, dim)
+    finally:
+        _pv.span_end("attend_along", s)

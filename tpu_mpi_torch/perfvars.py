@@ -31,6 +31,14 @@ Span-attribution caveat: phase spans collect into a thread-local op scope,
 so a BLOCKING collective that routes through the nonblocking worker (only
 when that comm has outstanding ``I*`` ops) keeps its counters but loses its
 per-phase spans — the worker thread owns no scope for it.
+
+One clock: every span and phase counter here is taken on
+``time.perf_counter_ns``, the clock of ``MPI.Wtime``; :data:`monotonic` is
+its float-seconds view. The **span ring** (:func:`spans_on` /
+:func:`spans_off`; off by default) keeps the op scopes' phase spans and
+the spans the trainers and the model step open with :func:`span_begin` /
+:func:`span_end`, each with the thread's CPU time over it, in one bounded
+ring per thread, drained by :func:`take_spans`.
 """
 
 from __future__ import annotations
@@ -39,16 +47,23 @@ import json
 import os
 import threading
 import time
+from collections import deque
 
 from . import config
 from . import tracectx as _tc
-from typing import Any, Dict, List, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
-monotonic = time.monotonic
+# float seconds on the clock of every span and phase (perf_counter_ns)
+monotonic = time.perf_counter
 
+# the per-comm phases (``phase_s``: the JAX package's schema, which stats
+# reports render)
 PHASES = ("rendezvous", "fold", "copy",
           # hierarchical-composite sub-phases (backend._run_hier_*)
           "intra_fold", "inter_exchange", "allgather")
+# with ``enter`` (the op's start to this rank's deposit in a channel): the
+# phases of the per-collective split that frontdoor_totals reads
+OP_PHASES = ("enter",) + PHASES
 
 _UNSET = object()
 _enabled_cache: Tuple[Any, bool] = (_UNSET, False)
@@ -67,6 +82,8 @@ class _TLS(threading.local):
     scope = None                      # the open _OpScope of this thread
     acct = None                       # (store_gen, {key: CommPvars}) cache
     wait_owned = False                # a wait-time owner is on the stack
+    ring = None                       # this thread's _Ring
+    depth = 0                         # open ring spans on this thread
 
 
 _tls = _TLS()
@@ -117,11 +134,11 @@ class CommPvars:
     """The counter set of one ``(world rank, cid)`` pair."""
 
     __slots__ = ("rank", "cid", "size", "bytes_sent", "bytes_recv", "sends",
-                 "recvs", "wait_ns", "ops", "times", "phase_ns", "rma",
+                 "recvs", "wait_ns", "ops", "times", "rma",
                  "hist", "pipe_ops", "pipe_chunks", "pipe_fold_ns",
                  "pipe_wait_ns", "explore_calls", "explore_explored",
                  "table_swaps", "last_swap_gen", "batch_flushes",
-                 "batch_ops")
+                 "batch_ops", "coll_phase_ns")
 
     def __init__(self, rank: int, cid: int):
         self.rank = rank
@@ -136,7 +153,9 @@ class CommPvars:
         self.ops: Dict[Tuple[str, str, str], int] = {}
         # (coll, algo, nbytes) -> [count, total_ns, min_ns, max_ns]
         self.times: Dict[Tuple[str, str, int], List[int]] = {}
-        self.phase_ns = {p: 0 for p in PHASES}
+        # coll -> {phase: ns} over OP_PHASES (frontdoor_totals; phase_s
+        # is its sum over collectives)
+        self.coll_phase_ns: Dict[str, Dict[str, int]] = {}
         self.rma = {"fence": 0, "lock": 0, "flush": 0}
         self.hist: Dict[str, List[int]] = {}      # coll -> log2-µs buckets
         # chunk-pipeline overlap inputs (see snapshot() for the derived
@@ -171,7 +190,8 @@ class CommPvars:
                        "total_s": t[1] / 1e9, "min_s": t[2] / 1e9,
                        "max_s": t[3] / 1e9}
                       for (c, a, b), t in sorted(self.times.items())],
-            "phase_s": {p: ns / 1e9 for p, ns in self.phase_ns.items()},
+            "phase_s": {p: sum(split[p] for split in self.coll_phase_ns.values())
+                        / 1e9 for p in PHASES},
             "rma": dict(self.rma),
             "hist_bins": bins,
             "hist": {c: list(h) for c, h in sorted(self.hist.items())},
@@ -241,13 +261,49 @@ def _acct(comm: Any = None, cid: Optional[int] = None,
 # ---------------------------------------------------------------------------
 
 class _OpScope:
-    __slots__ = ("t0", "spans", "ev", "trace")
+    """One op's phase spans, ``(name, t0, t1)`` in :data:`monotonic`
+    seconds. Producers open a phase with :meth:`start` and close it with
+    :meth:`phase`; with the span ring on, each phase's CPU time is kept
+    beside it (``cpu``) and :func:`op_end` puts the op and its phases in
+    the ring."""
+
+    __slots__ = ("t0", "spans", "ev", "trace", "cpu", "cmark", "c0", "depth")
 
     def __init__(self):
         self.t0 = monotonic()
         self.spans: List[Tuple[str, float, float]] = []
         self.ev: Any = None           # the trace Event of this op, if any
         self.trace: Any = None        # the request TraceCtx, when sampled
+        self.cpu: Optional[List[int]] = None   # per-phase CPU ns (ring on)
+        if _spans_cap:
+            self.cpu = []
+            self.c0 = self.cmark = time.thread_time_ns()
+            self.depth = _tls.depth
+            _tls.depth += 1
+
+    def start(self) -> float:
+        """Open a phase; returns its start."""
+        t = monotonic()
+        if self.cpu is not None:
+            self.cmark = time.thread_time_ns()
+        return t
+
+    def phase(self, name: str, t0: float) -> float:
+        """Close phase ``name`` opened at ``t0``; returns its end, which
+        may open the next phase."""
+        if self.cpu is not None:
+            c = time.thread_time_ns()
+            self.cpu.append(c - self.cmark)
+            self.cmark = c
+        t1 = monotonic()
+        self.spans.append((name, t0, t1))
+        return t1
+
+    def enter(self) -> float:
+        """Close the ``enter`` phase at this rank's deposit in a channel:
+        from the op's start, or from the end of its last phase; returns
+        the deposit time, which opens the next phase."""
+        return self.phase("enter", self.spans[-1][2] if self.spans else self.t0)
 
 
 def scope() -> Optional[_OpScope]:
@@ -288,12 +344,17 @@ def op_end(sc: _OpScope, comm: Any = None, coll: Optional[str] = None,
         if pause:
             time.sleep(pause)
     t1 = monotonic()
+    if sc.cpu is not None:
+        _ring_op(sc, coll or "op", t1)
     ev = sc.ev
     if ev is not None:
         ev.t_start = sc.t0
         ev.t_end = t1
-        if sc.spans:
-            ev.phases = list(sc.spans)
+        # the event IR and request spans carry the per-comm phases alone
+        # (the JAX package's schema); enter feeds the ring and the split
+        phases = [sp for sp in sc.spans if sp[0] != "enter"]
+        if phases:
+            ev.phases = phases
     if sc.trace is not None:
         # per-rank request span: the op bracket parents under the request
         # context, and each measured phase nests under the op span
@@ -302,10 +363,11 @@ def op_end(sc: _OpScope, comm: Any = None, coll: Optional[str] = None,
         who = f"rank {env[1]}" if env is not None else "rank ?"
         rec = _tc.emit_span(sc.trace, coll or "op", who, sc.t0, t1,
                             algo=algo, nbytes=nbytes)
-        if rec is not None and sc.spans:
+        if rec is not None:
             pctx = _tc.TraceCtx(rec["trace"], rec["span"], True)
             for name, s0, s1 in sc.spans:
-                _tc.emit_span(pctx, name, who, s0, s1)
+                if name != "enter":
+                    _tc.emit_span(pctx, name, who, s0, s1)
     if not enabled() or coll is None:
         return
     acct = _acct(comm)
@@ -329,14 +391,183 @@ def op_end(sc: _OpScope, comm: Any = None, coll: Optional[str] = None,
                 t[2] = dur_ns
             if dur_ns > t[3]:
                 t[3] = dur_ns
+        split = acct.coll_phase_ns.get(coll)
+        if split is None:
+            split = acct.coll_phase_ns[coll] = dict.fromkeys(OP_PHASES, 0)
         for name, s0, s1 in sc.spans:
-            if name in acct.phase_ns:
-                acct.phase_ns[name] += int((s1 - s0) * 1e9)
+            if name in split:
+                split[name] += int((s1 - s0) * 1e9)
         hist = acct.hist.get(coll)
         if hist is None:
             hist = acct.hist[coll] = [0] * bins
         idx = (dur_ns // 1000).bit_length()   # log2 bucket of the µs latency
         hist[min(idx, len(hist) - 1)] += 1
+
+
+# ---------------------------------------------------------------------------
+# Span ring: bounded per-thread records of program spans (off by default)
+# ---------------------------------------------------------------------------
+
+class Span(NamedTuple):
+    """One ring record. ``cpu_ns`` is the thread's CPU time over the span
+    (``time.thread_time_ns``); wall less CPU is time off the CPU: waiting
+    on a lock, the GIL or a peer, or preempted, which a span cannot tell
+    apart. -1 where the span was opened without the CPU clock
+    (``span_begin(cpu=False)``, the model step's phases). ``rank`` is the
+    world rank, -1 on a thread outside every rank (autograd's device
+    thread)."""
+    rank: int
+    thread: int
+    name: str
+    depth: int
+    t0_ns: int
+    t1_ns: int
+    cpu_ns: int
+
+
+class _Ring:
+    __slots__ = ("buf", "dropped", "gen")
+
+    def __init__(self, capacity: int, gen: int):
+        self.buf: deque = deque(maxlen=capacity)
+        self.dropped = 0
+        self.gen = gen
+
+
+_spans_cap = 0                  # records kept a thread; 0: the ring is off
+_rings_lock = threading.Lock()
+_rings: List[_Ring] = []
+_ring_gen = 0                   # bumped by spans_on: threads take new rings
+
+
+def spans_on(capacity: int = 65536) -> None:
+    """Start recording spans, at most ``capacity`` a thread (the oldest
+    dropped first); drops what earlier rings held."""
+    global _spans_cap, _rings, _ring_gen
+    if capacity < 1:
+        raise ValueError(f"span ring capacity {capacity} < 1")
+    with _rings_lock:
+        _ring_gen += 1
+        _rings = []
+        _spans_cap = int(capacity)
+
+
+def spans_off() -> None:
+    """Stop recording spans; what the rings hold stays for
+    :func:`take_spans`."""
+    global _spans_cap
+    with _rings_lock:
+        _spans_cap = 0
+
+
+def take_spans() -> List[Span]:
+    """Every thread's records, by start time (an outer span before the
+    spans it holds), and clear the rings."""
+    with _rings_lock:
+        rings = list(_rings)
+    out: List[Span] = []
+    for ring in rings:
+        buf = ring.buf
+        for _ in range(len(buf)):
+            out.append(buf.popleft())
+    out.sort(key=lambda r: (r.t0_ns, r.depth))
+    return out
+
+
+def spans_dropped() -> int:
+    """Records the rings dropped, full, since :func:`spans_on`."""
+    with _rings_lock:
+        return sum(r.dropped for r in _rings)
+
+
+def span_begin(cpu: bool = True) -> Optional[Tuple[int, Optional[int], int]]:
+    """Open a span on this thread: a token for :func:`span_end`, or None
+    while the ring is off (one global read). ``cpu``: read the thread's
+    CPU clock at both ends. A read is a system call (5-14 µs on the H100
+    host the benchmark runs on, more when threads contend), so spans that
+    only place work in time (where the card idles) pass False. Close it
+    in a ``finally``: the token carries the depth it opened at, and
+    closing restores it, so a span left open inside it by a raise is
+    healed there."""
+    if not _spans_cap:
+        return None
+    depth = _tls.depth
+    _tls.depth = depth + 1
+    return time.perf_counter_ns(), time.thread_time_ns() if cpu else None, depth
+
+
+def span_end(name: str,
+             token: Optional[Tuple[int, Optional[int], int]]) -> None:
+    """Close the span ``token`` opened and record it as ``name``."""
+    if token is None:
+        return
+    t0, c0, depth = token
+    cpu = time.thread_time_ns() - c0 if c0 is not None else -1
+    t1 = time.perf_counter_ns()
+    _tls.depth = depth
+    _record(name, depth, t0, t1, cpu)
+
+
+def _record(name: str, depth: int, t0: int, t1: int, cpu: int) -> None:
+    cap = _spans_cap
+    if not cap:
+        return
+    ring = _tls.ring
+    if ring is None or ring.gen != _ring_gen:
+        ring = _tls.ring = _Ring(cap, _ring_gen)
+        with _rings_lock:
+            if ring.gen == _ring_gen:
+                _rings.append(ring)
+    if len(ring.buf) == ring.buf.maxlen:
+        ring.dropped += 1
+    env = _runtime.current_env()
+    # the two clocks are read apart: CPU time over a span cannot pass its
+    # wall time, so a difference of their readings is clipped
+    ring.buf.append(Span(env[1] if env is not None else -1,
+                         threading.get_ident(), name, depth, t0, t1,
+                         min(cpu, t1 - t0) if cpu >= 0 else -1))
+
+
+def _ring_op(sc: _OpScope, name: str, t1: float) -> None:
+    """Put a closing op and its phases in the ring."""
+    cpu = time.thread_time_ns() - sc.c0
+    _tls.depth = sc.depth
+    _record(name, sc.depth, int(sc.t0 * 1e9), int(t1 * 1e9), cpu)
+    for (phase, s0, s1), c in zip(sc.spans, sc.cpu):
+        _record(phase, sc.depth + 1, int(s0 * 1e9), int(s1 * 1e9), c)
+
+
+class Phases:
+    """Back-to-back phases of one step, each closed by :meth:`lap`: their
+    nanoseconds by name in ``ns``, and with the ring on each a span (wall
+    time alone) nested in one span ``outer`` over them all."""
+
+    __slots__ = ("outer", "t0", "t", "depth", "ns")
+
+    def __init__(self, outer: str):
+        self.outer = outer
+        self.ns: Dict[str, int] = {}
+        self.depth = None
+        if _spans_cap:
+            self.depth = _tls.depth
+            _tls.depth += 2          # spans inside a phase nest under it
+        self.t0 = self.t = time.perf_counter_ns()
+
+    def lap(self, name: str) -> None:
+        """Close the phase that began at the last lap (or at the start)."""
+        t = time.perf_counter_ns()
+        self.ns[name] = self.ns.get(name, 0) + t - self.t
+        if self.depth is not None:
+            _record(name, self.depth + 1, self.t, t, -1)
+        self.t = t
+
+    def close(self) -> int:
+        """End the step at the last lap; returns its nanoseconds. Call it
+        in a ``finally``: it restores the thread's span depth."""
+        if self.depth is not None:
+            _tls.depth = self.depth
+            _record(self.outer, self.depth, self.t0, self.t, -1)
+        return self.t - self.t0
 
 
 # -- test/debug latency shim (config.tune_shim) ------------------------------
@@ -424,7 +655,7 @@ def add_wait(wait_s: float, comm: Any = None, cid: Optional[int] = None) -> None
 #
 # A persistent collective round is fully accounted by the op scope its
 # worker (or the inline registered fast path) owns: the round's wall clock
-# lands in ``times`` and its blocked share in ``phase_ns["rendezvous"]``.
+# lands in ``times`` and its blocked share in the ``rendezvous`` phase.
 # The caller blocked in ``Wait`` covers the SAME wall clock, so letting the
 # inner ``CollRequest.wait`` also bump ``wait_ns`` double-counts it — the
 # overhead_probe --pvars bug. ``PersistentCollRequest`` claims
@@ -573,6 +804,28 @@ def train_snapshot() -> dict:
             return {}
         return {**_train, "gauges": dict(_train_gauges),
                 "step_ns_samples": list(_train_steps)}
+
+
+# -- model-step block (tpu_mpi_torch.models) ----------------------------------------
+#
+# Process-global like the train block: the in-graph step holds every rank
+# of its mesh in one call. Counters: steps, step_ns and the four phases
+# that tile a step, forward_ns, backward_ns, grad_sum_ns, update_ns.
+
+_model: Dict[str, int] = {}
+
+
+def note_model(**counts: int) -> None:
+    """Accumulate model-step counters."""
+    with _store_lock:
+        for k, v in counts.items():
+            _model[k] = _model.get(k, 0) + int(v)
+
+
+def model_snapshot() -> dict:
+    """The model block of :func:`snapshot` (may be empty)."""
+    with _store_lock:
+        return dict(_model)
 
 
 # -- elastic-capacity block (tpu_mpi_torch.elastic) ---------------------------------
@@ -747,6 +1000,53 @@ def arm_stats(comm: Any) -> List[Tuple[str, str, int, int, int]]:
                 for (c, a, b), t in sorted(acct.times.items())]
 
 
+def frontdoor_totals(coll: str = "allreduce") -> dict:
+    """One collective's front-door totals, summed over this process's
+    ranks and comms, as one flat dict: ``ops`` (rank-ops) and ``op_ns``
+    from ``times``, ``<phase>_ns`` for each of :data:`OP_PHASES`, and the
+    plan cache's and the auto-armed lane's hits and misses."""
+    from .overlap import plans
+    out = {"ops": 0, "op_ns": 0, **{f"{p}_ns": 0 for p in OP_PHASES}}
+    with _store_lock:
+        for acct in _store.values():
+            for (c, _, _), t in acct.times.items():
+                if c == coll:
+                    out["ops"] += t[0]
+                    out["op_ns"] += t[1]
+            for p, ns in acct.coll_phase_ns.get(coll, {}).items():
+                out[f"{p}_ns"] += ns
+    st = plans.stats()
+    out.update(plan_hits=st["hits"], plan_misses=st["misses"],
+               auto_hits=st["auto"]["hits"], auto_arms=st["auto"]["arms"],
+               auto_demotions=st["auto"]["demotions"])
+    return out
+
+
+def kernels_snapshot() -> dict:
+    """The kernels block of :func:`snapshot`: each CUDA library's builds
+    and loads (count and ns, by library), the kernels' launch counts, the
+    folds that left the fold kernel and the in-graph layout copies, read
+    where they are kept. At most one level of nesting."""
+    from . import collective
+    from .kernels import _build, attention, fused_reduce, permute, ring
+    from .xla import collectives as xc
+    libs = list(_build.Library.instances)
+    return {"builds": {lib.name: lib.builds for lib in libs},
+            "build_ns": {lib.name: lib.build_ns for lib in libs},
+            "loads": {lib.name: lib.loads for lib in libs},
+            "load_ns": {lib.name: lib.load_ns for lib in libs},
+            "fold_launches": fused_reduce.launches,
+            "fold_route_launches": dict(fused_reduce.route_launches),
+            "attention_launches": attention.launches,
+            "attention_route_launches": dict(attention.route_launches),
+            "ring_launches": dict(ring.launches),
+            "ring_route_launches": dict(ring.route_launches),
+            "callable_rings": ring.callable_rings,
+            "permute_launches": dict(permute.launches),
+            "chained_folds": collective.chained_folds,
+            "layout_copies": xc.layout_copies}
+
+
 # ---------------------------------------------------------------------------
 # Snapshot / reset / dump
 # ---------------------------------------------------------------------------
@@ -793,6 +1093,7 @@ def snapshot(rank: Optional[int] = None, reset: bool = False) -> dict:
             "topology": _topology_stamp(),
             "comms": comms, "plan_cache": plans.stats(),
             "infer": infer_snapshot(), "train": train_snapshot(),
+            "model": model_snapshot(), "kernels": kernels_snapshot(),
             "elastic": elastic_snapshot(),
             "serve_frame": serve_frame_snapshot(),
             "front_door": front_door_snapshot(),
@@ -825,6 +1126,7 @@ def reset() -> None:
         _train.clear()
         _train_gauges.clear()
         _train_steps.clear()
+        _model.clear()
         _elastic.clear()
         _elastic_gauges.clear()
         _serve_frame.clear()
@@ -887,3 +1189,7 @@ def finalize_dump(force: bool = False) -> Optional[str]:
     rank = env[1] if env is not None else 0
     return dump(os.path.join(os.path.expanduser(d), f"pvars-rank{rank}.json"),
                 rank=rank)
+
+
+# last: _runtime imports this module (the ring reads its current_env)
+from . import _runtime  # noqa: E402

@@ -1431,7 +1431,7 @@ class Broker:
                 # the fair-queue wait, reconstructed at pop time: DRR decided
                 # when this op's tenant got its turn
                 _tc.emit_span(op.trace, "queue", "broker", op.t_submit,
-                              time.monotonic(), tenant=op.tenant,
+                              time.perf_counter(), tenant=op.tenant,
                               kind=op.kind, oid=op.oid)
             if op.kind == "generate":
                 # DRR decided its admission slot; the scheduler batches it
@@ -1501,7 +1501,7 @@ class Broker:
                                "(TPU_MPI_SESSION_TOKEN mismatch)")
 
     def attach_tenant(self, conn, meta: dict) -> Lease:
-        t0_span = time.monotonic()
+        t0_span = time.perf_counter()
         self._check_token(meta.get("token"))
         # a resize holds the gate while the rank map is in flux: attaches
         # queue here and land on the post-resize pool (tests drive this)
@@ -1542,7 +1542,7 @@ class Broker:
         ctx = _tc.TraceCtx.from_meta(meta)
         if ctx is not None and ctx.sampled:
             _tc.emit_span(ctx, "broker:attach", "broker", t0_span,
-                          time.monotonic(), tenant=tenant)
+                          time.perf_counter(), tenant=tenant)
         return lease
 
     def revoke_lease(self, lease: Lease, reason: str, *,
@@ -1764,7 +1764,7 @@ class Broker:
             # admission book is the quota authority; breach = typed reject
             self.ledger.charge(lease.tenant, op.nbytes)
         try:
-            op.t_submit = time.monotonic()
+            op.t_submit = time.perf_counter()
             self.fq.submit(op)
         except MPIError as e:
             if getattr(e, "retriable", False):
@@ -1877,7 +1877,7 @@ class Broker:
         op.nbytes = nbytes
         op.trace = tctx
         try:
-            op.t_submit = time.monotonic()
+            op.t_submit = time.perf_counter()
             self.fq.submit(op)
         except MPIError as e:
             if getattr(e, "retriable", False):

@@ -244,14 +244,14 @@ class Router:
         # untouched (redirect echoes it back, splice forwards it verbatim);
         # the router contributes its own span for the routing decision
         tctx = _tc.TraceCtx.from_meta(meta)
-        t0_span = time.monotonic()
+        t0_span = time.perf_counter()
         home = assign_broker(tenant, self.brokers)
         if self.mode == "redirect":
             protocol.send_frame(conn, protocol.REDIRECT,
                                 {"home": home, "tenant": tenant})
             if tctx is not None and tctx.sampled:
                 _tc.emit_span(tctx, "router:redirect", "router", t0_span,
-                              time.monotonic(), tenant=tenant, home=home)
+                              time.perf_counter(), tenant=tenant, home=home)
             return
         try:
             upstream = protocol.connect(home)
@@ -262,7 +262,7 @@ class Router:
             return
         if tctx is not None and tctx.sampled:
             _tc.emit_span(tctx, "router:splice", "router", t0_span,
-                          time.monotonic(), tenant=tenant, home=home)
+                          time.perf_counter(), tenant=tenant, home=home)
         with self._routes_lock:
             self.routes[tenant] = home
         try:

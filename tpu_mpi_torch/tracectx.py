@@ -13,7 +13,7 @@ Spans land in one process-global bounded buffer as plain dicts::
 
     {"trace": id, "span": sid, "parent": psid, "name": "...",
      "who": "client" | "router" | "broker" | "rank 3" | ...,
-     "t0": monotonic, "t1": monotonic, "status": "ok" | "error", ...}
+     "t0": perf_counter, "t1": perf_counter, "status": "ok" | "error", ...}
 
 ``analyze/timeline.py`` renders the buffer as Chrome-trace slices (one lane
 per ``who``); multi-process runs dump per process via :func:`dump_spans`
@@ -162,7 +162,7 @@ def start_span(ctx: Optional[TraceCtx], name: str, who: str,
     if ctx is None or not ctx.sampled:
         return None
     rec = {"trace": ctx.trace_id, "span": _new_id(), "parent": ctx.span_id,
-           "name": name, "who": who, "t0": time.monotonic(), "t1": None,
+           "name": name, "who": who, "t0": time.perf_counter(), "t1": None,
            "status": "ok"}
     if extra:
         rec.update({k: v for k, v in extra.items() if v is not None})
@@ -178,7 +178,7 @@ def start_root(name: str, who: str, **extra: Any):
         return None, None
     trace_id = os.urandom(8).hex()
     rec = {"trace": trace_id, "span": _new_id(), "parent": None,
-           "name": name, "who": who, "t0": time.monotonic(), "t1": None,
+           "name": name, "who": who, "t0": time.perf_counter(), "t1": None,
            "status": "ok"}
     if extra:
         rec.update({k: v for k, v in extra.items() if v is not None})
@@ -189,7 +189,7 @@ def end_span(rec: Optional[dict], status: str = "ok", **extra: Any) -> None:
     """Close and publish a span opened by :func:`start_span`."""
     if rec is None:
         return
-    rec["t1"] = time.monotonic()
+    rec["t1"] = time.perf_counter()
     rec["status"] = status
     if extra:
         rec.update(extra)

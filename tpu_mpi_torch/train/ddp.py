@@ -131,41 +131,77 @@ class DDPTrainer:
 
     def step(self, grads: Iterable[Tuple[str, Any]]) -> None:
         """One optimizer step from an iterable of ``(name, grad)`` in the
-        configured arrival order. Mutates params in place."""
-        t_step = time.perf_counter_ns()
-        started: List[Tuple[int, int]] = []   # (bucket index, t0)
-        wait_ns = 0
-        window_ns = 0
-        for name, grad in grads:
-            b = self.bucketer.add(name, grad)
-            if b is None:
-                continue
-            _pv.note_train(bucket_flushes=1)
-            if self.overlap:
-                Start(self._handles[b.index])
-                _pv.note_train(starts=1)
-                started.append((b.index, time.perf_counter_ns()))
-            else:
-                t0 = time.perf_counter_ns()
-                Allreduce(b.send, b.recv, SUM, self.comm)
-                t1 = time.perf_counter_ns()
-                wait_ns += t1 - t0
-                window_ns += t1 - t0
-        if self.overlap:
+        configured arrival order. Mutates params in place.
+
+        Timed into the ``perfvars`` train counters: ``pack_ns`` (the
+        bucketer's copies), ``start_ns``, ``wait_ns`` (with the blocking
+        control's ``Allreduce``), ``optimizer_ns`` (the fold) and
+        ``step_ns``; with the span ring on, ``ddp.step`` holds one
+        ``ddp.pack`` (from a bucket's first copy to its last, the caller's
+        iterator between them included), ``ddp.start`` and ``ddp.wait`` a
+        bucket and one ``ddp.optimizer``; a raise closes ``ddp.step`` and
+        leaves the thread's span depth as it found it."""
+        clock = time.perf_counter_ns
+        t_step = clock()
+        s_step = _pv.span_begin(cpu=False)
+        try:
+            started: List[Tuple[int, int]] = []   # (bucket index, t0)
+            pack_ns = start_ns = wait_ns = window_ns = 0
+            flushes = 0
+            packing = False
+            for name, grad in grads:
+                if not packing:
+                    s_pack, packing = _pv.span_begin(), True
+                t0 = clock()
+                b = self.bucketer.add(name, grad)
+                t1 = clock()
+                pack_ns += t1 - t0
+                if b is None:
+                    continue
+                _pv.span_end("ddp.pack", s_pack)
+                packing = False
+                flushes += 1
+                if self.overlap:
+                    s = _pv.span_begin()
+                    Start(self._handles[b.index])
+                    _pv.span_end("ddp.start", s)
+                    t2 = clock()
+                    start_ns += t2 - t1
+                    started.append((b.index, t2))
+                else:
+                    s = _pv.span_begin(cpu=False)
+                    t0 = clock()
+                    Allreduce(b.send, b.recv, SUM, self.comm)
+                    t2 = clock()
+                    _pv.span_end("ddp.wait", s)
+                    wait_ns += t2 - t0
+                    window_ns += t2 - t0
+            if packing:
+                _pv.span_end("ddp.pack", s_pack)
             for idx, t0 in started:
-                t1 = time.perf_counter_ns()
+                s = _pv.span_begin(cpu=False)
+                t1 = clock()
                 Wait(self._handles[idx])
-                t2 = time.perf_counter_ns()
-                _pv.note_train(waits=1)
+                t2 = clock()
+                _pv.span_end("ddp.wait", s)
                 wait_ns += t2 - t1
                 window_ns += t2 - t0
-        self._fold()
-        self.bucketer.reset()
-        self.step_count += 1
-        self._wait_ns += wait_ns
-        self._window_ns += window_ns
-        _pv.note_train(wait_ns=wait_ns, comm_window_ns=window_ns)
-        _pv.note_train_step(time.perf_counter_ns() - t_step)
+            s = _pv.span_begin()
+            t0 = clock()
+            self._fold()
+            t1 = clock()
+            _pv.span_end("ddp.optimizer", s)
+            self.bucketer.reset()
+            self.step_count += 1
+            self._wait_ns += wait_ns
+            self._window_ns += window_ns
+            _pv.note_train(bucket_flushes=flushes, starts=len(started),
+                           waits=len(started), wait_ns=wait_ns,
+                           comm_window_ns=window_ns, pack_ns=pack_ns,
+                           start_ns=start_ns, optimizer_ns=t1 - t0)
+            _pv.note_train_step(clock() - t_step)
+        finally:
+            _pv.span_end("ddp.step", s_step)
 
     def _fold(self) -> None:
         inv = 1.0 / self.comm.size()

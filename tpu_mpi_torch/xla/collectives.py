@@ -82,6 +82,7 @@ import numpy as np
 import torch
 
 from .. import collective as _collective
+from .. import perfvars as _pv
 from ..kernels import permute as _permute
 from ..kernels import ring as _ring
 from ..kernels.ring import stacked_ranks
@@ -270,6 +271,15 @@ def allreduce(xs: torch.Tensor, op: Any = SUM, *, axis: Axis = "x",
               mesh: Layout = None, approx_prod: bool = False) -> torch.Tensor:
     """Allreduce: every rank gets the rank-ordered fold of its group's
     rows."""
+    s = _pv.span_begin(cpu=False)
+    try:
+        return _allreduce(xs, op, axis, mesh, approx_prod)
+    finally:
+        _pv.span_end("xla.allreduce", s)
+
+
+def _allreduce(xs: torch.Tensor, op: Any, axis: Axis, mesh: Layout,
+               approx_prod: bool) -> torch.Tensor:
     group = _Group(xs, axis, mesh, "allreduce")
     op = as_op(op)
     if op is SUM:
