@@ -1878,12 +1878,131 @@ def reset_counts(collective, fr, ring, permute, attention) -> None:
     collective.chained_folds = 0
 
 
-def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str) -> dict:
+def ddp_step_times(ddp_step, start: dict, layout: list, dtype, device,
+                   caps: dict, logdir: str) -> dict:
+    """The DDP trainer's pack and update kernels at the trainer's bucket
+    layout (``layout``: each bucket's ``(base, count, names)`` in arrival
+    order), one rank-step a call: every bucket packed from ``dtype``
+    gradients of ``start``'s shapes, then one update over every bucket.
+    Each is held bitwise to its plain version and to a library form on the
+    same card tensors (raises on a mismatch), then timed in turns with them:
+    ``torch.cat(out=)`` a bucket for the pack, five ``torch._foreach_*``
+    calls over the buckets for the update. ``span_ms`` is the kernels'
+    device time a call under the profiler; the bounds count 2 + 8 bytes an
+    element for a bfloat16 pack and 40 for the update."""
+    import torch
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 21)
+    f64 = dict(dtype=torch.float64, device=device)
+    specials = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan")])
+    grads = {}
+    for name, w in start.items():
+        g = torch.randn(w.shape, generator=gen, device=device).to(dtype)
+        k = min(g.numel(), specials.numel())
+        g.view(-1)[:k] = specials[:k].to(device=device, dtype=dtype)
+        grads[name] = g
+    parts = []
+    for _, count, names in layout:
+        off, ps = 0, []
+        for name in names:
+            ps.append((off, grads[name].numel(), grads[name]))
+            off += grads[name].numel()
+        if off != count:
+            raise AssertionError(f"a bucket of {count} elements holds {off}")
+        parts.append(ps)
+    total = sum(count for _, count, _ in layout)
+    sends = [torch.empty(count, **f64) for _, count, _ in layout]
+
+    def pack():
+        for dst, ps in zip(sends, parts):
+            ddp_step.pack(dst, ps)
+
+    def pack_plain():
+        for dst, ps in zip(sends, parts):
+            ddp_step.pack_plain(dst, ps)
+
+    def pack_cat():
+        for dst, ps in zip(sends, parts):
+            torch.cat([g.reshape(-1) for _, _, g in ps], out=dst)
+
+    pack()
+    want = [dst.clone() for dst in sends]
+    for label, fn in (("plain", pack_plain), ("library", pack_cat)):
+        for dst in sends:
+            dst.fill_(-7.0)
+        fn()
+        if not all(same_bits(a, b) for a, b in zip(want, sends)):
+            raise AssertionError(f"ddp_pack_kernel != the {label} pack at the "
+                                 f"trainer's buckets")
+    del want
+    chunks = sum(-(-len(ps) // ddp_step.SEG_MAX) for ps in parts)
+    pack_bytes = total * (torch.finfo(dtype).bits // 8 + 8)
+    res = {"pack": {
+        **turns(pack, pack_cat, others={"plain": pack_plain}),
+        "span_ms": kernel_span_ms(pack, "ddp_pack_kernel", logdir, iters=5) * chunks,
+        "library_span_ms": kernel_span_ms(pack_cat, None, logdir, iters=5),
+        "library_call": "torch.cat([g.reshape(-1) for g in parts], out=send) a bucket",
+        "bound": bound(pack_bytes, 0, caps), "bytes": pack_bytes,
+        "launches_a_call": chunks, "buckets": len(layout), "elements": total,
+        "dtype": str(dtype)}}
+
+    inv, mu, lr = 1.0 / NRANKS, 0.9, TRAIN_LR
+    recvs = [torch.randn(count, generator=gen, **f64) for _, count, _ in layout]
+    recvs[0][:5] = specials.to(**f64)
+    uparts = [(base, count, r) for (base, count, _), r in zip(layout, recvs)]
+    master0 = torch.randn(total, generator=gen, **f64)
+    mom0 = torch.randn(total, generator=gen, **f64)
+    mom0[:3] = torch.tensor([0.0, -0.0, -0.0], **f64)
+
+    def foreach(master, momentum):
+        ps = [master.narrow(0, b, c) for b, c, _ in uparts]
+        ms = [momentum.narrow(0, b, c) for b, c, _ in uparts]
+
+        def step():
+            gs = torch._foreach_mul(recvs, inv)
+            torch._foreach_mul_(ms, mu)
+            torch._foreach_add_(ms, gs)
+            torch._foreach_sub_(ps, torch._foreach_mul(ms, lr))
+        return step
+
+    want = (master0.clone(), mom0.clone())
+    ddp_step.update(*want, uparts, inv, mu, lr)
+    for label in ("plain", "library"):
+        master, momentum = master0.clone(), mom0.clone()
+        if label == "plain":
+            ddp_step.update_plain(master, momentum, uparts, inv, mu, lr)
+        else:
+            foreach(master, momentum)()
+        if not (same_bits(master, want[0]) and same_bits(momentum, want[1])):
+            raise AssertionError(f"ddp_update_kernel != the {label} update at the "
+                                 f"trainer's buckets")
+        del master, momentum
+    del want
+    master, momentum = master0, mom0
+    update = lambda: ddp_step.update(master, momentum, uparts, inv, mu, lr)  # noqa: E731
+    plain = lambda: ddp_step.update_plain(master, momentum, uparts, inv, mu, lr)  # noqa: E731
+    library = foreach(master, momentum)
+    ulaunches = -(-len(uparts) // ddp_step.SEG_MAX)
+    res["update"] = {
+        **turns(update, library, others={"plain": plain}),
+        "span_ms": kernel_span_ms(update, "ddp_update_kernel", logdir, iters=5)
+        * ulaunches,
+        "library_span_ms": kernel_span_ms(library, None, logdir, iters=5),
+        "library_call": "torch._foreach_mul / _mul_ / _add_ / _mul / _sub_ over the "
+                        "buckets' ranges",
+        "bound": bound(40 * total, 5 * total, caps), "bytes": 40 * total,
+        "launches_a_call": ulaunches, "buckets": len(layout), "elements": total,
+        "dtype": "torch.float64"}
+    return res
+
+
+def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
+                caps: dict) -> dict:
     """Phase 12: the sp and tp train steps, the trainers, and their times."""
     import torch
     import torch.nn.functional as F
     from tpu_mpi_torch import collective
-    from tpu_mpi_torch.kernels import attention, fused_reduce as fr, permute, ring
+    from tpu_mpi_torch.kernels import attention, ddp_step, fused_reduce as fr, permute, ring
     from tpu_mpi_torch.train import DDPTrainer, FSDPTrainer
     out = {}
     rng = np.random.default_rng(SEED + 12)
@@ -2006,17 +2125,27 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str) -> d
                     spans[f"{name}_folds"].append(fr.launches - f0)
             del grads
         same = all(same_bits(ddp.params[k], fsdp.params[k]) for k in start)
-        return same, len(ddp.bucketer), ddp.opt_state_bytes(), fsdp.opt_state_bytes()
+        layout = [(b.base, b.count, list(b.names)) for b in ddp.bucketer.buckets]
+        return same, layout, ddp.opt_state_bytes(), fsdp.opt_state_bytes()
 
     from tpu_mpi_torch import _runtime
     collective.chained_folds = 0
+    ddp_step.reset_launches()
     stamped0 = _runtime.stamp_stats["rounds"]
     res = MPI.spmd_run(body, NRANKS, timeout=900)
     release_world_plans()
     chained = collective.chained_folds
     stamped = _runtime.stamp_stats["rounds"] - stamped0
-    same, nbuckets, ddp_bytes, fsdp_bytes = res[0]
+    same, layout, ddp_bytes, fsdp_bytes = res[0]
+    nbuckets = len(layout)
+    rank_steps = NRANKS * TRAIN_TRAINER_STEPS
+    want_packs = rank_steps * sum(-(-len(names) // ddp_step.SEG_MAX)
+                                  for _, _, names in layout)
+    want_updates = rank_steps * -(-nbuckets // ddp_step.SEG_MAX)
+    ddp_launches = {"pack": ddp_step.pack_launches, "update": ddp_step.update_launches,
+                    "pack_copies": ddp_step.pack_copies}
     out["trainers"] = {"bitwise_equal": all(x[0] for x in res), "buckets": nbuckets,
+                       "ddp_step_launches": ddp_launches,
                        "steps": TRAIN_TRAINER_STEPS, "stamped_rounds": stamped,
                        "ddp_ms": spans["ddp"], "fsdp_ms": spans["fsdp"],
                        "ddp_folds": spans["ddp_folds"], "fsdp_folds": spans["fsdp_folds"],
@@ -2029,8 +2158,16 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str) -> d
         f"{out['trainers']['bitwise_equal']}; opt_state_bytes DDP {ddp_bytes} "
         f"FSDP {fsdp_bytes}; ms per step DDP {spans['ddp']} FSDP {spans['fsdp']} "
         f"{where}")
+    log(f"train: DDP pack launches {ddp_launches['pack']} (want {want_packs}: one "
+        f"a bucket of at most {ddp_step.SEG_MAX} gradients), update launches "
+        f"{ddp_launches['update']} (want {want_updates}), gradients copied before "
+        f"the pack {ddp_launches['pack_copies']}, over {rank_steps} rank-steps")
     if not out["trainers"]["bitwise_equal"]:
         raise AssertionError("DDP and FSDP differ")
+    if (ddp_launches["pack"], ddp_launches["update"], ddp_launches["pack_copies"]) \
+            != (want_packs, want_updates, 0):
+        raise AssertionError(f"the DDP trainer's kernels: {ddp_launches}, want "
+                             f"{want_packs} packs, {want_updates} updates, 0 copies")
     if min(spans["ddp_folds"]) < nbuckets or chained:
         raise AssertionError("a DDP bucket left the fold kernel")
     if stamped < TRAIN_TRAINER_STEPS * nbuckets:
@@ -2038,6 +2175,21 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str) -> d
                              f"{TRAIN_TRAINER_STEPS} steps of {nbuckets} buckets")
     if fsdp_bytes * NRANKS != ddp_bytes:
         raise AssertionError("FSDP's optimizer state is not 1/n of DDP's")
+
+    # the DDP trainer's kernels at its bucket layout, against plain and library
+    torch.cuda.empty_cache()
+    out["ddp_step"] = ddp_step_times(ddp_step, start, layout, cfg.dtype, device, caps,
+                                     logdir)
+    torch.cuda.empty_cache()
+    for name, t in out["ddp_step"].items():
+        log(f"train: DDP {name} at the trainer's {t['buckets']} buckets, "
+            f"{t['elements']} elements ({t['dtype']}), one rank-step a call, == plain "
+            f"and {t['library_call']} bitwise; in turns kernel {t['ms_turns']} ms, "
+            f"library {t['library_ms_turns']} ms, plain {t['plain_ms_turns']} ms; "
+            f"medians {t['ms']:.4f} / {t['library_ms']:.4f} / {t['plain_ms']:.4f}; "
+            f"device time a call: kernels {t['span_ms']:.4f} ms "
+            f"({t['launches_a_call']} launches), library {t['library_span_ms']} ms; "
+            f"bound {t['bound'][0]:.4f} ms ({t['bound'][1]}) {where}")
 
     # times: the sp step, its device work, the attention backward
     tok, lab = tokens[0], labels[0]
@@ -5688,7 +5840,7 @@ def main() -> int:
     from tpu_mpi_torch.kernels import _build, fused_reduce as fr, ring
 
     from tpu_mpi_torch import parallel as par
-    from tpu_mpi_torch.kernels import attention, permute
+    from tpu_mpi_torch.kernels import attention, ddp_step, permute
     from tpu_mpi_torch.models import transformer as tr
 
     # every card comparison below: float32 matmuls in full float32, bfloat16
@@ -5708,7 +5860,7 @@ def main() -> int:
     t0 = time.perf_counter()
     against = against_libraries(_build, args.against)
     libs = (fr.LIBRARY, ring.LIBRARY, permute.LIBRARY, attention.LIBRARY,
-            attention.LIBRARY_SM90, *(lib for tree in against.values()
+            attention.LIBRARY_SM90, ddp_step.LIBRARY, *(lib for tree in against.values()
                                       for lib in tree.values()))
     built = _build.build_all(libs)
     for lib in libs:
@@ -6070,7 +6222,7 @@ def main() -> int:
 
     # 12. training at the flagship width
     t0 = time.perf_counter()
-    train = train_phase(MPI, tr, xla, cfg, params, device, logdir, where)
+    train = train_phase(MPI, tr, xla, cfg, params, device, logdir, where, caps)
     log(f"training phase in {time.perf_counter() - t0:.1f} s")
     trainers = train["trainers"]
     train_folds = (train["sp"]["fold_launches"] + train["tp"]["fold_launches"]
@@ -6124,6 +6276,22 @@ def main() -> int:
         train_launches=train["sp"]["attention_launches"],
         train_backward_ms=train["times"]["attention_backward_ms"],
         train_sdpa_fwd_bwd_ms=train["times"]["sdpa_fwd_bwd_ms"]))
+    for name, needle in (("pack", "ddp_pack_kernel"), ("update", "ddp_update_kernel")):
+        t = train["ddp_step"][name]
+        kernels.append({
+            "name": needle, "route": "cuda", "source": rel(ddp_step.SOURCE),
+            "replaces": "none (the DDP trainer's per-step pass, numpy on the host in "
+                        "tpu_mpi/train)",
+            "launches": trainers["ddp_step_launches"][name], "max_abs_err": 0.0,
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
+            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
+            "library_call": t["library_call"], "parity": "bitwise",
+            "span_ms": t["span_ms"], "library_span_ms": t["library_span_ms"],
+            "dtype": t["dtype"], "buckets": t["buckets"], "elements": t["elements"],
+            "launches_a_call": t["launches_a_call"],
+            "path": f"train: DDPTrainer, {TRAIN_TRAINER_STEPS} steps on {NRANKS} rank "
+                    f"threads; times one rank-step a call",
+            **{k: v for k, v in t.items() if k.endswith("_turns")}})
     # 13. point-to-point and Cartesian topology on the rank threads
     p2p = p2p_phase(MPI, collective, fr, host, device, caps, copy_gbps, logdir,
                     where)

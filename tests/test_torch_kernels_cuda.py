@@ -712,6 +712,187 @@ def test_ddp_fsdp_on_card():
 
 
 # ---------------------------------------------------------------------------
+# The DDP trainer's pack and update kernels (kernels/ddp_step.py)
+# ---------------------------------------------------------------------------
+
+# Ragged segment sizes around the kernels' 2048-element tile; a launch takes
+# 32 segments, so 33 and 70 chain launches.
+_DDP_COUNTS = (1, 3, 2047, 2048, 2049, 4097, 0, (1 << 16) + 5)
+
+
+def _specials(x):
+    """``x`` with 0, -0, inf, -inf and NaN written at its head, as far as it
+    reaches."""
+    vals = torch.tensor([0.0, -0.0, float("inf"), float("-inf"), float("nan")])
+    k = min(x.numel(), vals.numel())
+    x.view(-1)[:k] = vals[:k].to(device=x.device, dtype=x.dtype)
+    return x
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("nseg", [1, 5, 33, 70])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32, torch.float64,
+                                   torch.float16], ids=str)
+def test_ddp_pack_matches_copy_on_card(dtype, nseg):
+    """One launch a chunk of 32 segments, bitwise copy_'s float64 values
+    (NaN payloads too), from offset views into float64 ranges at odd
+    offsets."""
+    from tpu_mpi_torch.kernels import ddp_step
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(nseg)
+    counts = [_DDP_COUNTS[i % len(_DDP_COUNTS)] for i in range(nseg)]
+    pool = torch.randn(sum(counts) + nseg + 1, generator=gen, device=dev).to(dtype)
+    parts, off, pos = [], 1, 1
+    for c in counts:
+        parts.append((off, c, _specials(pool[pos:pos + c])))
+        off, pos = off + c + 1, pos + c + 1
+    dst = torch.full((off,), -7.0, dtype=torch.float64, device=dev)
+    want = dst.clone()
+    for o, c, g in parts:
+        want.narrow(0, o, c).copy_(g)
+    before = ddp_step.pack_launches
+    ddp_step.pack(dst, parts)
+    torch.cuda.synchronize()
+    assert ddp_step.pack_launches == before + -(-nseg // ddp_step.SEG_MAX)
+    assert _same_bits(dst, want, exact=True), (dtype, nseg)
+
+
+@pytest.mark.cuda
+def test_ddp_pack_copies_what_it_cannot_read_in_place_on_card():
+    """A non-contiguous, a host and an int32 gradient are copied by PyTorch
+    first and counted in pack_copies; the rest are read in place."""
+    from tpu_mpi_torch.kernels import ddp_step
+    dev = _card()
+    parts = [(0, 6, torch.randn(3, 2, device=dev).T),
+             (6, 4, torch.randn(4)),
+             (10, 3, torch.arange(3, dtype=torch.int32, device=dev)),
+             (13, 5, torch.randn(5, device=dev).to(torch.bfloat16))]
+    dst = torch.zeros(18, dtype=torch.float64, device=dev)
+    want = dst.clone()
+    for o, c, g in parts:
+        want.narrow(0, o, c).copy_(g.reshape(-1))
+    copies, launches = ddp_step.pack_copies, ddp_step.pack_launches
+    ddp_step.pack(dst, parts)
+    torch.cuda.synchronize()
+    assert ddp_step.pack_copies == copies + 3
+    assert ddp_step.pack_launches == launches + 1
+    assert _same_bits(dst, want, exact=True)
+
+
+@pytest.mark.cuda
+def test_ddp_kernels_count_only_the_launches_they_make_on_card():
+    """Empty segments launch nothing: a chunk of 32 whose counts are all 0
+    adds no launch, for the pack and for the update."""
+    from tpu_mpi_torch.kernels import ddp_step
+    dev = _card()
+    f64 = dict(dtype=torch.float64, device=dev)
+    dst = torch.zeros(4, **f64)
+    empty = torch.zeros(0, device=dev)
+    before = ddp_step.pack_launches
+    ddp_step.pack(dst, [(0, 0, empty)] * 3)
+    assert ddp_step.pack_launches == before
+    ddp_step.pack(dst, [(0, 0, empty)] * 32 + [(0, 4, torch.ones(4, device=dev))])
+    assert ddp_step.pack_launches == before + 1
+    master, mom = torch.zeros(4, **f64), torch.zeros(4, **f64)
+    before = ddp_step.update_launches
+    ddp_step.update(master, mom, [(0, 0, torch.zeros(0, **f64))] * 32
+                    + [(0, 4, torch.ones(4, **f64))], 1.0, 0.9, 1e-3)
+    torch.cuda.synchronize()
+    assert ddp_step.update_launches == before + 1
+    assert dst.tolist() == [1.0] * 4 and master.tolist() == [-1e-3] * 4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("inv", [1.0, 0.5, 0.25])
+def test_ddp_update_matches_plain_on_card(inv):
+    """The cell's lr and momentum, 40 ragged buckets (two chained launches),
+    NaN and signed zeros in the sums and the momentum."""
+    from tpu_mpi_torch.kernels import ddp_step
+    dev = _card()
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(int(inv * 8))
+    f64 = dict(dtype=torch.float64, device=dev)
+    counts = [_DDP_COUNTS[i % len(_DDP_COUNTS)] for i in range(40)]
+    counts[7] = (1 << 20) + 3
+    total = sum(counts)
+    master = torch.randn(total, generator=gen, **f64)
+    mom = torch.randn(total, generator=gen, **f64)
+    parts, off = [], 0
+    for c in counts:
+        r = torch.randn(c, generator=gen, **f64)
+        if c >= 4:
+            r[:4] = torch.tensor([-0.0, -0.0, 0.0, float("nan")], **f64)
+            mom[off:off + 4] = torch.tensor([0.0, -0.0, -0.0, 1.0], **f64)
+        parts.append((off, c, r))
+        off += c
+    want_p, want_m = master.clone(), mom.clone()
+    ddp_step.update_plain(want_p, want_m, parts, inv, 0.9, 1e-3)
+    before = ddp_step.update_launches
+    ddp_step.update(master, mom, parts, inv, 0.9, 1e-3)
+    torch.cuda.synchronize()
+    assert ddp_step.update_launches == before + 2
+    assert _same_bits(master, want_p) and _same_bits(mom, want_m)
+    assert torch.isnan(master).any()
+
+
+@pytest.mark.cuda
+def test_ddp_update_refuses_on_card():
+    from tpu_mpi_torch.kernels import ddp_step
+    dev = _card()
+    f64 = dict(dtype=torch.float64, device=dev)
+    master, mom = torch.zeros(8, **f64), torch.zeros(8, **f64)
+    for bad in (torch.zeros(8, dtype=torch.float64), torch.zeros(8, device=dev),
+                torch.zeros(16, **f64)[::2]):
+        with pytest.raises(ValueError):
+            ddp_step.update(master, mom, [(0, 8, bad)], 0.5, 0.9, 1e-3)
+
+
+@pytest.mark.cuda
+def test_ddp_trainer_packs_a_bucket_a_launch_on_card():
+    """4 rank threads, 48 tensors in 36 buckets, bfloat16 gradients: the card's
+    trainer gives the CPU trainer's bits, with one pack launch a bucket, two
+    update launches a step and no gradient copied before its pack."""
+    import numpy as np
+    import tpu_mpi_torch as MPI
+    from tpu_mpi_torch.kernels import ddp_step
+    from tpu_mpi_torch.train import DDPTrainer
+    dev = _card()
+    spec = {f"p{i}": np.random.default_rng(i).standard_normal(s)
+            for i, s in enumerate([(64, 33), (1000,), (7,), (2049,)] * 12)}
+
+    def grads(step, rank):
+        rng = np.random.default_rng(1000 * step + rank)
+        return {n: torch.from_numpy(rng.standard_normal(a.shape)).to(torch.bfloat16)
+                for n, a in spec.items()}
+
+    def body(device):
+        def run():
+            comm = MPI.COMM_WORLD
+            tr = DDPTrainer(spec, comm, lr=1e-3, momentum=0.9, bucket_bytes=8192,
+                            device=device)
+            for s in range(3):
+                g = grads(s, comm.rank())
+                tr.step((n, g[n].to(device)) for n in reversed(list(spec)))
+            torch.cuda.synchronize()
+            return ({n: p.cpu() for n, p in tr.params.items()}, len(tr.bucketer))
+        return run
+
+    packs, updates, copies = (ddp_step.pack_launches, ddp_step.update_launches,
+                              ddp_step.pack_copies)
+    got = MPI.spmd_run(body(dev), 4, timeout=300)
+    nb = got[0][1]
+    assert nb > 32
+    assert ddp_step.pack_launches - packs == 4 * 3 * nb
+    assert ddp_step.update_launches - updates == 4 * 3 * 2
+    assert ddp_step.pack_copies == copies
+    want = MPI.spmd_run(body("cpu"), 4, timeout=300)
+    for (params, _), (ref, _) in zip(got, want):
+        for n in spec:
+            assert torch.equal(params[n].view(torch.int64), ref[n].view(torch.int64)), n
+
+
+# ---------------------------------------------------------------------------
 # Point-to-point and Cartesian topology on CUDA tensors
 # ---------------------------------------------------------------------------
 

@@ -1024,11 +1024,12 @@ def frontdoor_totals(coll: str = "allreduce") -> dict:
 
 def kernels_snapshot() -> dict:
     """The kernels block of :func:`snapshot`: each CUDA library's builds
-    and loads (count and ns, by library), the kernels' launch counts, the
-    folds that left the fold kernel and the in-graph layout copies, read
-    where they are kept. At most one level of nesting."""
+    and loads (count and ns, by library), the kernels' launch counts (the
+    DDP trainer's pack and update among them), the folds that left the
+    fold kernel, the in-graph layout copies and the gradients the DDP pack
+    copied first, read where they are kept. At most one level of nesting."""
     from . import collective
-    from .kernels import _build, attention, fused_reduce, permute, ring
+    from .kernels import _build, attention, ddp_step, fused_reduce, permute, ring
     from .xla import collectives as xc
     libs = list(_build.Library.instances)
     return {"builds": {lib.name: lib.builds for lib in libs},
@@ -1043,6 +1044,9 @@ def kernels_snapshot() -> dict:
             "ring_route_launches": dict(ring.route_launches),
             "callable_rings": ring.callable_rings,
             "permute_launches": dict(permute.launches),
+            "ddp_pack_launches": ddp_step.pack_launches,
+            "ddp_update_launches": ddp_step.update_launches,
+            "ddp_pack_copies": ddp_step.pack_copies,
             "chained_folds": collective.chained_folds,
             "layout_copies": xc.layout_copies}
 

@@ -12,8 +12,11 @@ bucket of its own.
 Buckets are laid out ONCE from the parameter spec and reused every step.
 ``send`` and ``recv`` are :class:`~tpu_mpi_torch.buffers.DeviceBuffer`
 cells on the trainer's device, so the persistent Allreduce takes the
-device lane (the fused fold kernel on a CUDA tensor). Packing copies into
-views of ``send``'s tensor, which no one else holds. ``recv`` is rebound
+device lane (the fused fold kernel on a CUDA tensor). A bucket records its
+gradients as they arrive and packs them when the last one lands, in one
+call of :func:`tpu_mpi_torch.kernels.ddp_step.pack` (one kernel launch on
+the card) into ``send``'s tensor, which no one else holds; a gradient is
+therefore read at that moment, not when it is handed in. ``recv`` is rebound
 by every round to the lane's result — on the persistent lane one of two
 preallocated slots shared by every rank, valid until round k+2 — so the
 reduced gradient is read through :meth:`Bucket.out_view` at fold time,
@@ -28,6 +31,7 @@ import numpy as np
 import torch
 
 from ..buffers import DeviceBuffer, resolve_device
+from ..kernels import ddp_step
 
 __all__ = ["Bucket", "GradBucketer"]
 
@@ -40,15 +44,18 @@ def _flat_grad(grad: Any) -> torch.Tensor:
 
 class Bucket:
     """One flat gradient bucket: a contiguous send/recv pair of cells plus
-    each parameter's span in them."""
+    each parameter's span in them. ``base`` is the bucket's first element
+    in the whole arrival-order layout (the buckets tile it in order)."""
 
-    __slots__ = ("index", "names", "send", "recv", "_spans", "_arrived")
+    __slots__ = ("index", "base", "count", "names", "send", "recv", "_spans",
+                 "_pending")
 
-    def __init__(self, index: int, spec: Sequence[Tuple[str, int]],
+    def __init__(self, index: int, base: int, spec: Sequence[Tuple[str, int]],
                  device: torch.device) -> None:
         self.index = index
+        self.base = base
         self.names = [name for name, _ in spec]
-        total = sum(n for _, n in spec)
+        total = self.count = sum(n for _, n in spec)
         self.send = DeviceBuffer(torch.zeros(total, dtype=torch.float64,
                                              device=device), device=device)
         self.recv = DeviceBuffer(torch.zeros(total, dtype=torch.float64,
@@ -58,20 +65,25 @@ class Bucket:
         for name, n in spec:
             self._spans[name] = (off, n)
             off += n
-        self._arrived: set = set()
+        self._pending: Dict[str, Any] = {}
 
     @property
     def nbytes(self) -> int:
         return int(self.send.nbytes)
 
     def add(self, name: str, grad: Any) -> bool:
-        """Copy ``grad`` (a tensor of any dtype and device, or an array)
-        into this bucket's send flat, in float64. Returns True when the
-        bucket is full (every owned gradient has arrived)."""
-        off, n = self._spans[name]
-        self.send.value.narrow(0, off, n).copy_(_flat_grad(grad))
-        self._arrived.add(name)
-        return len(self._arrived) == len(self.names)
+        """Record ``grad`` (a tensor of any dtype and device, or an array)
+        for ``name``. When it completes the bucket (every owned gradient
+        has arrived), pack them all into the send flat in float64 and
+        return True; until then nothing is read or copied."""
+        self._pending[name] = grad
+        if len(self._pending) < len(self.names):
+            return False
+        parts = [(*self._spans[n], g if isinstance(g, torch.Tensor) else _flat_grad(g))
+                 for n, g in self._pending.items()]
+        ddp_step.pack(self.send.value, parts)
+        self._pending.clear()
+        return True
 
     def out_view(self, name: str) -> torch.Tensor:
         """The reduced gradient for ``name``: a view into the tensor
@@ -80,7 +92,7 @@ class Bucket:
         return self.recv.value.reshape(-1).narrow(0, off, n)
 
     def reset(self) -> None:
-        self._arrived.clear()
+        self._pending.clear()
 
 
 class GradBucketer:
@@ -113,7 +125,8 @@ class GradBucketer:
             self._seal(cur)
 
     def _seal(self, spec: List[Tuple[str, int]]) -> None:
-        b = Bucket(len(self.buckets), spec, self.device)
+        base = self.buckets[-1].base + self.buckets[-1].count if self.buckets else 0
+        b = Bucket(len(self.buckets), base, spec, self.device)
         self.buckets.append(b)
         for name in b.names:
             self._owner[name] = b

@@ -17,6 +17,10 @@ same rank-ordered fold, bitwise-identical results.
 The optimizer is SGD with momentum on float64 masters on ``device``
 (default ``cuda``), applied with the same elementwise operations, in the
 same order, as the JAX package's numpy fold, so both give the same bits.
+The masters and the momentum are each one flat tensor in arrival order, so
+every bucket owns one contiguous range of each; ``params[name]`` is a view
+of the master flat. The fold is :func:`tpu_mpi_torch.kernels.ddp_step.update`
+over the buckets' ranges (on the card ``ceil(buckets / 32)`` launches).
 """
 
 from __future__ import annotations
@@ -30,8 +34,9 @@ import torch
 from .. import checkpoint as _ckpt
 from .. import config as _config
 from .. import perfvars as _pv
-from ..buffers import as_tensor, resolve_device
+from ..buffers import DeviceBuffer, as_tensor, resolve_device
 from ..collective import Allreduce, Allreduce_init, Bcast
+from ..kernels import ddp_step
 from ..operators import SUM
 from ..overlap import hint_buckets
 from ..pointtopoint import Start, Wait
@@ -52,6 +57,12 @@ def masters(params: Dict[str, Any], device: torch.device) -> Dict[str, torch.Ten
     the caller's tensors or arrays)."""
     return {name: as_tensor(p, torch.float64, device).clone()
             for name, p in params.items()}
+
+
+def _numel(p: Any) -> int:
+    if isinstance(p, DeviceBuffer):
+        p = p.value
+    return p.numel() if isinstance(p, torch.Tensor) else int(np.size(p))
 
 
 def stage_range(segs: Sequence[torch.Tensor], lo: int, hi: int) -> np.ndarray:
@@ -106,11 +117,23 @@ class DDPTrainer:
         if set(self.order) != set(params):
             raise ValueError("grad_order must cover exactly the params")
 
-        self.params: Dict[str, torch.Tensor] = masters(params, self.device)
+        total = 0
+        spans = {}
+        for name in self.order:
+            spans[name] = (total, _numel(params[name]))
+            total += spans[name][1]
+        f64 = dict(dtype=torch.float64, device=self.device)
+        self._master = torch.empty(total, **f64)
+        self._momentum = torch.zeros(total, **f64)
+        self._flat = {name: self._master.narrow(0, *spans[name]) for name in params}
+        self._mom = {name: self._momentum.narrow(0, *spans[name]) for name in params}
+        self.params: Dict[str, torch.Tensor] = {}
+        for name, p in params.items():
+            src = as_tensor(p, torch.float64, self.device)
+            self.params[name] = self._flat[name].view(src.shape)
+            self.params[name].copy_(src)
         for name in self.order:
             Bcast(self.params[name], 0, comm)
-        self._flat = {name: p.view(-1) for name, p in self.params.items()}
-        self._mom = {name: torch.zeros_like(f) for name, f in self._flat.items()}
 
         self.bucketer = GradBucketer(
             [(name, self._flat[name].numel()) for name in self.order],
@@ -131,14 +154,16 @@ class DDPTrainer:
 
     def step(self, grads: Iterable[Tuple[str, Any]]) -> None:
         """One optimizer step from an iterable of ``(name, grad)`` in the
-        configured arrival order. Mutates params in place.
+        configured arrival order. Mutates params in place. A gradient is
+        read when the last one of its bucket arrives, so the caller leaves
+        it unwritten until then.
 
         Timed into the ``perfvars`` train counters: ``pack_ns`` (the
-        bucketer's copies), ``start_ns``, ``wait_ns`` (with the blocking
-        control's ``Allreduce``), ``optimizer_ns`` (the fold) and
-        ``step_ns``; with the span ring on, ``ddp.step`` holds one
-        ``ddp.pack`` (from a bucket's first copy to its last, the caller's
-        iterator between them included), ``ddp.start`` and ``ddp.wait`` a
+        bucketer's recording and packing), ``start_ns``, ``wait_ns`` (with
+        the blocking control's ``Allreduce``), ``optimizer_ns`` (the fold)
+        and ``step_ns``; with the span ring on, ``ddp.step`` holds one
+        ``ddp.pack`` (from a bucket's first gradient to its pack, the
+        caller's iterator between them included), ``ddp.start`` and ``ddp.wait`` a
         bucket and one ``ddp.optimizer``; a raise closes ``ddp.step`` and
         leaves the thread's span depth as it found it."""
         clock = time.perf_counter_ns
@@ -204,13 +229,9 @@ class DDPTrainer:
             _pv.span_end("ddp.step", s_step)
 
     def _fold(self) -> None:
-        inv = 1.0 / self.comm.size()
-        mu, lr = self.momentum, self.lr
-        for name in self.order:
-            g = self.bucketer.out_view(name) * inv   # mean gradient (own tensor)
-            m = self._mom[name]
-            m.mul_(mu).add_(g)
-            self._flat[name].sub_(torch.mul(m, lr, out=g))
+        ddp_step.update(self._master, self._momentum,
+                        [(b.base, b.count, b.recv.value) for b in self.bucketer.buckets],
+                        1.0 / self.comm.size(), self.momentum, self.lr)
 
     def overlap_fraction(self) -> float:
         """1 - (blocked Wait time / Start-to-Wait-return comm window), over
@@ -222,14 +243,14 @@ class DDPTrainer:
     def opt_state_bytes(self) -> int:
         """Optimizer-state footprint (the momentum flats): full-size per
         rank — the quantity FSDP shards 1/nranks."""
-        return sum(m.numel() * m.element_size() for m in self._mom.values())
+        return self._momentum.numel() * self._momentum.element_size()
 
     # -- checkpoint / reshard ----------------------------------------------
 
     def _state(self) -> List[torch.Tensor]:
-        """The packed global state, params then momentum, as flat views."""
-        return ([self._flat[n] for n in self.order]
-                + [self._mom[n] for n in self.order])
+        """The packed global state: params then momentum, each in arrival
+        order."""
+        return [self._master, self._momentum]
 
     def save(self, path: str) -> None:
         """Collectively checkpoint params + momentum + step, sharded
