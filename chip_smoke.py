@@ -108,7 +108,13 @@ fatal on failure:
    permute per call in turns with ``xs[inverse_perm]``, and its span, and
    both spans with the L2 flushed before each call, in turns; the
    model path's ms per request, tokens/s and device idle share under
-   ``torch.profiler``.
+   ``torch.profiler``; 11b. the Moonlight cell's two kernels at its
+   shapes: ``attention.attend`` at (1, 64, 4096) with q/k head dim 192 and
+   v head dim 128 (one sm90 launch on its 192/128 route, within
+   ``attention.allowed_error``) and ``xla.alltoall`` on the cell's padded
+   MoE exchange (4, 4, 6756, 2048) bfloat16 (one all-to-all launch,
+   bitwise), each timed beside its bound, its plain version and a library
+   call, and a ``kernels`` entry of each;
 12. training at the flagship width: ``transformer_train_step`` on
    ``{"sp": 4}``, 3 steps of batch 8 x 1024 (labels the tokens shifted by
    one, lr 1e-3): 24 ring-attention launches, all sm90, one fold launch per
@@ -382,6 +388,13 @@ MODEL_AGREE = {"bfloat16": 0.95, "float32": 0.999}
 RECIPE_TOL = 3e-2       # bfloat16 recipes against their references
 MOE_TOKENS, MOE_CAPACITY = 2048, 1024
 PEAK_TFLOPS = {"bfloat16": 989.0, "float32": 67.0}   # spec sheet, dense
+# the Moonlight cell's shapes (portbench moonlight.ep4.b4x4096): one
+# latent-attention launch for 4 ranks x 16 heads, (ranks, batch-heads, t,
+# q/k dim, v dim); one MoE exchange padded to the cell's mean block
+# (ranks, ranks, rows a block, d), and the rows it routes, 4 x 4096 x 6
+MLA_SHAPE = (1, 64, 4096, 192, 128)
+MOE_EXCHANGE = (4, 6756, 2048)
+MOE_ROUTED_ROWS = 4 * 4096 * 6
 # phase 12: training at the flagship width (benchmarks/flagship_probe.py's lr)
 TRAIN_STEPS, TRAIN_LR = 3, 1e-3
 TRAIN_TRAINER_STEPS, TRAIN_BUCKET_BYTES = 20, 25 << 20
@@ -1787,6 +1800,91 @@ def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
     for name in times:
         times[name]["main_parity"] = main_parity[name]
     return times
+
+
+def moonlight_kernel_times(attention, permute, xla, device, logdir: str) -> dict:
+    """Phase 11b: the two kernels the Moonlight cell drives, at its shapes
+    (``MLA_SHAPE``, ``MOE_EXCHANGE``). Each is first held against its plain
+    version on the same inputs and its call counted on its kernel alone
+    (raises otherwise): the sm90 attention kernel's 192/128 route within
+    ``attention.allowed_error``, the padded exchange through
+    ``xla.alltoall`` bit for bit. Then kernel, plain and library times (ms)
+    and the bound: the larger of operations and bytes for attention; for
+    the exchange the routed rows' bytes read and written, as the cell's
+    ``alltoall_roofline`` counts them, beside the padded buffer's."""
+    import torch
+    import torch.nn.functional as F
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 22)
+    n, bh, t, dq, dv = MLA_SHAPE
+    q, k = (torch.randn(n, bh, t, dq, generator=gen, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    v = torch.randn(n, bh, t, dv, generator=gen, device=device).to(torch.bfloat16)
+    routes, dims = dict(attention.route_launches), dict(attention.dims_launches)
+    got = attention.attend(q, k, v, causal=True)
+    moved = {r: attention.route_launches[r] - routes[r] for r in routes}
+    dims_moved = {key: c - dims.get(key, 0) for key, c in attention.dims_launches.items()
+                  if c != dims.get(key, 0)}
+    if moved != {r: int(r == "sm90") for r in routes} or dims_moved != {f"{dq}/{dv}": 1}:
+        raise AssertionError(f"attention at {MLA_SHAPE}: launches by route {moved}, by "
+                             f"dims {dims_moved}, not one sm90 launch at {dq}/{dv}")
+    attn_err, attn_share = attention_close(attention, got, q, k, v, causal=True,
+                                           what=f"the Moonlight cell's shape {MLA_SHAPE}")
+    del got
+    ranks, rows, d = MOE_EXCHANGE
+    send = torch.randn(ranks, ranks, rows, d, generator=gen,
+                       device=device).to(torch.bfloat16)
+
+    def exchange():
+        return xla.alltoall(send, axis="ep", mesh={"ep": ranks}, split_axis=0,
+                            concat_axis=0, tiled=True)
+    before = permute.launches["pairwise_alltoall"]
+    got = exchange()
+    if permute.launches["pairwise_alltoall"] - before != 1:
+        raise AssertionError("the MoE exchange did not make one pairwise_alltoall launch")
+    if not same_bits(got.reshape(ranks, -1), permute.pairwise_alltoall_plain(send)):
+        raise AssertionError(f"pairwise_alltoall kernel != plain at the MoE exchange "
+                             f"{list(send.shape)}")
+    del got
+    hbm = 3.35e12                                     # spec sheet, bytes/s
+    flops = 2 * (dq + dv) * attention.causal_pairs(n, t) * bh
+    sdpa = lambda: F.scaled_dot_product_attention(q[0], k[0], v[0],  # noqa: E731
+                                                  is_causal=True)
+    try:
+        library_ms = time_ms(sdpa)
+    except RuntimeError as e:                         # no SDPA backend at these dims
+        library_ms = None
+        log(f"phase 11b: F.scaled_dot_product_attention at q/k {dq}, v {dv} refused: {e}")
+    padded = send.numel() * send.element_size()
+    return {
+        "ring_attention": {
+            "ms": time_ms(lambda: attention.attend(q, k, v, causal=True)),
+            "span_ms": kernel_span_ms(lambda: attention.attend(q, k, v, causal=True),
+                                      "ring_attention_sm90_kernel", logdir),
+            "plain_ms": time_ms(lambda: attention.ring_attention_plain(
+                q, k, v, causal=True, scale=dq ** -0.5), iters=3),
+            "library_ms": library_ms,
+            "library_call": f"F.scaled_dot_product_attention(..., is_causal=True) on "
+                            f"({bh}, {t}, {dq}/{dv})",
+            "bound": max((2 * (dq + dv) * q.shape[-2] * bh * q.element_size() / hbm * 1e3,
+                          "bytes"),
+                         (flops / (PEAK_TFLOPS["bfloat16"] * 1e12) * 1e3, "operations")),
+            "shape": list(MLA_SHAPE), "dtype": str(q.dtype), "flops": flops,
+            "main_parity": {"max_abs_err": attn_err, "bound_share": attn_share},
+        },
+        "pairwise_alltoall": {
+            "ms": time_ms(exchange),
+            "span_ms": kernel_span_ms(exchange, "alltoall_kernel", logdir),
+            "plain_ms": time_ms(lambda: permute.pairwise_alltoall_plain(send)),
+            "library_ms": time_ms(lambda: send.transpose(0, 1).contiguous()),
+            "library_call": "xs.transpose(0, 1).contiguous()",
+            "bound": (2 * MOE_ROUTED_ROWS * d * send.element_size() / hbm * 1e3,
+                      "bytes of the routed rows"),
+            "padded_bound_ms": 2 * padded / hbm * 1e3,
+            "shape": list(send.shape), "dtype": str(send.dtype),
+            "main_parity": {"bitwise": True, "max_abs_err": 0.0},
+        },
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -6170,6 +6268,14 @@ def main() -> int:
             f"profiler), bound "
             f"{t['bound'][0]:.4f} ms ({t['bound'][1]}), plain {t['plain_ms']:.4f} "
             f"ms, {t['library_call']} {t['library_ms']:.4f} ms {where}")
+    # 11b. the kernels of the Moonlight cell at its shapes
+    moon = moonlight_kernel_times(attention, permute, xla, device, logdir)
+    for name, t in moon.items():
+        lib = "not measured" if t["library_ms"] is None else f"{t['library_ms']:.4f} ms"
+        log(f"11b {name} at {t['shape']} {t['dtype']}: kernel against plain "
+            f"{t['main_parity']}; kernel {t['ms']:.4f} ms per call ({t['span_ms']:.4f} "
+            f"ms kernel span), bound {t['bound'][0]:.4f} ms ({t['bound'][1]}), plain "
+            f"{t['plain_ms']:.4f} ms, {t['library_call']} {lib} {where}")
     ra, cp = new_times["ring_attention"], new_times["collective_permute"]
     log(f"ring_attention, same run: sm90 span {ra['span_ms']:.4f} ms "
         f"({ra['ms']:.4f} ms per call); mma.sync kernel span "
@@ -6276,6 +6382,17 @@ def main() -> int:
         train_launches=train["sp"]["attention_launches"],
         train_backward_ms=train["times"]["attention_backward_ms"],
         train_sdpa_fwd_bwd_ms=train["times"]["sdpa_fwd_bwd_ms"]))
+    kernels.append(entry(
+        "ring_attention.mla", moon["ring_attention"], rel(attention.SOURCE_SM90),
+        attention.REPLACES, 1, moon["ring_attention"]["main_parity"]["max_abs_err"],
+        f"elementwise: {attention.TOLERANCE_NOTE}", launches_by_route={"sm90": 1},
+        launches_by_dims={"192/128": 1},
+        path="phase 11b: attention.attend at the Moonlight cell's shape"))
+    kernels.append(entry(
+        "pairwise_alltoall.moe", moon["pairwise_alltoall"], rel(permute.SOURCE),
+        permute.REPLACES["pairwise_alltoall"], 1, 0.0, "bitwise",
+        padded_bound_ms=moon["pairwise_alltoall"]["padded_bound_ms"],
+        path="phase 11b: xla.alltoall at the Moonlight cell's padded exchange"))
     for name, needle in (("pack", "ddp_pack_kernel"), ("update", "ddp_update_kernel")):
         t = train["ddp_step"][name]
         kernels.append({

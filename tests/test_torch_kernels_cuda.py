@@ -538,6 +538,73 @@ def test_bf16_head_dim_off_eight_takes_the_mma_sync_route(causal):
     _within_bound(attention, got, q, k, v, causal)
 
 
+def _latent_case(dev, n, bh, t, seed):
+    """Latent attention's blocks: q and k at head dim 192, v at 128."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q, k = (torch.randn(n, bh, t, 192, generator=g, device=dev).bfloat16() for _ in range(2))
+    return q, k, torch.randn(n, bh, t, 128, generator=g, device=dev).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bh,t,causal", [
+    (1, 64, 4096, True),           # Moonlight's layer: 4 ranks x 16 heads, 4096 tokens
+    (2, 3, 200, True),             # ragged t past one 64-key tile, two ring steps
+    (3, 2, 72, False),
+    (2, 2, 13, True),              # below one tile
+])
+def test_sm90_latent_attention_192_128_matches_plain_on_card(n, bh, t, causal):
+    """q/k head dim 192 beside v head dim 128 on the sm90 route, held to the
+    plain version under the same bound as every bfloat16 route."""
+    from tpu_mpi_torch.kernels import attention
+    dev = _card()
+    q, k, v = _latent_case(dev, n, bh, t, 5 * t + n)
+    assert attention.route(q.dtype, 192, True, 128) == "sm90"
+    before = dict(attention.route_launches)
+    dims = attention.dims_launches.get("192/128", 0)
+    got = attention.attend(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert got.shape == v.shape
+    assert attention.route_launches["sm90"] == before["sm90"] + 1
+    assert attention.dims_launches["192/128"] == dims + 1
+    _within_bound(attention, got, q, k, v, causal)
+
+
+@pytest.mark.cuda
+def test_latent_attention_refuses_the_other_routes_on_card():
+    from tpu_mpi_torch.kernels import attention
+    dev = _card()
+    q, k, v = _latent_case(dev, 1, 2, 64, 3)
+    for way in ("mma_sync", "fma"):
+        with pytest.raises(ValueError):
+            attention._launch(q, k, v, True, 192 ** -0.5, via=way)
+    with pytest.raises(ValueError):
+        attention.attend(q.float(), k.float(), v.float(), causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bh,t", [(1, 8, 512), (2, 3, 200)])
+def test_latent_attention_autograd_through_the_kernel_on_card(n, bh, t):
+    """As the autograd test above, at q/k head dim 192 and v head dim 128."""
+    from tpu_mpi_torch.kernels import attention
+    from tpu_mpi_torch.parallel import ring
+    dev = _card()
+    q, k, v = _latent_case(dev, n, bh, t, 9 * t)
+    g = torch.Generator(device=dev)
+    g.manual_seed(t)
+    dout = torch.randn(v.shape, generator=g, device=dev).bfloat16()
+    leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    out = ring._RingAttention.apply(*leaves, True, 192 ** -0.5)
+    out.backward(dout)
+    torch.cuda.synchronize()
+    plain = attention.ring_attention_plain(q, k, v, causal=True, scale=192 ** -0.5)
+    want = attention.attention_backward(q, k, v, plain, dout, causal=True, scale=192 ** -0.5)
+    for leaf, w in zip(leaves, want):
+        assert leaf.grad.shape == w.shape
+        err = float((leaf.grad.float() - w.float()).abs().max())
+        assert err <= 2.0 ** -5 * float(w.float().abs().max()), err
+
+
 @pytest.mark.cuda
 def test_permute_launch_path_two_tables_back_to_back_on_card():
     from tpu_mpi_torch.kernels import permute

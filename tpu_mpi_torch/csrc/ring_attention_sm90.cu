@@ -55,8 +55,11 @@
 // A key tile wholly past a warpgroup's last row is skipped by that
 // warpgroup (it still releases the stage).
 //
-// Layout: q, k, v, out are (n, BH, t, d) contiguous bfloat16, d % 8 == 0,
-// d <= 128. One block per (128-row query tile, batch-head, rank).
+// Layout: q and k are (n, BH, t, d), v and out (n, BH, t, dv), contiguous
+// bfloat16, d and dv multiples of 8: d == dv <= 128, or the latent-attention
+// shape d <= 192 beside dv <= 128 (query/key heads of 128 + 64 rotary
+// columns, value heads of 128), where v is taken at its own width and not
+// padded to d. One block per (128-row query tile, batch-head, rank).
 //
 // C interface (bound with ctypes): returns 0 on success, the cudaError_t of a
 // refused launch, or TMT_EBADARG for arguments the kernel does not take. It
@@ -240,33 +243,37 @@ __device__ __forceinline__ void softmax_tile(float (&s)[BK / 2], uint32_t (&pa)[
 
 // ---- the kernel -------------------------------------------------------------------
 
-// Shared memory of one block: Q (DP/64 column panels of NC*BM rows), STAGES
-// K tiles, STAGES V tiles (DP/64 panels of BK rows each), the mbarriers, and
-// slack to align the start to the 1024 bytes the swizzle repeats over.
-template <int DP, int STAGES>
+// Shared memory of one block: Q (DQ/64 column panels of NC*BM rows), STAGES
+// K tiles (DQ/64 panels of BK rows each), STAGES V tiles (DV/64 panels), the
+// mbarriers, and slack to align the start to the 1024 bytes the swizzle
+// repeats over.
+template <int DQ, int DV, int STAGES>
 struct Plan {
-  static constexpr int kPanels = DP / 64;
+  static constexpr int kQPanels = DQ / 64;
+  static constexpr int kVPanels = DV / 64;
   static constexpr int kQPanel = NC * BM * ROW;
   static constexpr int kKPanel = BK * ROW;
-  static constexpr int kTile = kPanels * kKPanel;
+  static constexpr int kTileK = kQPanels * kKPanel;
+  static constexpr int kTileV = kVPanels * kKPanel;
   static constexpr int kBars = 8 * (1 + 2 * STAGES);
-  static constexpr int kBytes = kPanels * kQPanel + 2 * STAGES * kTile + kBars + 1024;
+  static constexpr int kBytes =
+      kQPanels * kQPanel + STAGES * (kTileK + kTileV) + kBars + 1024;
 };
 
-template <int DP, int STAGES>
+template <int DQ, int DV, int STAGES>
 __global__ void __launch_bounds__(kThreads, 1)
 ring_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
-                           uint16_t* __restrict__ out, int n, int bh, int t, int d,
+                           uint16_t* __restrict__ out, int n, int bh, int t, int dv,
                            float scale_log2, int causal) {
-  using P = Plan<DP, STAGES>;
-  constexpr int OJ = DP / 8;          // 8-column groups of O
+  using P = Plan<DQ, DV, STAGES>;
+  constexpr int OJ = DV / 8;          // 8-column groups of O
   extern __shared__ uint8_t smem_raw[];
   const uint32_t sQ = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t sK = sQ + P::kPanels * P::kQPanel;
-  const uint32_t sV = sK + STAGES * P::kTile;
-  const uint32_t q_full = sV + STAGES * P::kTile;
+  const uint32_t sK = sQ + P::kQPanels * P::kQPanel;
+  const uint32_t sV = sK + STAGES * P::kTileK;
+  const uint32_t q_full = sV + STAGES * P::kTileV;
   const uint32_t full0 = q_full + 8, empty0 = full0 + 8 * STAGES;
 
   // heaviest first: blocks launch in blockIdx order (x fastest, z slowest)
@@ -290,8 +297,8 @@ ring_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
   if (warp == 4 * NC) {
     // ---- producer: Q once, then K/V tiles of block src in ring-step order ----
     if (lane == 0) {
-      mbar_expect_tx(q_full, P::kPanels * P::kQPanel);
-      for (int p = 0; p < P::kPanels; ++p)
+      mbar_expect_tx(q_full, P::kQPanels * P::kQPanel);
+      for (int p = 0; p < P::kQPanels; ++p)
         for (int w = 0; w < NC; ++w)
           tma_load(sQ + p * P::kQPanel + w * BM * ROW, &qmap, q_full, 64 * p,
                    q0 + BM * w, r * bh + b);
@@ -304,12 +311,13 @@ ring_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
         for (int k0 = 0; k0 < kend; k0 += BK) {
           mbar_wait(empty0 + 8 * stage, phase ^ 1);
           const uint32_t bar = full0 + 8 * stage;
-          mbar_expect_tx(bar, 2 * P::kTile);
-          for (int p = 0; p < P::kPanels; ++p) {
-            const uint32_t off = stage * P::kTile + p * P::kKPanel;
-            tma_load(sK + off, &kmap, bar, 64 * p, k0, src * bh + b);
-            tma_load(sV + off, &vmap, bar, 64 * p, k0, src * bh + b);
-          }
+          mbar_expect_tx(bar, P::kTileK + P::kTileV);
+          for (int p = 0; p < P::kQPanels; ++p)
+            tma_load(sK + stage * P::kTileK + p * P::kKPanel, &kmap, bar, 64 * p, k0,
+                     src * bh + b);
+          for (int p = 0; p < P::kVPanels; ++p)
+            tma_load(sV + stage * P::kTileV + p * P::kKPanel, &vmap, bar, 64 * p, k0,
+                     src * bh + b);
           if (++stage == STAGES) { stage = 0; phase ^= 1; }
         }
       }
@@ -326,9 +334,9 @@ ring_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
     rq[1] = rq[0] + 8;
     const uint32_t qa = sQ + wg * BM * ROW;
 
-    float o[DP / 2];
+    float o[DV / 2];
 #pragma unroll
-    for (int i = 0; i < DP / 2; ++i) o[i] = 0.f;
+    for (int i = 0; i < DV / 2; ++i) o[i] = 0.f;
     // m in log2 units (scores times scale * log2(e)); l a per-thread partial
     // row sum over this thread's columns, summed over the quad at the end
     float m[2] = {kMInit, kMInit}, l[2] = {0.f, 0.f};
@@ -344,11 +352,11 @@ ring_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       for (int k0 = 0; k0 < kend; k0 += BK) {
         mbar_wait(full0 + 8 * stage, phase);
         if (active && !(own && k0 > row_last)) {
-          const uint32_t kb = sK + stage * P::kTile, vb = sV + stage * P::kTile;
+          const uint32_t kb = sK + stage * P::kTileK, vb = sV + stage * P::kTileV;
           float s[BK / 2];
           wg_fence();
 #pragma unroll
-          for (int ks = 0; ks < DP / 16; ++ks) {
+          for (int ks = 0; ks < DQ / 16; ++ks) {
             const uint32_t col = (ks % 4) * 32;     // 16 columns = 32 bytes
             wgmma_ss_n64(s, desc(qa + (ks / 4) * P::kQPanel + col, 16, 1024),
                          desc(kb + (ks / 4) * P::kKPanel + col, 16, 1024), ks > 0);
@@ -397,22 +405,22 @@ ring_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       }
     }
 
-    // out = acc / l, rounded to bfloat16; rows past t and columns past d are
-    // padding
+    // out = acc / l, rounded to bfloat16; rows past t and columns past dv
+    // are padding
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
-    uint16_t* ob = out + ((int64_t)r * bh + b) * t * d;
+    uint16_t* ob = out + ((int64_t)r * bh + b) * t * dv;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       if (rq[h] >= t) continue;
-      uint16_t* orow = ob + (int64_t)rq[h] * d;
+      uint16_t* orow = ob + (int64_t)rq[h] * dv;
 #pragma unroll
       for (int j = 0; j < OJ; ++j) {
         const int c = 8 * j + 2 * tq;
-        if (c < d)
+        if (c < dv)
           *reinterpret_cast<uint32_t*>(orow + c) =
               pack_rn(o[4 * j + 2 * h] / l[h], o[4 * j + 2 * h + 1] / l[h]);
       }
@@ -460,21 +468,21 @@ static bool make_map(CUtensorMap* map, const void* base, int slabs, int t, int d
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int DP, int STAGES>
+template <int DQ, int DV, int STAGES>
 static int launch(const void* q, const void* k, const void* v, void* out, int n, int bh,
-                  int t, int d, float scale, int causal, cudaStream_t s) {
-  auto kernel = ring_attention_sm90_kernel<DP, STAGES>;
-  const int smem = Plan<DP, STAGES>::kBytes;
+                  int t, int d, int dv, float scale, int causal, cudaStream_t s) {
+  auto kernel = ring_attention_sm90_kernel<DQ, DV, STAGES>;
+  const int smem = Plan<DQ, DV, STAGES>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                        smem);
   if (e != cudaSuccess) return (int)e;
   CUtensorMap qm, km, vm;
   if (!make_map(&qm, q, n * bh, t, d) || !make_map(&km, k, n * bh, t, d) ||
-      !make_map(&vm, v, n * bh, t, d))
+      !make_map(&vm, v, n * bh, t, dv))
     return TMT_EBADARG;
   dim3 grid((t + NC * BM - 1) / (NC * BM), bh, n);
   kernel<<<grid, kThreads, smem, s>>>(qm, km, vm, static_cast<uint16_t*>(out), n, bh, t,
-                                      d, scale * kLog2e, causal);
+                                      dv, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -482,14 +490,20 @@ static int launch(const void* q, const void* k, const void* v, void* out, int n,
 
 // ---- C interface -----------------------------------------------------------------
 
+// d: the head dim of q and k; dv: that of v and out. d == dv <= 128, or
+// 128 < d <= 192 beside 64 < dv <= 128 (latent attention).
 extern "C" int tmt_ring_attention_sm90(const void* q, const void* k, const void* v,
-                                       void* out, int n, int bh, int t, int d, float scale,
-                                       int causal, void* stream) {
+                                       void* out, int n, int bh, int t, int d, int dv,
+                                       float scale, int causal, void* stream) {
   const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out;
-  if (n < 1 || n > 65535 || bh < 1 || bh > 65535 || t < 1 || d < 8 || d > 128 ||
-      d % 8 != 0 || (int64_t)n * bh > INT32_MAX || bases % 16 != 0 || !q || !k || !v || !out)
+  const bool same = d == dv && d <= 128;
+  const bool latent = d > 128 && d <= 192 && dv > 64 && dv <= 128;
+  if (n < 1 || n > 65535 || bh < 1 || bh > 65535 || t < 1 || d < 8 || d % 8 != 0 ||
+      dv % 8 != 0 || !(same || latent) || (int64_t)n * bh > INT32_MAX || bases % 16 != 0 ||
+      !q || !k || !v || !out)
     return TMT_EBADARG;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (d <= 64) return sm90::launch<64, 4>(q, k, v, out, n, bh, t, d, scale, causal, s);
-  return sm90::launch<128, 3>(q, k, v, out, n, bh, t, d, scale, causal, s);
+  if (latent) return sm90::launch<192, 128, 3>(q, k, v, out, n, bh, t, d, dv, scale, causal, s);
+  if (d <= 64) return sm90::launch<64, 64, 4>(q, k, v, out, n, bh, t, d, dv, scale, causal, s);
+  return sm90::launch<128, 128, 3>(q, k, v, out, n, bh, t, d, dv, scale, causal, s);
 }

@@ -7,7 +7,10 @@ kernel sees one head, or ``(n, BH, t, d)`` with batch and heads written out
 where the TPU wrapper is vmapped. Rank r's block holds global positions
 ``r*t .. r*t + t - 1``. It returns the attention output block of every rank,
 ``(n, [BH,] t, d)``, in the input dtype (float32 or bfloat16), with
-``causal=True`` masking by global position.
+``causal=True`` masking by global position. Latent attention's heads give v
+(and the output) a head dim ``dv`` of their own beside q and k's ``d``:
+the sm90 route takes ``d`` up to 192 beside ``dv`` up to 128 (v not padded
+to ``d``), and the plain version and the backward take any pair.
 
 On a CUDA tensor the wrapper launches one of three hand-written kernels,
 chosen by :func:`route` from the dtype, the head dim and the alignment, or
@@ -52,6 +55,10 @@ SOURCE_SM90 = _build.CSRC / "ring_attention_sm90.cu"
 REPLACES = "tpu_mpi/xla/pallas_kernels.py:574"      # ring_attention
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
+MAX_QK_DIM_SM90 = 192       # q/k head dim the sm90 route takes beside dv <= 128
+# attention_backward: the float32 (BH, rows, keys) scores of one query block
+# stay within this many bytes (each of the few such tensors a block holds)
+BACKWARD_BLOCK_BYTES = 1 << 30
 ROUTES = ("sm90", "mma_sync", "fma")
 SUBLANE = 8         # the TPU wrapper's multiple for the local sequence length
 M_INIT = -1e30      # the running max's start
@@ -70,9 +77,10 @@ TOLERANCE_NOTE = ("float32 |got-want| <= 1e-4 + 1e-4|want|; bfloat16 |got-want| 
                   "<= 2^-7 (1+2^-6) (A + |want|), A = attention of |v| in float32")
 
 # Launches of the kernels, one per wrapper call that launched one: in all,
-# and per route.
+# per route, and per head dims ("<d>/<dv>").
 launches = 0
 route_launches = dict.fromkeys(ROUTES, 0)
+dims_launches: dict = {}
 _count_lock = threading.Lock()
 
 
@@ -82,14 +90,27 @@ def reset_launches() -> None:
         launches = 0
         for name in route_launches:
             route_launches[name] = 0
+        dims_launches.clear()
 
 
-def route(dtype: torch.dtype, d: int, aligned: bool) -> str:
-    """The kernel a CUDA call of this dtype and head dim takes; ``aligned``:
-    every base (q, k, v and the output) lies on 16 bytes."""
+def sm90_takes(d: int, dv: int) -> bool:
+    """Head dims the sm90 kernel takes: one for q, k and v up to 128, or
+    latent attention's q/k dim over 128 up to 192 beside a v dim over 64 up
+    to 128; multiples of 8."""
+    if d % 8 or dv % 8:
+        return False
+    return (d == dv and d <= MAX_HEAD_DIM) or (
+        MAX_HEAD_DIM < d <= MAX_QK_DIM_SM90 and 64 < dv <= MAX_HEAD_DIM)
+
+
+def route(dtype: torch.dtype, d: int, aligned: bool, dv: Optional[int] = None) -> str:
+    """The kernel a CUDA call of this dtype and head dims takes (``dv``,
+    v's head dim, defaults to ``d``); ``aligned``: every base (q, k, v and
+    the output) lies on 16 bytes."""
+    dv = d if dv is None else dv
     if dtype == torch.float32:
         return "fma"
-    return "sm90" if d % 8 == 0 and aligned else "mma_sync"
+    return "sm90" if aligned and sm90_takes(d, dv) else "mma_sync"
 
 
 def panel_rows(t: int) -> int:
@@ -106,10 +127,11 @@ def causal_pairs(n: int, t: int) -> int:
 
 def ring_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          causal: bool, scale: float) -> torch.Tensor:
-    """The TPU kernel's schedule on stacked (n, BH, t, d) blocks."""
+    """The TPU kernel's schedule on stacked (n, BH, t, d) blocks (v and
+    the output (n, BH, t, dv))."""
     n, _, t, _ = q.shape
     cdt, f32 = q.dtype, torch.float32
-    acc = torch.zeros(q.shape, dtype=f32, device=q.device)
+    acc = torch.zeros(q.shape[:-1] + v.shape[-1:], dtype=f32, device=q.device)
     m = torch.full(q.shape[:-1] + (1,), M_INIT, dtype=f32, device=q.device)
     l = torch.zeros(q.shape[:-1] + (1,), dtype=f32, device=q.device)
     ranks = torch.arange(n, device=q.device).view(n, 1, 1, 1)
@@ -150,44 +172,60 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        o: torch.Tensor, do: torch.Tensor, *, causal: bool,
                        scale: float) -> tuple:
     """The gradients (dq, dk, dv) of ring attention on stacked
-    (n, BH, t, d) blocks, from the forward's output ``o`` and its cotangent
-    ``do``: matmuls and elementwise ops, no kernel of its own.
+    (n, BH, t, d) blocks (v, ``o`` and ``do`` (n, BH, t, dv)), from the
+    forward's output ``o`` and its cotangent ``do``: matmuls and elementwise
+    ops, no kernel of its own.
 
-    The forward returns no row statistics, so each query block recomputes
-    its scores against the key blocks it sees (all of them, or under the
-    causal mask blocks 0..r) with the kernel's rounding: float32 scores
-    scaled in float32, -inf masks by global position. Then
+    The forward returns no row statistics, so each block of query rows
+    recomputes its scores against the keys it sees (all of them, or under
+    the causal mask those up to its last row) with the kernel's rounding:
+    float32 scores scaled in float32, -inf masks by global position. Then
     P = softmax(S), dV = P^T dO, dS = P * (dO V^T - rowsum(dO * O)),
     dQ = scale dS K and dK = scale dS^T Q. In bfloat16, P and dS are
     rounded to bfloat16 for their products (as the forward rounds P before
-    P.V) and every product sums in float32."""
+    P.V) and every product sums in float32. A rank's rows are one block
+    unless its float32 scores would pass ``BACKWARD_BLOCK_BYTES``
+    (:func:`backward_rows`), so the transient memory stays bounded at long
+    t."""
     n, bh, t, d = q.shape
     f32, cdt = torch.float32, q.dtype
-    glob = lambda x: x.transpose(0, 1).reshape(bh, n * t, d)  # noqa: E731
+    glob = lambda x: x.transpose(0, 1).reshape(bh, n * t, x.shape[-1])  # noqa: E731
     qg, kg, vg, dog = glob(q), glob(k), glob(v), glob(do)
     rowdot = (dog.float() * glob(o).float()).sum(-1, keepdim=True)   # (bh, nt, 1)
     dq = torch.empty(bh, n * t, d, dtype=f32, device=q.device)
     dk = torch.zeros(bh, n * t, d, dtype=f32, device=q.device)
-    dv = torch.zeros(bh, n * t, d, dtype=f32, device=q.device)
-    tri = torch.ones(t, t, dtype=torch.bool, device=q.device).triu(1)
+    dv = torch.zeros(bh, n * t, v.shape[-1], dtype=f32, device=q.device)
+    rows_per = backward_rows(bh, t, n * t)
+    tri = torch.ones(rows_per, rows_per, dtype=torch.bool, device=q.device).triu(1)
     for r in range(n):
-        rows = slice(r * t, (r + 1) * t)
-        keys = slice(0, (r + 1) * t if causal else n * t)
-        qr, dor = qg[:, rows], dog[:, rows]
-        kk, vk = kg[:, keys], vg[:, keys]
-        s = _mm32(qr, kk.transpose(1, 2)) * scale
-        if causal:                       # the diagonal block: keys after the row
-            s[:, :, r * t:].masked_fill_(tri, -math.inf)
-        p = torch.softmax(s, dim=-1)
-        del s
-        dv[:, keys] += _mm32(p.to(cdt).transpose(1, 2), dor)
-        ds = p * (_mm32(dor, vk.transpose(1, 2)) - rowdot[:, rows])
-        del p
-        ds = ds.to(cdt)
-        dq[:, rows] = _mm32(ds, kk) * scale
-        dk[:, keys] += _mm32(ds.transpose(1, 2), qr) * scale
-    back = lambda x: x.view(bh, n, t, d).transpose(0, 1).to(cdt)  # noqa: E731
+        for lo in range(r * t, (r + 1) * t, rows_per):
+            hi = min(lo + rows_per, (r + 1) * t)
+            rows = slice(lo, hi)
+            keys = slice(0, hi if causal else n * t)
+            qr, dor = qg[:, rows], dog[:, rows]
+            kk, vk = kg[:, keys], vg[:, keys]
+            s = _mm32(qr, kk.transpose(1, 2)) * scale
+            if causal:                   # the diagonal: keys after the row
+                s[:, :, lo:].masked_fill_(tri[:hi - lo, :hi - lo], -math.inf)
+            p = torch.softmax(s, dim=-1)
+            del s
+            dv[:, keys] += _mm32(p.to(cdt).transpose(1, 2), dor)
+            ds = _mm32(dor, vk.transpose(1, 2)).sub_(rowdot[:, rows]).mul_(p)
+            del p
+            ds = ds.to(cdt)
+            dq[:, rows] = _mm32(ds, kk) * scale
+            dk[:, keys] += _mm32(ds.transpose(1, 2), qr) * scale
+            del ds
+    back = lambda x: x.view(bh, n, t, x.shape[-1]).transpose(0, 1).to(cdt)  # noqa: E731
     return back(dq), back(dk), back(dv)
+
+
+def backward_rows(bh: int, t: int, keys: int) -> int:
+    """Query rows per block of :func:`attention_backward`: all t of a rank
+    where the float32 (BH, t, keys) scores fit ``BACKWARD_BLOCK_BYTES``,
+    else the most whole 64-row tiles that do (at least one)."""
+    rows = BACKWARD_BLOCK_BYTES // (4 * bh * max(keys, 1))
+    return t if rows >= t else max(64, rows // 64 * 64)
 
 
 def allowed_error(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -210,36 +248,44 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
     if q.dim() != 4 or q.shape[0] < 1:
         raise ValueError(f"ring_attention takes stacked (n, BH, t, d) blocks, "
                          f"got shape {tuple(q.shape)}")
-    if k.shape != q.shape or v.shape != q.shape:
-        raise ValueError("ring_attention: q, k and v differ in shape")
+    if k.shape != q.shape or v.shape[:-1] != q.shape[:-1]:
+        raise ValueError("ring_attention: q and k differ in shape, or v in its "
+                         "leading dims")
     if len({x.dtype for x in (q, k, v)}) != 1 or len({x.device for x in (q, k, v)}) != 1:
         raise ValueError("ring_attention: q, k and v differ in dtype or device")
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
             scale: float, *, via: Optional[str] = None) -> torch.Tensor:
-    """A kernel on stacked (n, BH, t, d) CUDA blocks, or a refusal. ``via``
-    names a route in place of :func:`route`'s choice (for measurement: the
-    kernel must take the call)."""
+    """A kernel on stacked (n, BH, t, d) CUDA blocks (v (n, BH, t, dv)), or
+    a refusal. ``via`` names a route in place of :func:`route`'s choice (for
+    measurement: the kernel must take the call)."""
     n, bh, t, d = q.shape
+    dv = v.shape[-1]
     if q.device.type != "cuda":
         raise ValueError(f"ring_attention: no kernel for device {q.device}")
     if q.dtype not in DTYPES:
         raise ValueError(f"ring_attention kernel takes float32 or bfloat16, "
                          f"got {q.dtype}")
-    if d > MAX_HEAD_DIM:
-        raise ValueError(f"ring_attention kernel takes head dims up to "
-                         f"{MAX_HEAD_DIM}, got {d}")
+    if (d > MAX_HEAD_DIM or dv != d) and not (q.dtype == torch.bfloat16
+                                              and sm90_takes(d, dv)):
+        raise ValueError(f"ring_attention kernel takes one head dim up to "
+                         f"{MAX_HEAD_DIM}, or in bfloat16 a q/k dim up to "
+                         f"{MAX_QK_DIM_SM90} beside a v dim over 64 up to "
+                         f"{MAX_HEAD_DIM}; got {d} and {dv}")
     if not all(x.is_contiguous() for x in (q, k, v)):
         raise ValueError("ring_attention kernel takes contiguous blocks")
-    out = torch.empty_like(q)
+    out = q.new_empty(q.shape[:-1] + (dv,))
     if out.numel() == 0:
         return out
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
-    way = via or route(q.dtype, d, all(p % 16 == 0 for p in ptrs))
+    way = via or route(q.dtype, d, all(p % 16 == 0 for p in ptrs), dv)
+    if dv != d and way != "sm90":
+        raise ValueError(f"ring_attention: only the sm90 route takes a v head dim "
+                         f"({dv}) other than q's ({d}), with 16-byte bases")
     if way == "sm90":
         _build.call(LIBRARY_SM90.fn("tmt_ring_attention_sm90"), q.device,
-                    "ring_attention", *ptrs, n, bh, t, d, scale, int(causal))
+                    "ring_attention", *ptrs, n, bh, t, d, dv, scale, int(causal))
     else:
         _build.call(LIBRARY.fn("tmt_ring_attention"), q.device, "ring_attention",
                     *ptrs, n, bh, t, d, scale, int(causal), DTYPE_CODE[q.dtype])
@@ -247,6 +293,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     with _count_lock:
         launches += 1
         route_launches[way] += 1
+        dims = f"{d}/{dv}"
+        dims_launches[dims] = dims_launches.get(dims, 0) + 1
     return out
 
 
@@ -284,7 +332,7 @@ def _bind(lib: ctypes.CDLL) -> None:
 def _bind_sm90(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.tmt_ring_attention_sm90
-    fn.argtypes = [p, p, p, p, i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
 
 

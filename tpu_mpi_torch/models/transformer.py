@@ -233,17 +233,18 @@ def _embed(embed: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     return out.view(tuple(tokens.shape) + (embed.shape[-1],))
 
 
-def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
+def _rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     var = x.float().square().mean(-1, keepdim=True)
-    return (x * torch.rsqrt(var + 1e-6)).to(x.dtype) * _per_rank_scale(scale, x)
+    return (x * torch.rsqrt(var + eps)).to(x.dtype) * _per_rank_scale(scale, x)
 
 
-def _rope(x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
-    """Rotary embeddings of x (..., t, dh); ``positions`` (broadcasting to
-    x's (..., t)) are *global*, so sequence shards agree."""
+def _rope(x: torch.Tensor, positions: torch.Tensor, base: float = 10000.0) -> torch.Tensor:
+    """Rotary embeddings of x (..., t, dh) at frequencies ``base ** (-i /
+    half)``; ``positions`` (broadcasting to x's (..., t)) are *global*, so
+    sequence shards agree."""
     half = x.shape[-1] // 2
     exps = torch.arange(half, dtype=torch.float32, device=x.device) / half
-    freqs = 1.0 / torch.pow(10000.0, exps)
+    freqs = 1.0 / torch.pow(base, exps)
     ang = positions[..., None].to(torch.float32) * freqs      # (..., t, half)
     cos, sin = torch.cos(ang), torch.sin(ang)
     x1, x2 = x[..., :half], x[..., half:]

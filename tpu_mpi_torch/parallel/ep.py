@@ -7,7 +7,11 @@ Two realizations, as in the JAX package:
   (static shapes, capacity masking, two ``xla.alltoall``; on a CUDA tensor
   each is one launch of the pairwise all-to-all kernel,
   :mod:`tpu_mpi_torch.kernels.permute`, and the exchange is
-  differentiable; on a mesh of several axes ``mesh=`` names the rank dims);
+  differentiable; on a mesh of several axes ``mesh=`` names the rank dims),
+  top-1 with one expert a rank; beside it :func:`moe_topk_dispatch_combine`,
+  the fine-grained form: top-k of many experts, several held by each rank,
+  weighted combine, and no token dropped (the exchange is padded to the
+  largest rank-to-rank count of the call);
 - :func:`moe_host_dispatch_combine` — the host-path variant with true
   variable counts over the port's ``Alltoall``/``Alltoallv`` on an ``ep``
   communicator, which visits the algorithm-selection layer on every call.
@@ -25,6 +29,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from .. import perfvars as _pv
 from .. import xla
 from ..xla.collectives import Layout
 
@@ -88,6 +93,118 @@ def moe_dispatch_combine(tokens: torch.Tensor, expert_idx: torch.Tensor,
     # gather results back to token order
     gathered = back.reshape(p, n, capacity, d)[ranks, idx, clip]
     return torch.where(keep[..., None], gathered, 0.0).view(ranks_shape + (t, d))
+
+
+class TopkRouting:
+    """Where the rows of one top-k call go, worked out once on the card with
+    one copy of the per-expert counts to the host: every (token, choice) row
+    of every rank, sorted by expert inside each rank, with its slot in the
+    padded exchange.
+
+    ``n`` ranks of ``t`` tokens pick ``k`` of ``n_experts`` experts, held
+    ``n_experts // n`` to a rank in order (rank r: experts ``r * El`` ..).
+    ``capacity``: the largest count from one rank to another, the rows a
+    block of the exchange holds; ``slot`` (n, t * k): the row of the
+    flattened (n, n * capacity) send buffer of each (token, choice) row;
+    ``gather`` (n * t * k,): the rows of the flattened received buffer
+    (n, n * capacity) in (receiving rank, its expert, source rank) order;
+    ``segments``: the row count of each (receiving rank, expert), in that
+    order; ``loads`` (n_experts,) on the host."""
+
+    def __init__(self, expert_idx: torch.Tensor, n_experts: int):
+        n, t, k = expert_idx.shape
+        if n_experts % n:
+            raise ValueError(f"{n_experts} experts do not divide over {n} ranks")
+        el = n_experts // n
+        dev = expert_idx.device
+        idx = expert_idx.reshape(n, t * k).to(torch.int64)
+        per = torch.zeros(n, n_experts, dtype=torch.int64, device=dev)
+        per.scatter_add_(1, idx, torch.ones_like(idx))          # (src, expert)
+        counts = per.cpu()                                       # the one sync
+        sd = counts.view(n, n, el).sum(-1)                       # (src, dst)
+        self.n, self.t, self.k, self.el = n, t, k, el
+        self.loads = counts.sum(0)
+        self.capacity = int(sd.max())
+        self.routed = n * t * k
+        self.segments = counts.view(n, n, el).sum(0).reshape(-1).tolist()
+        # slot of each row: its (src, dst) block, then its place among the
+        # block's rows in expert order (a stable sort keeps token order)
+        order = torch.argsort(idx, dim=1, stable=True)
+        dst = idx.gather(1, order) // el
+        first = (sd.cumsum(1) - sd).to(dev)                      # block starts
+        pos = torch.arange(t * k, device=dev) - first.gather(1, dst)
+        slot = torch.empty_like(idx)
+        slot.scatter_(1, order, dst * self.capacity + pos)
+        self.slot = slot
+        # received rows by (dst, expert, src): block (dst, src) holds src's
+        # rows for dst, in expert order from its start
+        c = counts.view(n, n, el).permute(1, 0, 2)               # (dst, src, e)
+        within = c.cumsum(2) - c                                 # offset in block
+        base = (torch.arange(n).view(n, 1, 1) * n + torch.arange(n).view(1, n, 1)
+                ) * self.capacity + within                       # (dst, src, e)
+        base, c = base.permute(0, 2, 1).reshape(-1), c.permute(0, 2, 1).reshape(-1)
+        starts = c.cumsum(0) - c
+        base, starts, c = (x.to(dev) for x in (base, starts, c))
+        rep = torch.repeat_interleave(torch.arange(c.numel(), device=dev), c,
+                                      output_size=self.routed)
+        self.gather = base[rep] + torch.arange(self.routed, device=dev) - starts[rep]
+
+    @property
+    def exchanged_rows(self) -> int:
+        """Rows one exchange moves, padding included: n * n blocks of
+        ``capacity``."""
+        return self.n * self.n * self.capacity
+
+
+def moe_topk_dispatch_combine(tokens: torch.Tensor, expert_idx: torch.Tensor,
+                              weights: torch.Tensor,
+                              experts: Callable[[torch.Tensor, list], torch.Tensor], *,
+                              routing: TopkRouting, axis: str = "ep") -> torch.Tensor:
+    """Top-k Mixture-of-Experts dispatch and weighted combine over the one
+    rank dim of stacked tokens, no token dropped.
+
+    tokens: (n, t, d), rank r's own tokens; expert_idx: (n, t, k) the
+    experts (global ids) each token picked; weights: (n, t, k) their
+    weights (any float dtype, differentiable); ``routing``: the
+    :class:`TopkRouting` of these ``expert_idx``, which holds the experts
+    ``n_experts // n`` to a rank, in order. Each (token, choice) row goes
+    to the rank that holds its expert through one ``xla.alltoall`` padded
+    to the largest rank-to-rank count, the experts run there, and a second
+    ``xla.alltoall`` brings the results back (the all-to-all kernel on a
+    CUDA tensor; both differentiable).
+
+    experts(rows, segments): rows (n * t * k, d), sorted by (rank, expert
+    of that rank) with ``segments`` the row count of each, in that order
+    (one count a held expert of each rank); returns the experts' outputs
+    in the same order. The result, (n, t, d) in the tokens' dtype, is each
+    token's outputs weighted and summed in float32. With the span ring on,
+    the exchange out is a ``model.moe.dispatch`` span and the way back,
+    with the weighted sum, ``model.moe.combine`` (the model step's MoE
+    phases)."""
+    n, t, d = tokens.shape
+    k, r = expert_idx.shape[-1], routing
+    ranks = torch.arange(n, device=tokens.device)[:, None]
+    s = _pv.span_begin(cpu=False)
+    try:
+        rows = tokens.unsqueeze(2).expand(n, t, k, d).reshape(n, t * k, d)
+        send = tokens.new_zeros((n, n * r.capacity, d)).index_put((ranks, r.slot), rows)
+        recv = xla.alltoall(send.view(n, n, r.capacity, d), axis=axis, mesh={axis: n},
+                            split_axis=0, concat_axis=0, tiled=True)
+        flat = recv.reshape(n * n * r.capacity, d)
+        arrived = flat.index_select(0, r.gather)
+    finally:
+        _pv.span_end("model.moe.dispatch", s)
+    out = experts(arrived, r.segments)
+    s = _pv.span_begin(cpu=False)
+    try:
+        done = flat.new_zeros(flat.shape).index_put((r.gather,), out)
+        back = xla.alltoall(done.view(n, n, r.capacity, d), axis=axis, mesh={axis: n},
+                            split_axis=0, concat_axis=0, tiled=True)
+        picked = back.reshape(n, n * r.capacity, d)[ranks, r.slot].view(n, t, k, d)
+        mixed = (picked.float() * weights.float().unsqueeze(-1)).sum(2)
+        return mixed.to(tokens.dtype)
+    finally:
+        _pv.span_end("model.moe.combine", s)
 
 
 def moe_host_dispatch_combine(tokens: Any, expert_idx: np.ndarray,

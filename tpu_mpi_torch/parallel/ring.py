@@ -82,14 +82,16 @@ def attend_along(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, dim: int, *,
                  causal: bool = True, scale: Optional[float] = None) -> torch.Tensor:
     """Ring attention over the rank dim ``dim`` of q, k, v (..., t, d):
     that dim leads, every other dim before (t, d) joins the batch, and one
-    kernel launch serves them all."""
+    kernel launch serves them all. v may have a head dim of its own (the
+    output has it); the scale defaults to ``1/sqrt(d)`` of q."""
     s = _pv.span_begin(cpu=False)
     try:
         n, t, d = q.shape[dim], q.shape[-2], q.shape[-1]
         scale = 1.0 / math.sqrt(d) if scale is None else float(scale)
-        flat = [x.movedim(dim, 0).reshape(n, -1, t, d).contiguous() for x in (q, k, v)]
+        flat = [x.movedim(dim, 0).reshape(n, -1, t, x.shape[-1]).contiguous()
+                for x in (q, k, v)]
         out = _RingAttention.apply(*flat, bool(causal), scale)
-        front = q.movedim(dim, 0).shape
+        front = v.movedim(dim, 0).shape
         return out.view(front).movedim(0, dim)
     finally:
         _pv.span_end("attend_along", s)

@@ -810,7 +810,11 @@ def train_snapshot() -> dict:
 #
 # Process-global like the train block: the in-graph step holds every rank
 # of its mesh in one call. Counters: steps, step_ns and the four phases
-# that tile a step, forward_ns, backward_ns, grad_sum_ns, update_ns.
+# that tile a step, forward_ns, backward_ns, grad_sum_ns, update_ns; the
+# Moonlight step's MoE layers add, summed over layer-steps, moe_layers,
+# moe_routed_rows, moe_exchanged_rows and moe_exchanged_bytes (the
+# forward's two exchanges, padding included), moe_rows_max (the busiest
+# expert's rows) and moe_expert_slots (experts a layer).
 
 _model: Dict[str, int] = {}
 
@@ -1040,6 +1044,7 @@ def kernels_snapshot() -> dict:
             "fold_route_launches": dict(fused_reduce.route_launches),
             "attention_launches": attention.launches,
             "attention_route_launches": dict(attention.route_launches),
+            "attention_dims_launches": dict(attention.dims_launches),
             "ring_launches": dict(ring.launches),
             "ring_route_launches": dict(ring.route_launches),
             "callable_rings": ring.callable_rings,
