@@ -108,11 +108,13 @@ fatal on failure:
    permute per call in turns with ``xs[inverse_perm]``, and its span, and
    both spans with the L2 flushed before each call, in turns; the
    model path's ms per request, tokens/s and device idle share under
-   ``torch.profiler``; 11b. the Moonlight cell's two kernels at its
+   ``torch.profiler``; 11b. the Moonlight cell's kernels at its
    shapes: ``attention.attend`` at (1, 64, 4096) with q/k head dim 192 and
    v head dim 128 (one sm90 launch on its 192/128 route, within
-   ``attention.allowed_error``) and ``xla.alltoall`` on the cell's padded
-   MoE exchange (4, 4, 6756, 2048) bfloat16 (one all-to-all launch,
+   ``attention.allowed_error``), its backward ``attention.backward`` (one
+   call of the backward kernel, within 2^-5 of each gradient's largest
+   magnitude of ``attention_backward``) and ``xla.alltoall`` on the cell's
+   padded MoE exchange (4, 4, 6756, 2048) bfloat16 (one all-to-all launch,
    bitwise), each timed beside its bound, its plain version and a library
    call, and a ``kernels`` entry of each;
 12. training at the flagship width: ``transformer_train_step`` on
@@ -130,8 +132,11 @@ fatal on failure:
    at least 20 x 34 rounds), FSDP's optimizer state 1/4 of DDP's; then
    times: ms per sp step (CUDA events), tokens/s, device
    busy time per step and the top kernels (profiler), the step's spec-sheet
-   bound, the attention backward per call against SDPA's forward+backward
-   on the gathered (8, 16, 1024, 64), ms per DDP and FSDP step.
+   bound, the plain attention backward per call against SDPA's
+   forward+backward on the gathered (8, 16, 1024, 64), the backward kernel
+   at the sp shape (4, 128, 256, 64) held to the plain one and timed in
+   turns with it and SDPA (the 3 sp steps make 24 of its calls, all at
+   "64/64"), ms per DDP and FSDP step.
 
 13. point-to-point and Cartesian topology on 4 rank threads: (a) the
    float32[2^26] operands of phase 4 (and bfloat16 and int32 [2^24]
@@ -1802,9 +1807,95 @@ def new_kernel_times(permute, attention, hop, send, qkv, logdir: str) -> dict:
     return times
 
 
+def attention_backward_times(attention, shape, device, logdir: str, *, sdpa) -> dict:
+    """The attention backward kernel at ``shape`` (n, BH, t, d, dv), causal,
+    bfloat16: first held against the plain ``attention_backward`` on the
+    same q, k, v, o and dO within 2^-5 of each gradient's largest magnitude,
+    one backward call a launch of the kernel (raises otherwise); then in
+    turns the kernel call (its three launches), the library yardstick
+    ``sdpa`` (F.scaled_dot_product_attention's forward and backward on the
+    gathered sequence, or None where it refuses these head dims) and the
+    plain version; the device span of the main launches a call, and the
+    bound (2 (3 d + 2 dv) flops a causal pair at the bf16 peak, or q, k, v,
+    o, dO and the three gradients once at the HBM peak)."""
+    import torch
+    n, bh, t, d, dv = shape
+    gen = torch.Generator(device=device)
+    gen.manual_seed(SEED + 23)
+    q, k = (torch.randn(n, bh, t, d, generator=gen, device=device).to(torch.bfloat16)
+            for _ in range(2))
+    v, do = (torch.randn(n, bh, t, dv, generator=gen, device=device).to(torch.bfloat16)
+             for _ in range(2))
+    scale = d ** -0.5
+    o, lse = attention.attend_saving_lse(q, k, v, causal=True, scale=scale)
+    before = attention.backward_launches
+    got = attention.backward(q, k, v, o, do, lse, causal=True, scale=scale)
+    torch.cuda.synchronize()
+    if lse is None or attention.backward_launches - before != 1:
+        raise AssertionError(f"attention backward at {shape}: "
+                             f"{attention.backward_launches - before} kernel calls, not 1")
+    want = attention.attention_backward(q, k, v, o, do, causal=True, scale=scale)
+    rel = {}
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        rel[name] = float((a.float() - w.float()).abs().max()) / float(w.float().abs().max())
+    if max(rel.values()) > 2.0 ** -5:
+        raise AssertionError(f"attention backward kernel != plain at {shape}: {rel} of each "
+                             f"gradient's largest magnitude (bound 2^-5)")
+    del got, want
+    kernel = lambda: attention.backward(q, k, v, o, do, lse, causal=True, scale=scale)  # noqa: E731
+    plain = lambda: attention.attention_backward(q, k, v, o, do, causal=True,  # noqa: E731
+                                                 scale=scale)
+    library = sdpa(q, k, v, do) if sdpa else None
+    spans = {"dk_dv": kernel_span_ms(kernel, "attention_backward_sm90_kernel", logdir)}
+    if d > 64:                              # the dQ pass of its own
+        spans["dq"] = kernel_span_ms(kernel, "attention_backward_sm90_dq_kernel", logdir)
+    got = turns(kernel, library or kernel, others={"plain": plain})
+    flops = 2 * bh * attention.causal_pairs(n, t) * (3 * d + 2 * dv)
+    nbytes = 2 * n * bh * t * (4 * d + 4 * dv)
+    hbm = 3.35e12
+    return {
+        "ms": got["ms"], "ms_turns": got["ms_turns"],
+        "library_ms": got["library_ms"] if library else None,
+        "library_ms_turns": got["library_ms_turns"] if library else None,
+        "library_call": "F.scaled_dot_product_attention(..., is_causal=True) forward and "
+                        "backward on the gathered sequence",
+        "plain_ms": got["plain_ms"], "plain_ms_turns": got["plain_ms_turns"],
+        "span_ms": sum(spans.values()), "spans_ms": spans,
+        "bound": max((nbytes / hbm * 1e3, "bytes"),
+                     (flops / (PEAK_TFLOPS["bfloat16"] * 1e12) * 1e3, "operations")),
+        "flops": flops, "shape": list(shape), "dtype": "torch.bfloat16",
+        "main_parity": {"rel_err": rel, "bound": "2^-5 of each gradient's largest magnitude"},
+    }
+
+
+def sdpa_backward_yardstick(q, k, v, do):
+    """F.scaled_dot_product_attention's causal forward and backward on the
+    stacked (n, BH, t, d) blocks gathered into one (1, BH, n t, d) sequence
+    (batch and heads as the fused backends take them): the library
+    yardstick of the attention backward, or None where no SDPA backend
+    takes these head dims."""
+    import torch.nn.functional as F
+    n, bh, t, _ = q.shape
+    glob = [x.transpose(0, 1).reshape(1, bh, n * t, x.shape[-1]).contiguous() for x in (q, k, v)]
+    leaves = [x.requires_grad_() for x in glob]
+    dg = do.transpose(0, 1).reshape(1, bh, n * t, do.shape[-1]).contiguous()
+
+    def call():
+        F.scaled_dot_product_attention(*leaves, is_causal=True).backward(dg)
+
+    try:
+        call()
+    except RuntimeError as e:
+        log(f"F.scaled_dot_product_attention's backward at q/k {q.shape[-1]}, v "
+            f"{v.shape[-1]} refused: {e}")
+        return None
+    return call
+
+
 def moonlight_kernel_times(attention, permute, xla, device, logdir: str) -> dict:
-    """Phase 11b: the two kernels the Moonlight cell drives, at its shapes
-    (``MLA_SHAPE``, ``MOE_EXCHANGE``). Each is first held against its plain
+    """Phase 11b: the kernels the Moonlight cell drives, at its shapes
+    (``MLA_SHAPE``, ``MOE_EXCHANGE``; the attention backward by
+    :func:`attention_backward_times`). Each is first held against its plain
     version on the same inputs and its call counted on its kernel alone
     (raises otherwise): the sm90 attention kernel's 192/128 route within
     ``attention.allowed_error``, the padded exchange through
@@ -1884,6 +1975,8 @@ def moonlight_kernel_times(attention, permute, xla, device, logdir: str) -> dict
             "shape": list(send.shape), "dtype": str(send.dtype),
             "main_parity": {"bitwise": True, "max_abs_err": 0.0},
         },
+        "attention_backward": attention_backward_times(attention, MLA_SHAPE, device, logdir,
+                                                       sdpa=sdpa_backward_yardstick),
     }
 
 
@@ -2118,15 +2211,21 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
         losses.append(loss)
     torch.cuda.synchronize()
     folds, attn, sm90, chained = counts(collective, fr, attention)
+    backward = dict(attention.backward_dims_launches)
     losses = [float(x) for x in losses]
     out["sp"] = {"losses": losses, "fold_launches": folds,
-                 "attention_launches": attn, "sm90_launches": sm90}
+                 "attention_launches": attn, "sm90_launches": sm90,
+                 "backward_launches_by_dims": backward}
     log(f"train: sp step x {TRAIN_STEPS} on {{'sp': {SP}}}, batch {BATCH}x{SEQ}, "
         f"lr {TRAIN_LR}: losses {losses}; ring_attention launches {attn} "
         f"({sm90} sm90), fold launches {folds} ({n_tensors} parameter tensors + "
         f"the loss, per step), chained folds {chained}")
     if attn != TRAIN_STEPS * cfg.n_layers or sm90 != attn:
         raise AssertionError(f"train step: {attn} attention launches, {sm90} sm90")
+    dims = f"{cfg.head_dim}/{cfg.head_dim}"
+    if backward != {dims: TRAIN_STEPS * cfg.n_layers}:
+        raise AssertionError(f"train step: attention backward kernel calls by head dims "
+                             f"{backward}, want {TRAIN_STEPS * cfg.n_layers} at {dims}")
     if folds != TRAIN_STEPS * (n_tensors + 1) or chained:
         raise AssertionError(f"train step: {folds} folds, {chained} chained")
     if not all(np.isfinite(losses)):
@@ -2322,6 +2421,9 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
     sdpa_ms = time_ms(sdpa_fwd_bwd, iters=10)
     out["times"].update({"attention_backward_ms": bwd_ms, "attention_forward_ms": fwd_ms,
                          "sdpa_fwd_bwd_ms": sdpa_ms})
+    out["attention_backward"] = attention_backward_times(
+        attention, (SP, BATCH * cfg.n_heads, SEQ // SP, d, d), device, logdir,
+        sdpa=sdpa_backward_yardstick)
     t = out["times"]
     log(f"train: sp step {step_ms:.4f} ms (CUDA events, 5 steps), "
         f"{t['tokens_per_s']:.1f} tokens/s; profiled 2 steps: device busy "
@@ -2332,6 +2434,15 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
     log(f"train: attention at {list(shape)} bf16 causal: backward (matmuls) "
         f"{bwd_ms:.4f} ms per call, kernel forward {fwd_ms:.4f} ms; SDPA forward+"
         f"backward on the gathered (8, 16, 1024, 64) {sdpa_ms:.4f} ms {where}")
+    b = out["attention_backward"]
+    lib = "not measured" if b["library_ms"] is None else f"{b['library_ms']:.4f} ms"
+    log(f"train: attention backward kernel at {b['shape']}: against plain "
+        f"{b['main_parity']['rel_err']}; in turns kernel {b['ms_turns']} ms, plain "
+        f"{b['plain_ms_turns']} ms, SDPA forward+backward {b['library_ms_turns']} ms; "
+        f"medians {b['ms']:.4f} / {b['plain_ms']:.4f} / {lib}; main launches' span "
+        f"{b['span_ms']:.4f} ms; bound {b['bound'][0]:.4f} ms ({b['bound'][1]}); "
+        f"kernel calls over the {TRAIN_STEPS} sp steps {out['sp']['backward_launches_by_dims']} "
+        f"{where}")
     return out
 
 
@@ -5958,7 +6069,8 @@ def main() -> int:
     t0 = time.perf_counter()
     against = against_libraries(_build, args.against)
     libs = (fr.LIBRARY, ring.LIBRARY, permute.LIBRARY, attention.LIBRARY,
-            attention.LIBRARY_SM90, ddp_step.LIBRARY, *(lib for tree in against.values()
+            attention.LIBRARY_SM90, attention.LIBRARY_BACKWARD, ddp_step.LIBRARY,
+            *(lib for tree in against.values()
                                       for lib in tree.values()))
     built = _build.build_all(libs)
     for lib in libs:
@@ -6388,6 +6500,21 @@ def main() -> int:
         f"elementwise: {attention.TOLERANCE_NOTE}", launches_by_route={"sm90": 1},
         launches_by_dims={"192/128": 1},
         path="phase 11b: attention.attend at the Moonlight cell's shape"))
+    for name, t, calls, path in (
+            ("attention_backward", train["attention_backward"],
+             train["sp"]["backward_launches_by_dims"],
+             f"train: the sp step's ring attention backward, {TRAIN_STEPS} steps"),
+            ("attention_backward.mla", moon["attention_backward"], {"192/128": 1},
+             "phase 11b: attention.backward at the Moonlight cell's shape")):
+        kernels.append(entry(
+            name, t, rel(attention.SOURCE_BACKWARD),
+            "none (the JAX package's gradient is XLA's autodiff of its ring)",
+            sum(calls.values()), max(t["main_parity"]["rel_err"].values()),
+            "within 2^-5 of each gradient's largest magnitude of attention_backward "
+            "(max_abs_err: the largest of the three relative errors)",
+            launches_by_dims=calls, spans_ms=t["spans_ms"], ms_turns=t["ms_turns"],
+            plain_ms_turns=t["plain_ms_turns"], library_ms_turns=t["library_ms_turns"],
+            path=path))
     kernels.append(entry(
         "pairwise_alltoall.moe", moon["pairwise_alltoall"], rel(permute.SOURCE),
         permute.REPLACES["pairwise_alltoall"], 1, 0.0, "bitwise",

@@ -251,3 +251,103 @@ def test_route_counts_reset_with_the_total():
     attention.reset_launches()
     assert attention.launches == 0 and set(attention.route_launches.values()) == {0}
     assert attention.LIBRARY_SM90.path().name.startswith("ring_attention_sm90-")
+
+
+# The backward's route (kernels/attention.py:backward_route): the sm90
+# kernel for bfloat16 CUDA calls at the sm90 head dims with aligned,
+# contiguous operands and the forward's log-sum-exp saved; the plain
+# attention_backward for every other call.
+
+@pytest.mark.parametrize("dtype,d,dv,aligned,on_card,lse,want", [
+    (torch.bfloat16, 64, 64, True, True, True, "sm90"),       # the flagship's sp step
+    (torch.bfloat16, 192, 128, True, True, True, "sm90"),     # Moonlight's latent attention
+    (torch.bfloat16, 128, 128, True, True, True, "sm90"),
+    (torch.bfloat16, 40, 40, True, True, True, "sm90"),       # padded to a 64-column panel
+    (torch.bfloat16, 8, 8, True, True, True, "sm90"),
+    (torch.bfloat16, 36, 36, True, True, True, "plain"),      # the mma_sync head dims
+    (torch.bfloat16, 192, 64, True, True, True, "plain"),
+    (torch.bfloat16, 256, 128, True, True, True, "plain"),
+    (torch.bfloat16, 64, 64, False, True, True, "plain"),     # a base off 16 bytes
+    (torch.float32, 64, 64, True, True, True, "plain"),       # the fma route
+    (torch.bfloat16, 64, 64, True, False, True, "plain"),     # CPU tensors
+    (torch.bfloat16, 64, 64, True, True, False, "plain"),     # no log-sum-exp saved
+])
+def test_backward_route_by_dtype_head_dims_alignment_and_lse(dtype, d, dv, aligned, on_card,
+                                                             lse, want):
+    assert attention.backward_route(dtype, d, dv, aligned, on_card, lse) == want
+    assert want in attention.BACKWARD_ROUTES
+
+
+def test_backward_counters_reset_and_cpu_calls_launch_nothing():
+    attention.backward_launches += 1
+    attention.backward_dims_launches["64/64"] = 3
+    attention.reset_launches()
+    assert attention.backward_launches == 0 and attention.backward_dims_launches == {}
+    g = torch.Generator().manual_seed(3)
+    q, k, v, do = (torch.randn(2, 3, 16, 8, generator=g).to(torch.bfloat16) for _ in range(4))
+    out, lse = attention.attend_saving_lse(q, k, v, causal=True)
+    assert lse is None and torch.equal(out, attention.attend(q, k, v, causal=True))
+    want = attention.attention_backward(q, k, v, out, do, causal=True, scale=8 ** -0.5)
+    got = attention.backward(q, k, v, out, do, None, causal=True, scale=8 ** -0.5)
+    assert all(torch.equal(a, b) for a, b in zip(got, want))
+    assert attention.backward_launches == 0 and attention.launches == 0
+
+
+def test_snapshot_exports_the_backward_counters():
+    from tpu_mpi_torch import perfvars
+    attention.reset_launches()
+    k = perfvars.kernels_snapshot()
+    assert k["attention_backward_launches"] == 0
+    assert k["attention_backward_dims_launches"] == {}
+    attention.backward_dims_launches["192/128"] = 5
+    try:
+        assert perfvars.kernels_snapshot()["attention_backward_dims_launches"] == {"192/128": 5}
+    finally:
+        attention.reset_launches()
+    assert attention.LIBRARY_BACKWARD.path().name.startswith("attention_backward_sm90-")
+
+
+# The sm90 backward's arithmetic (tpu_mpi_torch/csrc/attention_backward_sm90.cu),
+# replayed here: P from the forward's log-sum-exp in log2 units, 2^(s scale
+# log2(e) - lse), rounded to bfloat16 for dV = P^T dO and for dS = P (dP - D);
+# dS rounded to bfloat16 for dQ and dK. It stays within the card tests'
+# bound of the plain backward: 2^-5 of each gradient's largest magnitude.
+
+def _sm90_backward_replay(q, k, v, o, do, *, causal, scale):
+    n, bh, t, d = q.shape
+    bf, f32 = torch.bfloat16, torch.float32
+    glob = lambda x: x.transpose(0, 1).reshape(bh, n * t, x.shape[-1]).float()  # noqa: E731
+    qg, kg, vg, og, dog = (glob(x) for x in (q, k, v, o, do))
+    c = torch.tensor(scale, dtype=f32) * torch.tensor(math.log2(math.e), dtype=f32)
+    s = qg @ kg.transpose(1, 2)
+    if causal:
+        s = s.masked_fill(torch.ones(n * t, n * t, dtype=torch.bool).triu(1), -math.inf)
+    lse = torch.logsumexp(s * scale, -1, keepdim=True) * math.log2(math.e)
+    p = torch.exp2(s * c - lse).to(bf).float()
+    dv = p.transpose(1, 2) @ dog
+    dp = dog @ vg.transpose(1, 2)
+    ds = (p * (dp - (dog * og).sum(-1, keepdim=True))).to(bf).float()
+    dq, dk = ds @ kg * scale, ds.transpose(1, 2) @ qg * scale
+    back = lambda x: x.view(bh, n, t, x.shape[-1]).transpose(0, 1).to(q.dtype)  # noqa: E731
+    return back(dq), back(dk), back(dv)
+
+
+@pytest.mark.parametrize("n,bh,t,d,dv,causal", [
+    (4, 2, 32, 64, 64, True),       # the flagship's shape, cut
+    (4, 2, 32, 64, 64, False),
+    (2, 3, 20, 64, 64, True),       # a ragged t
+    (2, 2, 24, 192, 128, True),     # latent attention's head dims
+    (1, 2, 40, 40, 40, False),      # d below one panel
+])
+def test_sm90_backward_arithmetic_stays_inside_the_bound(n, bh, t, d, dv, causal):
+    g = torch.Generator().manual_seed(n * t + d + dv)
+    q, k = (torch.randn(n, bh, t, d, generator=g).to(torch.bfloat16) for _ in range(2))
+    v, do = (torch.randn(n, bh, t, dv, generator=g).to(torch.bfloat16) for _ in range(2))
+    scale = d ** -0.5
+    o = attention.attend(q, k, v, causal=causal, scale=scale)
+    want = attention.attention_backward(q, k, v, o, do, causal=causal, scale=scale)
+    got = _sm90_backward_replay(q, k, v, o, do, causal=causal, scale=scale)
+    for a, w in zip(got, want):
+        assert a.shape == w.shape
+        err = float((a.float() - w.float()).abs().max())
+        assert err <= 2.0 ** -5 * float(w.float().abs().max()), err

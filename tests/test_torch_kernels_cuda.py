@@ -594,15 +594,99 @@ def test_latent_attention_autograd_through_the_kernel_on_card(n, bh, t):
     g.manual_seed(t)
     dout = torch.randn(v.shape, generator=g, device=dev).bfloat16()
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
+    backward = attention.backward_dims_launches.get("192/128", 0)
     out = ring._RingAttention.apply(*leaves, True, 192 ** -0.5)
     out.backward(dout)
     torch.cuda.synchronize()
+    assert attention.backward_dims_launches["192/128"] == backward + 1
     plain = attention.ring_attention_plain(q, k, v, causal=True, scale=192 ** -0.5)
     want = attention.attention_backward(q, k, v, plain, dout, causal=True, scale=192 ** -0.5)
     for leaf, w in zip(leaves, want):
         assert leaf.grad.shape == w.shape
         err = float((leaf.grad.float() - w.float()).abs().max())
         assert err <= 2.0 ** -5 * float(w.float().abs().max()), err
+
+
+# ---------------------------------------------------------------------------
+# The sm90 attention backward (attention.backward on its "sm90" route)
+# ---------------------------------------------------------------------------
+
+def _backward_case(dev, n, bh, t, d, dv, seed):
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    q, k = (torch.randn(n, bh, t, d, generator=g, device=dev).bfloat16() for _ in range(2))
+    v, do = (torch.randn(n, bh, t, dv, generator=g, device=dev).bfloat16() for _ in range(2))
+    return q, k, v, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bh,t,d,dv,causal", [
+    (4, 128, 256, 64, 64, True),      # the flagship's sp attention
+    (4, 128, 256, 64, 64, False),
+    (2, 3, 200, 64, 64, True),        # a ragged t, two ring steps
+    (2, 3, 72, 40, 40, False),        # d below one 64-column panel
+    (3, 2, 72, 128, 128, True),
+    (1, 64, 4096, 192, 128, True),    # Moonlight's layer
+    (2, 3, 200, 192, 128, True),
+    (2, 2, 13, 192, 128, True),       # below one tile
+])
+def test_attention_backward_kernel_matches_plain_on_card(n, bh, t, d, dv, causal):
+    """dq, dk and dv of the backward kernel against attention_backward on the
+    same q, k, v, o and dO, within 2^-5 of each gradient's largest magnitude
+    (the autograd tests' bound): the two round P and dS to bfloat16 alike,
+    and differ in P's exp (exp2 of the scores less the forward's
+    log-sum-exp) and in the order of float32 sums."""
+    from tpu_mpi_torch.kernels import attention
+    dev = _card()
+    q, k, v, do = _backward_case(dev, n, bh, t, d, dv, 3 * t + d + n)
+    scale = d ** -0.5
+    out, lse = attention.attend_saving_lse(q, k, v, causal=causal, scale=scale)
+    assert lse is not None and lse.shape == q.shape[:-1]
+    dims = f"{d}/{dv}"
+    before, at_dims = attention.backward_launches, attention.backward_dims_launches.get(dims, 0)
+    got = attention.backward(q, k, v, out, do, lse, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert attention.backward_launches == before + 1
+    assert attention.backward_dims_launches[dims] == at_dims + 1
+    want = attention.attention_backward(q, k, v, out, do, causal=causal, scale=scale)
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
+        err = float((a.float() - w.float()).abs().max())
+        big = float(w.float().abs().max())
+        assert err <= 2.0 ** -5 * big, (name, err, big)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n,bh,t,d,dv,causal", [
+    (4, 128, 256, 64, 64, True),
+    (2, 3, 200, 64, 64, False),
+    (2, 3, 200, 192, 128, True),
+    (1, 64, 4096, 192, 128, True),
+])
+def test_sm90_forward_log_sum_exp_on_card(n, bh, t, d, dv, causal):
+    """The log-sum-exp the sm90 forward writes for the backward (log2 units)
+    against the float32 logsumexp of the plain scores: both sum float32 in
+    other orders, and the kernel's exp is ex2.approx (2^-22). Writing it
+    leaves the output bit for bit as an LSE-less launch gives it."""
+    import math
+    from tpu_mpi_torch.kernels import attention
+    dev = _card()
+    q, k, v, _ = _backward_case(dev, n, bh, t, d, dv, 11 * t + d)
+    scale = d ** -0.5
+    out, lse = attention.attend_saving_lse(q, k, v, causal=causal, scale=scale)
+    plain_out = attention.attend(q, k, v, causal=causal, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(out, plain_out)
+    glob = lambda x: x.transpose(0, 1).reshape(bh, n * t, x.shape[-1]).float()  # noqa: E731
+    s = glob(q) @ glob(k).transpose(1, 2) * scale
+    if causal:
+        s = s.masked_fill(torch.ones(n * t, n * t, dtype=torch.bool, device=dev).triu(1),
+                          -math.inf)
+    want = torch.logsumexp(s, -1).view(bh, n, t).transpose(0, 1)
+    del s
+    got = lse / math.log2(math.e)
+    assert bool(((got - want).abs() <= 1e-4 + 1e-5 * want.abs()).all()), \
+        float((got - want).abs().max())
 
 
 @pytest.mark.cuda
@@ -692,11 +776,15 @@ def test_ring_attention_autograd_through_the_kernel_on_card(dtype, n, bh, t, d,
     dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
     before = dict(attention.route_launches)
+    backward = attention.backward_launches
     out = ring._RingAttention.apply(*leaves, causal, d ** -0.5)
     out.backward(dout)
     torch.cuda.synchronize()
     way = attention.route(dtype, d, True)
     assert attention.route_launches[way] == before[way] + 1
+    # the sm90 forward's calls take the backward kernel, the fma route's the
+    # plain backward
+    assert attention.backward_launches == backward + int(way == "sm90")
     plain = attention.ring_attention_plain(q, k, v, causal=causal, scale=d ** -0.5)
     want = attention.attention_backward(q, k, v, plain, dout, causal=causal,
                                         scale=d ** -0.5)

@@ -61,15 +61,18 @@
 // columns, value heads of 128), where v is taken at its own width and not
 // padded to d. One block per (128-row query tile, batch-head, rank).
 //
+// The launch may also write each row's log-sum-exp, m + log2(l) in the
+// kernel's log2 units (scores times scale * log2(e)), once per row in the
+// epilogue, for the backward; a null pointer writes nothing, so the other
+// callers keep their cost.
+//
 // C interface (bound with ctypes): returns 0 on success, the cudaError_t of a
 // refused launch, or TMT_EBADARG for arguments the kernel does not take. It
 // launches on the given stream and never synchronises. cuTensorMapEncodeTiled
 // (libcuda) is reached through cudaGetDriverEntryPoint, so the library links
 // no libcuda.
 
-#include "fold_ops.cuh"
-#include "mbarrier.cuh"
-#include <cuda.h>         // CUtensorMap and its enums (types only)
+#include "sm90.cuh"        // TMA, wgmma, packing, the tensor-map encoder
 #include <math.h>
 
 namespace sm90 {
@@ -77,125 +80,10 @@ namespace sm90 {
 const int BM = 64;                    // query rows per consumer warpgroup
 const int NC = 2;                     // consumer warpgroups per block
 const int BK = 64;                    // keys per K/V tile
-const int BOX = 64;                   // rows of one TMA box: BM queries or BK keys
 static_assert(BM == BOX && BK == BOX, "one box per Q panel of a warpgroup and per K/V panel");
-const int ROW = 128;                  // bytes of a box row: 64 bfloat16, one swizzle span
 const int kThreads = 128 * NC + 32;   // consumers, then the producer warp
 const float kMInit = -1e30f;          // the TPU kernel's running-max start
 const float kLog2e = 1.4426950408889634f;
-
-// ---- TMA (shared-memory addresses and mbarriers: mbarrier.cuh) ---------------
-
-// One box of a 3-D tensor map at coordinates (c0, c1, c2), innermost first.
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         uint32_t bar, int c0, int c1, int c2) {
-  asm volatile(
-      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5}], [%2];\n"
-      :: "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0), "r"(c1),
-         "r"(c2)
-      : "memory");
-}
-
-// ---- wgmma ------------------------------------------------------------------------
-
-// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets (all in 16-byte units).
-__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo & 0x3FFFF) >> 4) << 16) |
-         ((uint64_t)((sbo & 0x3FFFF) >> 4) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wg_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wg_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-
-// Keeps the compiler from moving reads or writes of accumulator registers
-// across a wgmma and its wait.
-template <int N>
-__device__ __forceinline__ void pin(float (&d)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i]) :: "memory");
-}
-
-// d (m64nNk16, float32) = A B + scale_d d: A and B from shared memory, both
-// K-major (ss, N = 64); or d += A B with A from registers and B MN-major (rs).
-__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t a, uint64_t b,
-                                            int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
-      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                            uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
-      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_n64(d, a, b);
-}
-__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t b) {
-  wgmma_rs_n128(d, a, b);
-}
-
-__device__ __forceinline__ uint32_t pack_rn(float lo, float hi) {
-  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);     // .x = lo (low half)
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// 2^x in one MUFU instruction (exp2f adds a range fix-up of three more);
-// ex2(-inf) = +0
-__device__ __forceinline__ float ex2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
-}
 
 // The online-softmax step of one thread's two rows over one key tile: s
 // holds the raw scores Q K^T (accumulator layout: s[4j + e] is row h = e / 2,
@@ -265,8 +153,8 @@ __global__ void __launch_bounds__(kThreads, 1)
 ring_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
                            const __grid_constant__ CUtensorMap kmap,
                            const __grid_constant__ CUtensorMap vmap,
-                           uint16_t* __restrict__ out, int n, int bh, int t, int dv,
-                           float scale_log2, int causal) {
+                           uint16_t* __restrict__ out, float* __restrict__ lse, int n,
+                           int bh, int t, int dv, float scale_log2, int causal) {
   using P = Plan<DQ, DV, STAGES>;
   constexpr int OJ = DV / 8;          // 8-column groups of O
   extern __shared__ uint8_t smem_raw[];
@@ -412,6 +300,13 @@ ring_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 1);
       l[h] += __shfl_xor_sync(0xffffffffu, l[h], 2);
     }
+    // the rows' log-sum-exp in the kernel's log2 units, m + log2(l), for the
+    // backward (attention_backward_sm90.cu); a null lse writes nothing
+    if (lse != nullptr && tq == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        if (rq[h] < t) lse[((int64_t)r * bh + b) * t + rq[h]] = m[h] + log2f(l[h]);
+    }
     uint16_t* ob = out + ((int64_t)r * bh + b) * t * dv;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
@@ -430,47 +325,9 @@ ring_attention_sm90_kernel(const __grid_constant__ CUtensorMap qmap,
 
 // ---- host side ----------------------------------------------------------------------
 
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-static EncodeTiled encoder() {
-  static EncodeTiled fn = nullptr;     // set once; a race only repeats the lookup
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
-                                            cudaEnableDefault, &found);
-#endif
-    if (e != cudaSuccess || found != cudaDriverEntryPointSuccess) return nullptr;
-    fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// (slabs, t, d) bfloat16 as a 3-D tensor map, innermost first, with 64 x 64
-// boxes and the 128-byte swizzle; TMA fills zeros past t and past d.
-static bool make_map(CUtensorMap* map, const void* base, int slabs, int t, int d) {
-  EncodeTiled encode = encoder();
-  if (encode == nullptr) return false;
-  cuuint64_t dims[3] = {(cuuint64_t)d, (cuuint64_t)t, (cuuint64_t)slabs};
-  cuuint64_t strides[2] = {(cuuint64_t)d * 2, (cuuint64_t)t * d * 2};
-  cuuint32_t box[3] = {64, BOX, 1};
-  cuuint32_t elems[3] = {1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
-                strides, box, elems, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
 template <int DQ, int DV, int STAGES>
-static int launch(const void* q, const void* k, const void* v, void* out, int n, int bh,
-                  int t, int d, int dv, float scale, int causal, cudaStream_t s) {
+static int launch(const void* q, const void* k, const void* v, void* out, float* lse, int n,
+                  int bh, int t, int d, int dv, float scale, int causal, cudaStream_t s) {
   auto kernel = ring_attention_sm90_kernel<DQ, DV, STAGES>;
   const int smem = Plan<DQ, DV, STAGES>::kBytes;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -481,8 +338,8 @@ static int launch(const void* q, const void* k, const void* v, void* out, int n,
       !make_map(&vm, v, n * bh, t, dv))
     return TMT_EBADARG;
   dim3 grid((t + NC * BM - 1) / (NC * BM), bh, n);
-  kernel<<<grid, kThreads, smem, s>>>(qm, km, vm, static_cast<uint16_t*>(out), n, bh, t,
-                                      dv, scale * kLog2e, causal);
+  kernel<<<grid, kThreads, smem, s>>>(qm, km, vm, static_cast<uint16_t*>(out), lse, n, bh,
+                                      t, dv, scale * kLog2e, causal);
   return (int)cudaGetLastError();
 }
 
@@ -491,10 +348,11 @@ static int launch(const void* q, const void* k, const void* v, void* out, int n,
 // ---- C interface -----------------------------------------------------------------
 
 // d: the head dim of q and k; dv: that of v and out. d == dv <= 128, or
-// 128 < d <= 192 beside 64 < dv <= 128 (latent attention).
+// 128 < d <= 192 beside 64 < dv <= 128 (latent attention). lse: null, or
+// (n, bh, t) float32 that receives each row's log-sum-exp in log2 units.
 extern "C" int tmt_ring_attention_sm90(const void* q, const void* k, const void* v,
-                                       void* out, int n, int bh, int t, int d, int dv,
-                                       float scale, int causal, void* stream) {
+                                       void* out, float* lse, int n, int bh, int t, int d,
+                                       int dv, float scale, int causal, void* stream) {
   const uintptr_t bases = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)out;
   const bool same = d == dv && d <= 128;
   const bool latent = d > 128 && d <= 192 && dv > 64 && dv <= 128;
@@ -503,7 +361,9 @@ extern "C" int tmt_ring_attention_sm90(const void* q, const void* k, const void*
       !q || !k || !v || !out)
     return TMT_EBADARG;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (latent) return sm90::launch<192, 128, 3>(q, k, v, out, n, bh, t, d, dv, scale, causal, s);
-  if (d <= 64) return sm90::launch<64, 64, 4>(q, k, v, out, n, bh, t, d, dv, scale, causal, s);
-  return sm90::launch<128, 128, 3>(q, k, v, out, n, bh, t, d, dv, scale, causal, s);
+  if (latent)
+    return sm90::launch<192, 128, 3>(q, k, v, out, lse, n, bh, t, d, dv, scale, causal, s);
+  if (d <= 64)
+    return sm90::launch<64, 64, 4>(q, k, v, out, lse, n, bh, t, d, dv, scale, causal, s);
+  return sm90::launch<128, 128, 3>(q, k, v, out, lse, n, bh, t, d, dv, scale, causal, s);
 }

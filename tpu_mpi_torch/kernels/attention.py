@@ -36,6 +36,16 @@ in), so they agree with it to a tolerance, not to bits; see the sources.
 
 Bound on the card: Q, K, V read and O written once against ``4 d`` flops
 per unmasked (query, key) pair, whichever takes longer.
+
+The gradient, :func:`backward`, takes one of two routes, chosen by
+:func:`backward_route` from what the call can observe: ``"sm90"``,
+``tpu_mpi_torch/csrc/attention_backward_sm90.cu``, for the bfloat16 CUDA
+calls the sm90 forward served (it reads the rows' log-sum-exp that forward
+saved, :func:`attend_saving_lse`), and ``"plain"``,
+:func:`attention_backward` in PyTorch, for every other call (float32, the
+``mma_sync`` head dims, CPU tensors) and as the kernel's oracle on the card.
+Its bound: ``2 (3 d + 2 dv)`` flops per unmasked pair against q, k, v, o,
+dO and the three gradients moved once.
 """
 
 from __future__ import annotations
@@ -52,6 +62,7 @@ from .fold_ops import DTYPE_CODE
 
 SOURCE = _build.CSRC / "ring_attention.cu"
 SOURCE_SM90 = _build.CSRC / "ring_attention_sm90.cu"
+SOURCE_BACKWARD = _build.CSRC / "attention_backward_sm90.cu"
 REPLACES = "tpu_mpi/xla/pallas_kernels.py:574"      # ring_attention
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_HEAD_DIM = 128
@@ -60,6 +71,7 @@ MAX_QK_DIM_SM90 = 192       # q/k head dim the sm90 route takes beside dv <= 128
 # stay within this many bytes (each of the few such tensors a block holds)
 BACKWARD_BLOCK_BYTES = 1 << 30
 ROUTES = ("sm90", "mma_sync", "fma")
+BACKWARD_ROUTES = ("sm90", "plain")
 SUBLANE = 8         # the TPU wrapper's multiple for the local sequence length
 M_INIT = -1e30      # the running max's start
 # The kernel against the plain version on the card, elementwise (see
@@ -76,21 +88,27 @@ BF16_REL = 2.0 ** -7 * (1 + 2.0 ** -6)
 TOLERANCE_NOTE = ("float32 |got-want| <= 1e-4 + 1e-4|want|; bfloat16 |got-want| "
                   "<= 2^-7 (1+2^-6) (A + |want|), A = attention of |v| in float32")
 
-# Launches of the kernels, one per wrapper call that launched one: in all,
-# per route, and per head dims ("<d>/<dv>").
+# Launches of the forward kernels, one per wrapper call that launched one:
+# in all, per route, and per head dims ("<d>/<dv>"); and of the backward
+# kernel (its main launch with the two small ones, one a call), in all and
+# per head dims.
 launches = 0
 route_launches = dict.fromkeys(ROUTES, 0)
 dims_launches: dict = {}
+backward_launches = 0
+backward_dims_launches: dict = {}
 _count_lock = threading.Lock()
 
 
 def reset_launches() -> None:
-    global launches
+    global launches, backward_launches
     with _count_lock:
         launches = 0
         for name in route_launches:
             route_launches[name] = 0
         dims_launches.clear()
+        backward_launches = 0
+        backward_dims_launches.clear()
 
 
 def sm90_takes(d: int, dv: int) -> bool:
@@ -111,6 +129,17 @@ def route(dtype: torch.dtype, d: int, aligned: bool, dv: Optional[int] = None) -
     if dtype == torch.float32:
         return "fma"
     return "sm90" if aligned and sm90_takes(d, dv) else "mma_sync"
+
+
+def backward_route(dtype: torch.dtype, d: int, dv: int, aligned: bool, on_card: bool,
+                   lse_saved: bool) -> str:
+    """The backward a call takes: ``"sm90"`` (the kernel) for bfloat16 CUDA
+    tensors whose head dims the sm90 kernels take, every operand contiguous
+    on a 16-byte-aligned base (``aligned``), with the forward's log-sum-exp
+    saved; else ``"plain"`` (:func:`attention_backward`)."""
+    if on_card and lse_saved and aligned and dtype == torch.bfloat16 and sm90_takes(d, dv):
+        return "sm90"
+    return "plain"
 
 
 def panel_rows(t: int) -> int:
@@ -176,12 +205,14 @@ def attention_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     forward's output ``o`` and its cotangent ``do``: matmuls and elementwise
     ops, no kernel of its own.
 
-    The forward returns no row statistics, so each block of query rows
+    It reads no row statistics of the forward, so each block of query rows
     recomputes its scores against the keys it sees (all of them, or under
     the causal mask those up to its last row) with the kernel's rounding:
     float32 scores scaled in float32, -inf masks by global position. Then
     P = softmax(S), dV = P^T dO, dS = P * (dO V^T - rowsum(dO * O)),
-    dQ = scale dS K and dK = scale dS^T Q. In bfloat16, P and dS are
+    dQ = scale dS K and dK = scale dS^T Q. This is the plain version of
+    :func:`backward` (its route for every call the sm90 kernel does not
+    take, and the kernel's oracle on the card). In bfloat16, P and dS are
     rounded to bfloat16 for their products (as the forward rounds P before
     P.V) and every product sums in float32. A rank's rows are one block
     unless its float32 scores would pass ``BACKWARD_BLOCK_BYTES``
@@ -256,10 +287,12 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> None:
 
 
 def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
-            scale: float, *, via: Optional[str] = None) -> torch.Tensor:
+            scale: float, *, via: Optional[str] = None, keep_lse: bool = False):
     """A kernel on stacked (n, BH, t, d) CUDA blocks (v (n, BH, t, dv)), or
     a refusal. ``via`` names a route in place of :func:`route`'s choice (for
-    measurement: the kernel must take the call)."""
+    measurement: the kernel must take the call). ``keep_lse``: return
+    ``(out, lse)``, lse the rows' log-sum-exp (n, BH, t) float32 in log2
+    units where the sm90 kernel ran, else None."""
     n, bh, t, d = q.shape
     dv = v.shape[-1]
     if q.device.type != "cuda":
@@ -277,15 +310,19 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         raise ValueError("ring_attention kernel takes contiguous blocks")
     out = q.new_empty(q.shape[:-1] + (dv,))
     if out.numel() == 0:
-        return out
+        return (out, None) if keep_lse else out
     ptrs = (q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr())
     way = via or route(q.dtype, d, all(p % 16 == 0 for p in ptrs), dv)
     if dv != d and way != "sm90":
         raise ValueError(f"ring_attention: only the sm90 route takes a v head dim "
                          f"({dv}) other than q's ({d}), with 16-byte bases")
+    lse = None
     if way == "sm90":
+        if keep_lse:
+            lse = torch.empty(q.shape[:-1], dtype=torch.float32, device=q.device)
         _build.call(LIBRARY_SM90.fn("tmt_ring_attention_sm90"), q.device,
-                    "ring_attention", *ptrs, n, bh, t, d, dv, scale, int(causal))
+                    "ring_attention", *ptrs, None if lse is None else lse.data_ptr(),
+                    n, bh, t, d, dv, scale, int(causal))
     else:
         _build.call(LIBRARY.fn("tmt_ring_attention"), q.device, "ring_attention",
                     *ptrs, n, bh, t, d, scale, int(causal), DTYPE_CODE[q.dtype])
@@ -295,7 +332,7 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
         route_launches[way] += 1
         dims = f"{d}/{dv}"
         dims_launches[dims] = dims_launches.get(dims, 0) + 1
-    return out
+    return (out, lse) if keep_lse else out
 
 
 def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -308,6 +345,67 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
     if q.device.type == "cpu":
         return ring_attention_plain(q, k, v, causal=causal, scale=scale)
     return _launch(q, k, v, causal, scale)
+
+
+def attend_saving_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool, scale: Optional[float] = None) -> tuple:
+    """As :func:`attend`, for a forward that will be differentiated:
+    ``(out, lse)``, lse the rows' log-sum-exp the sm90 forward wrote for
+    :func:`backward` ((n, BH, t) float32, in log2 units: scores times
+    ``scale * log2(e)``), None on every other route."""
+    _check(q, k, v)
+    scale = 1.0 / math.sqrt(q.shape[-1]) if scale is None else float(scale)
+    if q.device.type == "cpu":
+        return ring_attention_plain(q, k, v, causal=causal, scale=scale), None
+    return _launch(q, k, v, causal, scale, keep_lse=True)
+
+
+def backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+             do: torch.Tensor, lse: Optional[torch.Tensor], *, causal: bool,
+             scale: float) -> tuple:
+    """The gradients (dq, dk, dv) of ring attention, as
+    :func:`attention_backward` computes them: the sm90 kernel where
+    :func:`backward_route` takes the call (``lse`` from
+    :func:`attend_saving_lse`), that function otherwise."""
+    d, dv = q.shape[-1], v.shape[-1]
+    aligned = all(x.is_contiguous() and x.data_ptr() % 16 == 0 for x in (q, k, v, o, do))
+    way = backward_route(q.dtype, d, dv, aligned, q.device.type == "cuda", lse is not None)
+    if way == "plain":
+        return attention_backward(q, k, v, o, do, causal=causal, scale=scale)
+    return _launch_backward(q, k, v, o, do, lse, causal, scale)
+
+
+def _launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                     do: torch.Tensor, lse: torch.Tensor, causal: bool,
+                     scale: float) -> tuple:
+    """The backward kernel's three launches (D and the dQ accumulator, the
+    main launch, dQ's cast) on contiguous, 16-byte-aligned bfloat16 CUDA
+    blocks, or a refusal."""
+    n, bh, t, d = q.shape
+    dv = v.shape[-1]
+    lib = LIBRARY_BACKWARD
+    floats = lib.fn("tmt_attention_backward_sm90_scratch")(n, bh, t, d, dv)
+    operands = (q, k, v, o, do)
+    if floats <= 0 or k.shape != q.shape or v.shape[:-1] != q.shape[:-1] \
+            or o.shape != v.shape or do.shape != v.shape \
+            or any(x.dtype != torch.bfloat16 or x.device != q.device or not x.is_contiguous()
+                   for x in operands) \
+            or lse.shape != q.shape[:-1] or lse.dtype != torch.float32 \
+            or lse.device != q.device or not lse.is_contiguous():
+        raise ValueError(f"attention backward kernel: no launch for q {tuple(q.shape)}, "
+                         f"v {tuple(v.shape)}, o {tuple(o.shape)}, dO {tuple(do.shape)}")
+    scratch = torch.empty(floats, dtype=torch.float32, device=q.device)
+    dq, dk, dvv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    _build.call(lib.fn("tmt_attention_backward_sm90"), q.device, "attention_backward",
+                q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
+                lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
+                scratch.data_ptr(), n, bh, t, d, dv, scale, int(causal))
+    global backward_launches
+    with _count_lock:
+        backward_launches += 1
+        dims = f"{d}/{dv}"
+        backward_dims_launches[dims] = backward_dims_launches.get(dims, 0) + 1
+    return dq, dk, dvv
 
 
 def ring_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -332,9 +430,20 @@ def _bind(lib: ctypes.CDLL) -> None:
 def _bind_sm90(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     fn = lib.tmt_ring_attention_sm90
-    fn.argtypes = [p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
+    fn.argtypes = [p, p, p, p, p, i, i, i, i, i, ctypes.c_float, i, p]
     fn.restype = ctypes.c_int
+
+
+def _bind_backward(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn = lib.tmt_attention_backward_sm90
+    fn.argtypes = [p] * 10 + [i, i, i, i, i, ctypes.c_float, i, p]
+    fn.restype = ctypes.c_int
+    size = lib.tmt_attention_backward_sm90_scratch
+    size.argtypes = [i] * 5
+    size.restype = ctypes.c_int64
 
 
 LIBRARY = _build.Library("ring_attention", SOURCE, _bind)
 LIBRARY_SM90 = _build.Library("ring_attention_sm90", SOURCE_SM90, _bind_sm90)
+LIBRARY_BACKWARD = _build.Library("attention_backward_sm90", SOURCE_BACKWARD, _bind_backward)

@@ -17,9 +17,11 @@ its n = 1 branch is a plain softmax in the input dtype. The two compute the
 same function and are held to a tolerance, not to bits.
 
 The function is differentiable: a ``torch.autograd.Function`` whose
-backward is ``attention.attention_backward`` (matmuls recomputing P for
-each query block; the JAX package's gradient is XLA's autodiff of its
-ring, with no kernel of its own).
+backward is ``attention.backward``: the sm90 backward kernel, fed the
+rows' log-sum-exp the sm90 forward saved, on the calls that forward
+served, and ``attention.attention_backward`` (matmuls recomputing P for
+each query block) on every other (the JAX package's gradient is XLA's
+autodiff of its ring, with no kernel of its own).
 """
 
 from __future__ import annotations
@@ -35,13 +37,13 @@ from ..xla.collectives import Layout, _layout_shape
 
 
 class _RingAttention(torch.autograd.Function):
-    """Kernel (or plain schedule) forward, matmul backward, on stacked
-    contiguous (n, BH, t, d) blocks."""
+    """Kernel (or plain schedule) forward, kernel (or matmul) backward, on
+    stacked contiguous (n, BH, t, d) blocks."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, scale):
-        out = _attention.attend(q, k, v, causal=causal, scale=scale)
-        ctx.save_for_backward(q, k, v, out)
+        out, lse = _attention.attend_saving_lse(q, k, v, causal=causal, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
         ctx.causal, ctx.scale = causal, scale
         return out
 
@@ -49,9 +51,9 @@ class _RingAttention(torch.autograd.Function):
     def backward(ctx, dout):
         s = _pv.span_begin(cpu=False)
         try:
-            q, k, v, out = ctx.saved_tensors
-            grads = _attention.attention_backward(q, k, v, out, dout.contiguous(),
-                                                  causal=ctx.causal, scale=ctx.scale)
+            q, k, v, out, lse = ctx.saved_tensors
+            grads = _attention.backward(q, k, v, out, dout.contiguous(), lse,
+                                        causal=ctx.causal, scale=ctx.scale)
         finally:
             _pv.span_end("attend_along.backward", s)
         return (*grads, None, None)

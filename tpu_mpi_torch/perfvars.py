@@ -1045,6 +1045,8 @@ def kernels_snapshot() -> dict:
             "attention_launches": attention.launches,
             "attention_route_launches": dict(attention.route_launches),
             "attention_dims_launches": dict(attention.dims_launches),
+            "attention_backward_launches": attention.backward_launches,
+            "attention_backward_dims_launches": dict(attention.backward_dims_launches),
             "ring_launches": dict(ring.launches),
             "ring_route_launches": dict(ring.route_launches),
             "callable_rings": ring.callable_rings,
