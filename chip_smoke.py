@@ -556,6 +556,14 @@ EXAMPLE_TIMEOUT = 240
 EXAMPLE_WORKERS = 3         # one at a time took phase 21b 161.9 s, two 82.2 s
 
 
+def kernel_counts():
+    """The kernel layer's one table of launch counts: ``kernel_counts()[key]``
+    reads a key of ``perfvars.kernels_snapshot()``, ``kernel_counts().reset()``
+    zeroes every count."""
+    from tpu_mpi_torch.kernels._build import counts
+    return counts
+
+
 def log(msg: str) -> None:
     print(f"chip_smoke: {msg}", flush=True)
 
@@ -758,7 +766,7 @@ def check_fold_routes(fr, device, ns=ROUTE_NS, counts=ROUTE_COUNTS,
     import torch
     gen = torch.Generator(device=device)
     gen.manual_seed(SEED + 2)
-    fr.reset_launches()
+    kernel_counts().reset()
     cases, worst = 0, 0.0
 
     def one(xs, op, way, what, out=None, chosen=False):
@@ -767,10 +775,10 @@ def check_fold_routes(fr, device, ns=ROUTE_NS, counts=ROUTE_COUNTS,
         want = fr.fused_multi_reduce_plain(xs, op)
         if out is not None and any(out.data_ptr() == x.data_ptr() for x in xs):
             want = want.clone()
-        before = fr.route_launches[way]
+        before = kernel_counts()["fold_route_launches"][way]
         got = fr.fused_multi_reduce(xs, op, out=out, via=None if chosen else way)
         torch.cuda.synchronize()
-        if fr.route_launches[way] != before + 1:
+        if kernel_counts()["fold_route_launches"][way] != before + 1:
             raise AssertionError(f"fold on {way} not counted there: {what}")
         if out is not None and got is not out:
             raise AssertionError(f"fold did not fill its out: {what}")
@@ -840,7 +848,7 @@ def check_fold_routes(fr, device, ns=ROUTE_NS, counts=ROUTE_COUNTS,
                     one(xs, op, way, f"float32 {op} n={n} size={size}",
                         out=torch.empty_like(xs[0]))
             del xs
-    routes = dict(fr.route_launches)
+    routes = dict(kernel_counts()["fold_route_launches"])
     if min(routes.values()) < 1:
         raise AssertionError(f"a fold route went untested: {routes}")
     return {"cases": cases, "max_abs_err": worst, "routes": routes}
@@ -854,7 +862,7 @@ def check_ring_parity(MPI, ring, device, ns=RING_NS, sizes=RING_SIZES) -> dict:
     gen.manual_seed(SEED + 1)
     cases = dict.fromkeys(ring.REPLACES, 0)
     worst = dict.fromkeys(ring.REPLACES, 0.0)
-    ring.reset_launches()
+    kernel_counts().reset()
 
     def one(name, got, want, what):
         torch.cuda.synchronize()
@@ -904,7 +912,7 @@ def check_ring_parity(MPI, ring, device, ns=RING_NS, sizes=RING_SIZES) -> dict:
             pass
         else:
             raise AssertionError("a non-contiguous stacked tensor did not raise")
-    routes = dict(ring.route_launches)
+    routes = dict(kernel_counts()["ring_route_launches"])
     if min(routes.values()) < 1:
         raise AssertionError(f"a reduce-scatter route went untested: {routes}")
     return {"cases": cases, "max_abs_err": worst, "routes": routes}
@@ -1373,10 +1381,10 @@ def check_attention_parity(attention, device) -> dict:
 
     def one(key, way, call, q, k, v, causal, what):
         nonlocal cases
-        before = dict(attention.route_launches)
+        before = dict(kernel_counts()["attention_route_launches"])
         got = call()
         err, share = attention_close(attention, got, q, k, v, causal=causal, what=what)
-        moved = {r: attention.route_launches[r] - before[r] for r in before}
+        moved = {r: kernel_counts()["attention_route_launches"][r] - before[r] for r in before}
         if moved != {r: int(r == way) for r in before}:
             raise AssertionError(f"{what}: launches by route {moved}, not one {way}")
         worst[key] = max(worst.get(key, 0.0), err)
@@ -1526,17 +1534,15 @@ def _stage_params(params: dict, n: int) -> list:
 def recipes(tr, par, cfg, params, device) -> dict:
     """Phase 10; returns per-recipe results and launch counts."""
     import torch
-    from tpu_mpi_torch.kernels import attention, permute
     rng = np.random.default_rng(SEED + 10)
     dt = cfg.dtype
     out = {}
 
     def counted(fn):
-        permute.reset_launches()
-        attention.reset_launches()
+        kernel_counts().reset()
         res = fn()
         torch.cuda.synchronize()
-        return res, dict(permute.launches), attention.launches
+        return res, dict(kernel_counts()["permute_launches"]), kernel_counts()["attention_launches"]
 
     # Ulysses at the model's attention shapes
     b, h, tl, dh = BATCH, cfg.n_heads, SEQ // SP, cfg.head_dim
@@ -1828,12 +1834,12 @@ def attention_backward_times(attention, shape, device, logdir: str, *, sdpa) -> 
              for _ in range(2))
     scale = d ** -0.5
     o, lse = attention.attend_saving_lse(q, k, v, causal=True, scale=scale)
-    before = attention.backward_launches
+    before = kernel_counts()["attention_backward_launches"]
     got = attention.backward(q, k, v, o, do, lse, causal=True, scale=scale)
     torch.cuda.synchronize()
-    if lse is None or attention.backward_launches - before != 1:
-        raise AssertionError(f"attention backward at {shape}: "
-                             f"{attention.backward_launches - before} kernel calls, not 1")
+    calls = kernel_counts()["attention_backward_launches"] - before
+    if lse is None or calls != 1:
+        raise AssertionError(f"attention backward at {shape}: {calls} kernel calls, not 1")
     want = attention.attention_backward(q, k, v, o, do, causal=True, scale=scale)
     rel = {}
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
@@ -1911,10 +1917,12 @@ def moonlight_kernel_times(attention, permute, xla, device, logdir: str) -> dict
     q, k = (torch.randn(n, bh, t, dq, generator=gen, device=device).to(torch.bfloat16)
             for _ in range(2))
     v = torch.randn(n, bh, t, dv, generator=gen, device=device).to(torch.bfloat16)
-    routes, dims = dict(attention.route_launches), dict(attention.dims_launches)
+    before = kernel_counts().snapshot()
+    routes, dims = before["attention_route_launches"], before["attention_dims_launches"]
     got = attention.attend(q, k, v, causal=True)
-    moved = {r: attention.route_launches[r] - routes[r] for r in routes}
-    dims_moved = {key: c - dims.get(key, 0) for key, c in attention.dims_launches.items()
+    after = kernel_counts().snapshot()
+    moved = {r: after["attention_route_launches"][r] - routes[r] for r in routes}
+    dims_moved = {key: c - dims.get(key, 0) for key, c in after["attention_dims_launches"].items()
                   if c != dims.get(key, 0)}
     if moved != {r: int(r == "sm90") for r in routes} or dims_moved != {f"{dq}/{dv}": 1}:
         raise AssertionError(f"attention at {MLA_SHAPE}: launches by route {moved}, by "
@@ -1929,9 +1937,9 @@ def moonlight_kernel_times(attention, permute, xla, device, logdir: str) -> dict
     def exchange():
         return xla.alltoall(send, axis="ep", mesh={"ep": ranks}, split_axis=0,
                             concat_axis=0, tiled=True)
-    before = permute.launches["pairwise_alltoall"]
+    before = kernel_counts()["permute_launches"]["pairwise_alltoall"]
     got = exchange()
-    if permute.launches["pairwise_alltoall"] - before != 1:
+    if kernel_counts()["permute_launches"]["pairwise_alltoall"] - before != 1:
         raise AssertionError("the MoE exchange did not make one pairwise_alltoall launch")
     if not same_bits(got.reshape(ranks, -1), permute.pairwise_alltoall_plain(send)):
         raise AssertionError(f"pairwise_alltoall kernel != plain at the MoE exchange "
@@ -2056,17 +2064,10 @@ def step_flops(cfg) -> float:
     return 3.0 * (cfg.n_layers * per_layer + 2 * b * t * d * v)
 
 
-def counts(collective, fr, attention) -> tuple:
-    return (fr.launches, attention.launches, attention.route_launches["sm90"],
-            collective.chained_folds)
-
-
-def reset_counts(collective, fr, ring, permute, attention) -> None:
-    fr.reset_launches()
-    ring.reset_launches()
-    permute.reset_launches()
-    attention.reset_launches()
-    collective.chained_folds = 0
+def counts() -> tuple:
+    k = kernel_counts().snapshot()
+    return (k["fold_launches"], k["attention_launches"],
+            k["attention_route_launches"]["sm90"], k["chained_folds"])
 
 
 def ddp_step_times(ddp_step, start: dict, layout: list, dtype, device,
@@ -2192,8 +2193,7 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
     """Phase 12: the sp and tp train steps, the trainers, and their times."""
     import torch
     import torch.nn.functional as F
-    from tpu_mpi_torch import collective
-    from tpu_mpi_torch.kernels import attention, ddp_step, fused_reduce as fr, permute, ring
+    from tpu_mpi_torch.kernels import attention, ddp_step
     from tpu_mpi_torch.train import DDPTrainer, FSDPTrainer
     out = {}
     rng = np.random.default_rng(SEED + 12)
@@ -2204,14 +2204,14 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
 
     # the sp step: 3 steps at the flagship width, every launch counted
     step, _ = tr.transformer_train_step(cfg, xla.make_mesh({"sp": SP}), lr=TRAIN_LR)
-    reset_counts(collective, fr, ring, permute, attention)
+    kernel_counts().reset()
     p, losses = params, []
     for tok, lab in zip(tokens, labels):
         p, loss = step(p, tok, lab)
         losses.append(loss)
     torch.cuda.synchronize()
-    folds, attn, sm90, chained = counts(collective, fr, attention)
-    backward = dict(attention.backward_dims_launches)
+    folds, attn, sm90, chained = counts()
+    backward = dict(kernel_counts()["attention_backward_dims_launches"])
     losses = [float(x) for x in losses]
     out["sp"] = {"losses": losses, "fold_launches": folds,
                  "attention_launches": attn, "sm90_launches": sm90,
@@ -2264,10 +2264,10 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
     # the dense step, as the sp step above
     tp_step, _ = tr.transformer_train_step(cfg, xla.make_mesh({"tp": SP}), lr=TRAIN_LR)
     shards = tr.shard_params(params, cfg, SP)
-    reset_counts(collective, fr, ring, permute, attention)
+    kernel_counts().reset()
     _, loss_tp = tp_step(shards, tokens[0], labels[0])
     torch.cuda.synchronize()
-    folds, attn, _, chained = counts(collective, fr, attention)
+    folds, attn, _, chained = counts()
     del shards
     tp32, _ = tr.transformer_train_step(cfg32, xla.make_mesh({"tp": SP}),
                                         lr=TRAIN_LR_F32)
@@ -2313,25 +2313,24 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
             for name, trainer in (("ddp", ddp), ("fsdp", fsdp)):
                 torch.cuda.synchronize()
                 MPI.Barrier(comm)
-                f0, t0 = fr.launches, time.perf_counter()
+                f0, t0 = kernel_counts()["fold_launches"], time.perf_counter()
                 trainer.step((k, grads[k]) for k in reversed(list(grads)))
                 torch.cuda.synchronize()
                 MPI.Barrier(comm)
                 if r == 0:
                     spans[name].append((time.perf_counter() - t0) * 1e3)
-                    spans[f"{name}_folds"].append(fr.launches - f0)
+                    spans[f"{name}_folds"].append(kernel_counts()["fold_launches"] - f0)
             del grads
         same = all(same_bits(ddp.params[k], fsdp.params[k]) for k in start)
         layout = [(b.base, b.count, list(b.names)) for b in ddp.bucketer.buckets]
         return same, layout, ddp.opt_state_bytes(), fsdp.opt_state_bytes()
 
     from tpu_mpi_torch import _runtime
-    collective.chained_folds = 0
-    ddp_step.reset_launches()
+    kernel_counts().reset()
     stamped0 = _runtime.stamp_stats["rounds"]
     res = MPI.spmd_run(body, NRANKS, timeout=900)
     release_world_plans()
-    chained = collective.chained_folds
+    chained = kernel_counts()["chained_folds"]
     stamped = _runtime.stamp_stats["rounds"] - stamped0
     same, layout, ddp_bytes, fsdp_bytes = res[0]
     nbuckets = len(layout)
@@ -2339,8 +2338,9 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
     want_packs = rank_steps * sum(-(-len(names) // ddp_step.SEG_MAX)
                                   for _, _, names in layout)
     want_updates = rank_steps * -(-nbuckets // ddp_step.SEG_MAX)
-    ddp_launches = {"pack": ddp_step.pack_launches, "update": ddp_step.update_launches,
-                    "pack_copies": ddp_step.pack_copies}
+    k = kernel_counts().snapshot()
+    ddp_launches = {"pack": k["ddp_pack_launches"], "update": k["ddp_update_launches"],
+                    "pack_copies": k["ddp_pack_copies"]}
     out["trainers"] = {"bitwise_equal": all(x[0] for x in res), "buckets": nbuckets,
                        "ddp_step_launches": ddp_launches,
                        "steps": TRAIN_TRAINER_STEPS, "stamped_rounds": stamped,
@@ -2782,7 +2782,7 @@ def neighbors(MPI, device) -> dict:
     return {"grid": [2, 2], "block_bytes": 4 * c, "proc_null_slots": sum(nulls)}
 
 
-def p2p_phase(MPI, collective, fr, host: list, device, caps: dict,
+def p2p_phase(MPI, host: list, device, caps: dict,
               copy_gbps: float, logdir: str, where: str) -> dict:
     """Phase 13: (a) point-to-point at the main path's size, (b) the Jacobi
     halo loop at JACOBI_N, (c) the neighbourhood collectives; checks, then
@@ -2790,12 +2790,12 @@ def p2p_phase(MPI, collective, fr, host: list, device, caps: dict,
     fold launches under ``jacobi_launches``."""
     import torch
     t0 = time.perf_counter()
-    fr.reset_launches()
-    collective.chained_folds = 0
+    kernel_counts().reset()
     exch = p2p_exchange(MPI, host, device)
     t_exch = time.perf_counter() - t0
-    if fr.launches or collective.chained_folds:
-        raise AssertionError(f"point-to-point launched {fr.launches} folds")
+    k = kernel_counts().snapshot()
+    if k["fold_launches"] or k["chained_folds"]:
+        raise AssertionError(f"point-to-point launched {k['fold_launches']} folds")
     log(f"13a point-to-point on {exch['ranks']} rank threads, float32[2^26] "
         f"raw and DeviceBuffer ring Sendrecv, Isend/Irecv bfloat16 and int32 "
         f"[2^24], {P2P_ROUNDS} Send_init/Recv_init rounds, {P2P_PARTS} "
@@ -2824,10 +2824,9 @@ def p2p_phase(MPI, collective, fr, host: list, device, caps: dict,
 
     nranks = len(host)
     t1 = time.perf_counter()
-    fr.reset_launches()
-    collective.chained_folds = 0
+    kernel_counts().reset()
     out = jacobi(MPI, device, JACOBI_N, nranks, JACOBI_SWEEPS)
-    folds, chained = fr.launches, collective.chained_folds
+    folds, chained = kernel_counts()["fold_launches"], kernel_counts()["chained_folds"]
     if folds != JACOBI_SWEEPS or chained:
         raise AssertionError(f"Jacobi: {folds} fold launches and {chained} "
                              f"chained folds for {JACOBI_SWEEPS} sweeps")
@@ -3355,15 +3354,14 @@ def ckpt_round(MPI, Trainer, start: dict, device, path: str, kw: dict) -> dict:
         MPI.Finalize()
         return load_s, ok
 
-    from tpu_mpi_torch import collective
-    from tpu_mpi_torch.kernels import fused_reduce as fr
-    f0, c0 = fr.launches, collective.chained_folds
+    f0, c0 = kernel_counts()["fold_launches"], kernel_counts()["chained_folds"]
     try:
         save_s = max(MPI.spmd_run(uninterrupted, NRANKS, timeout=900))
         file_bytes = os.path.getsize(path)
         release_world_plans()
         res = MPI.spmd_run(resumed, NRANKS, timeout=900)
-        folds, chained = fr.launches - f0, collective.chained_folds - c0
+        k = kernel_counts().snapshot()
+        folds, chained = k["fold_launches"] - f0, k["chained_folds"] - c0
         after.clear()
         release_world_plans()
         half = MPI.spmd_run(resharded, NRANKS // 2, timeout=900)
@@ -3418,7 +3416,7 @@ def ckpt_phase(MPI, start: dict, device, where: str) -> dict:
     return out
 
 
-def rma_io_ckpt_phase(MPI, collective, fr, host: list, start: dict, device,
+def rma_io_ckpt_phase(MPI, host: list, start: dict, device,
                       caps: dict, where: str) -> dict:
     """Phase 14: (a) one-sided RMA over raw CUDA tensors and DeviceBuffers,
     (b) MPI-IO at 1 GiB, (c) the trainers' checkpoints at the flagship
@@ -3431,20 +3429,19 @@ def rma_io_ckpt_phase(MPI, collective, fr, host: list, start: dict, device,
     n, B = len(host), RMA_BLOCK
     ops = rma_operands(host)
     out = {"rma": {}}
-    fr.reset_launches()
-    collective.chained_folds = 0
+    kernel_counts().reset()
     for kind in ("tensor", "devicebuffer"):
-        f0 = fr.launches
+        f0 = kernel_counts()["fold_launches"]
         checks = rma_checks(MPI, host, ops, device, kind)
-        launches = fr.launches - f0
+        launches = kernel_counts()["fold_launches"] - f0
         # one a CUDA accumulate: two Accumulate epochs and FETCHES
         # Fetch_and_op a rank, and the overlapping-origin Accumulate on raw
         # tensors
         expected = (2 + (kind == "tensor")) * n + n * FETCHES
-        if launches != expected or collective.chained_folds:
+        chained = kernel_counts()["chained_folds"]
+        if launches != expected or chained:
             raise AssertionError(f"14a {kind}: {launches} fold launches for "
-                                 f"{expected} CUDA accumulates, "
-                                 f"{collective.chained_folds} chained")
+                                 f"{expected} CUDA accumulates, {chained} chained")
         out["rma"][kind] = {"launches": launches, "counter": checks["counter"]}
         log(f"14a RMA on {kind} windows, {n} rank threads x float32[2^26]: Put "
             f"and Get epochs of {B} elements a rank, int32 Accumulate from every "
@@ -3456,7 +3453,7 @@ def rma_io_ckpt_phase(MPI, collective, fr, host: list, start: dict, device,
                f"overlapping origins (Accumulate SUM, Get_accumulate REPLACE, Put, "
                f"Get at displacement {OVERLAP_SHIFT}) == plain"
                if checks["dynamic"] is not None else ""))
-    rma_launches = fr.launches
+    rma_launches = kernel_counts()["fold_launches"]
     release_world_plans()
     epoch_bytes = 2 * n * B * 4          # every rank's block read and written once
     epoch_bound = epoch_bytes / (caps["hbm_gbps"] * 1e9) * 1e3
@@ -3477,8 +3474,7 @@ def rma_io_ckpt_phase(MPI, collective, fr, host: list, start: dict, device,
     out["rma"]["devicebuffer_put_8B_ms"] = cell
     out["io"] = io_phase(MPI, host, device, where)
     release_world_plans()
-    fr.reset_launches()
-    collective.chained_folds = 0
+    kernel_counts().reset()
     out["ckpt"] = ckpt_phase(MPI, start, device, where)
     out["rma_launches"] = rma_launches
     out["ckpt_train_launches"] = (out["ckpt"]["ddp"]["fold_launches"]
@@ -3494,12 +3490,13 @@ def rma_io_ckpt_phase(MPI, collective, fr, host: list, start: dict, device,
 # 15. meshes of several axes at the flagship width
 # ---------------------------------------------------------------------------
 
-def multi_counts(collective, fr, permute, attention) -> dict:
-    return {"folds": fr.launches, "attention": attention.launches,
-            "sm90": attention.route_launches["sm90"],
-            "permute": permute.launches["collective_permute"],
-            "alltoall": permute.launches["pairwise_alltoall"],
-            "chained": collective.chained_folds}
+def multi_counts() -> dict:
+    k = kernel_counts().snapshot()
+    return {"folds": k["fold_launches"], "attention": k["attention_launches"],
+            "sm90": k["attention_route_launches"]["sm90"],
+            "permute": k["permute_launches"]["collective_permute"],
+            "alltoall": k["permute_launches"]["pairwise_alltoall"],
+            "chained": k["chained_folds"]}
 
 
 def update_error_of(before: dict, got: dict, want: dict) -> float:
@@ -3595,14 +3592,14 @@ def layout_copy_ms(xc, step, device) -> tuple:
     replayed alone with CUDA events: (count, bytes, ms per step)."""
     import torch
     xc.record_layout = []
-    xc.reset_layout_copies()
+    kernel_counts().reset()
     try:
         step()
         torch.cuda.synchronize()
         recorded = list(xc.record_layout)
     finally:
         xc.record_layout = None
-    count, nbytes = xc.layout_copies, xc.layout_copy_bytes
+    count, nbytes = kernel_counts()["layout_copies"], kernel_counts()["layout_copy_bytes"]
     srcs = [(torch.empty(shape, dtype=dtype, device=device), order)
             for shape, dtype, order in recorded]
 
@@ -3684,8 +3681,6 @@ def multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir: str,
     step, (d) a halo exchange over two axes; launch counts asserted, float32
     steps against dense autograd, times."""
     import torch
-    from tpu_mpi_torch import collective
-    from tpu_mpi_torch.kernels import attention, fused_reduce as fr, permute, ring
     from tpu_mpi_torch.xla import collectives as xc
     t_phase = time.perf_counter()
     out = {}
@@ -3697,7 +3692,7 @@ def multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir: str,
                 total[k] += run[k]
 
     L = cfg.n_layers
-    counters = lambda: multi_counts(collective, fr, permute, attention)  # noqa: E731
+    counters = multi_counts
     rng = np.random.default_rng(SEED + 15)
     batch = rng.integers(0, cfg.vocab, (BATCH, SEQ))
     tok = torch.from_numpy(batch).to(device)
@@ -3721,7 +3716,7 @@ def multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir: str,
     # -- (a) dp x tp x sp --------------------------------------------------
     n_tp, n_sp = MESH_A["tp"], MESH_A["sp"]
     shards = tr.shard_params(params, cfg, n_tp)
-    reset_counts(collective, fr, ring, permute, attention)
+    kernel_counts().reset()
     before = counters()
     logits = tr.transformer_forward(cfg, shards, stack_seq(tok, n_sp), tp_axis="tp",
                                     sp_axis="sp")
@@ -3772,7 +3767,7 @@ def multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir: str,
     moe = tr.transformer_pp_moe_init(gen, cfg, MOE_EXPERTS, device=device)
     step_b, _ = tr.transformer_pp_moe_train_step(cfg, xla.make_mesh(MESH_B), MOE_EXPERTS,
                                                  lr=TRAIN_LR, microbatches=MULTI_MICRO)
-    reset_counts(collective, fr, ring, permute, attention)
+    kernel_counts().reset()
     p_b, losses, per_step = run_steps(step_b, moe, tok, lab, TRAIN_STEPS, counters)
     ticks = MULTI_MICRO + MESH_B["pp"] - 1
     L_local = L // MESH_B["pp"]
@@ -3818,7 +3813,7 @@ def multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir: str,
     step_c, _ = tr.transformer_4d_train_step(cfg, xla.make_mesh(MESH_C), lr=TRAIN_LR,
                                              microbatches=MULTI_MICRO)
     cut4 = tr.shard_params(p4, cfg, MESH_C["tp"])
-    reset_counts(collective, fr, ring, permute, attention)
+    kernel_counts().reset()
     p_c, losses, per_step = run_steps(step_c, cut4, tok, lab, TRAIN_STEPS, counters)
     ticks = MULTI_MICRO + MESH_C["pp"] - 1
     L_local = L // MESH_C["pp"]
@@ -3863,11 +3858,11 @@ def multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir: str,
                                                 dtype=np.float32)).to(device)
     out["d"] = {"mesh": MESH_D, "rank_bytes": HALO_SIDE * HALO_SIDE * 4}
     for periodic in (True, False):
-        permute.reset_launches()
+        kernel_counts().reset()
         got = par.halo_exchange(grid, axes=tuple(MESH_D), halo=1, periodic=periodic,
                                 mesh=MESH_D)
         torch.cuda.synchronize()
-        hops = permute.launches["collective_permute"]
+        hops = kernel_counts()["permute_launches"]["collective_permute"]
         want = grid
         for dim in (0, 1):                    # rank dim of each axis
             sp_dim = 2 + dim                  # its spatial dim
@@ -4024,7 +4019,7 @@ def _plain_sum(xs):
 def _proc_world(outdir: str, n: int) -> int:
     import torch
     import tpu_mpi_torch as MPI
-    from tpu_mpi_torch import backend as B, collective, config
+    from tpu_mpi_torch import backend as B, config
     from tpu_mpi_torch.kernels import fused_reduce as fr
 
     served = _served_runners(B)
@@ -4038,7 +4033,7 @@ def _proc_world(outdir: str, n: int) -> int:
     want = {"left": fr.fused_multi_reduce_plain(xs, "SUM"),
             "ring": _ring_fold(xs)}
     rec = {"rank": rank, "device": str(dev), "tiers": {}, "checks": []}
-    launches0 = fr.launches
+    launches0 = kernel_counts()["fold_launches"]
 
     def set_algo(spec):
         if spec is None:
@@ -4083,19 +4078,19 @@ def _proc_world(outdir: str, n: int) -> int:
         expect = want["ring" if tier == "ring" else "left"]
         if tier == "shm":
             expect = expect[:PROC_SHM_ELEMS]
-        f0, c0 = fr.launches, collective.chained_folds
+        f0, c0 = kernel_counts()["fold_launches"], kernel_counts()["chained_folds"]
         served.clear()
         check(MPI.Allreduce(arg, MPI.SUM, comm), expect, f"Allreduce {tier}")
-        entry = {"launches": fr.launches - f0,
-                 "chained": collective.chained_folds - c0,
+        entry = {"launches": kernel_counts()["fold_launches"] - f0,
+                 "chained": kernel_counts()["chained_folds"] - c0,
                  "served": list(served)}
         if served != [PROC_RUNNER[tier]]:
             raise AssertionError(f"rank {rank}: Allreduce {tier} served by "
                                  f"{served}")
-        f0 = fr.launches
+        f0 = kernel_counts()["fold_launches"]
         iters = PROC_SMALL_ITERS if tier == "shm" else PROC_ITERS
         entry.update(timed(lambda: MPI.Allreduce(arg, MPI.SUM, comm), iters))
-        entry["timed_launches"] = fr.launches - f0
+        entry["timed_launches"] = kernel_counts()["fold_launches"] - f0
         entry["iters"] = iters
         rec["tiers"][tier] = entry
 
@@ -4138,7 +4133,7 @@ def _proc_world(outdir: str, n: int) -> int:
         lambda: MPI.Sendrecv(x, right, 5, got, left, 5, comm), PROC_ITERS)
 
     # a fence epoch of Put, Get and Accumulate on windows over CUDA tensors
-    f0 = fr.launches
+    f0 = kernel_counts()["fold_launches"]
     wf = torch.zeros(blk, dtype=torch.float32, device=dev)
     win = MPI.Win_create(wf, comm)
     MPI.Win_fence(0, win)
@@ -4159,7 +4154,7 @@ def _proc_world(outdir: str, n: int) -> int:
     if rank == 0:
         check(wi, sum(ints[1:], ints[0].clone()), "Accumulate SUM at rank 0")
     win.free()
-    rec["rma_launches"] = fr.launches - f0
+    rec["rma_launches"] = kernel_counts()["fold_launches"] - f0
 
     # Comm_spawn of 2 children, Allreduce over the merged world at the star
     set_algo("allreduce=star")
@@ -4169,15 +4164,15 @@ def _proc_world(outdir: str, n: int) -> int:
     merged = MPI.Intercomm_merge(inter, False)
     m = MPI.Comm_rank(merged)
     ops = [torch.from_numpy(a).to(dev) for a in _spawn_operands(spawn_n)]
-    f0 = fr.launches
+    f0 = kernel_counts()["fold_launches"]
     check(MPI.Allreduce(ops[m], MPI.SUM, merged), _plain_sum(ops),
           "merged-world Allreduce with 2 spawned children")
     rec["spawn"] = {"merged_size": MPI.Comm_size(merged),
-                    "launches": fr.launches - f0}
+                    "launches": kernel_counts()["fold_launches"] - f0}
     MPI.free(merged)
     MPI.free(inter)
-    rec["fold_launches"] = fr.launches - launches0
-    rec["chained"] = collective.chained_folds
+    rec["fold_launches"] = kernel_counts()["fold_launches"] - launches0
+    rec["chained"] = kernel_counts()["chained_folds"]
     _proc_write(outdir, f"rank{rank}", rec)
     MPI.Finalize()
     return 0
@@ -4675,7 +4670,7 @@ def serve_staging_ab(serve, collective) -> dict:
     return out
 
 
-def serve_procs(serve, fr, where: str) -> dict:
+def serve_procs(serve, where: str) -> dict:
     """A procs broker: 4 pool processes on the card (a CUDA context each),
     float32[8] and float32[2^24] Allreduce bitwise, the fold-kernel
     launches each worker reports, and the broker's startup seconds."""
@@ -4688,7 +4683,8 @@ def serve_procs(serve, fr, where: str) -> dict:
         pool = b.pool
         p = pool._await(pool._request(pool.healthy(), {"wop": "pvars"}),
                         60, "pvars")
-        launches0 = {r: m["fold_launches"] for r, (m, _) in p.replies.items()}
+        launches0 = {r: m["snapshot"]["kernels"]["fold_launches"]
+                     for r, (m, _) in p.replies.items()}
         rng = np.random.default_rng(SEED + 172)
         small = rng.standard_normal(8).astype(np.float32)
         bulk = [rng.standard_normal(SERVE_BULK).astype(np.float32)
@@ -4709,7 +4705,7 @@ def serve_procs(serve, fr, where: str) -> dict:
                 bulk_ms.append((time.perf_counter() - t1) * 1e3)
         p = pool._await(pool._request(pool.healthy(), {"wop": "pvars"}),
                         60, "pvars")
-        launches = {r: m["fold_launches"] - launches0[r]
+        launches = {r: m["snapshot"]["kernels"]["fold_launches"] - launches0[r]
                     for r, (m, _) in sorted(p.replies.items())}
     finally:
         b.close()
@@ -4751,15 +4747,14 @@ def serve_phase(MPI, collective, fr, device, where: str) -> dict:
     out["startup_s"] = time.perf_counter() - t0
     try:
         auto0 = collective._plans.auto_hits
-        fr.reset_launches()
-        collective.chained_folds = 0
+        kernel_counts().reset()
         launches = {}
         out["fleet"] = serve_fleet(serve, b, tenants)
-        launches["fleet"] = fr.launches
+        launches["fleet"] = kernel_counts()["fold_launches"]
         out["fairness"] = serve_fairness(serve, b)
-        launches["fairness"] = fr.launches - sum(launches.values())
+        launches["fairness"] = kernel_counts()["fold_launches"] - sum(launches.values())
         out["numpy_rules"] = serve_numpy_rules(serve, b)
-        launches["numpy_rules"] = fr.launches - sum(launches.values())
+        launches["numpy_rules"] = kernel_counts()["fold_launches"] - sum(launches.values())
         # pvars on for the zero-copy lane: the dumps `stats` renders below
         os.environ["TPU_MPI_PVARS"] = "1"
         config.load(refresh=True)
@@ -4774,13 +4769,13 @@ def serve_phase(MPI, collective, fr, device, where: str) -> dict:
         finally:
             os.environ.pop("TPU_MPI_PVARS", None)
             config.load(refresh=True)
-        launches["zero_copy"] = fr.launches - sum(launches.values())
+        launches["zero_copy"] = kernel_counts()["fold_launches"] - sum(launches.values())
         if cli.returncode != 0 or "allreduce" not in cli.stdout:
             raise AssertionError(f"stats CLI on the phase's dumps: "
                                  f"{cli.returncode} {cli.stderr[-400:]}")
         out["bulk"], parts = serve_bulk(serve, b)
-        launches["bulk"] = fr.launches - sum(launches.values())
-        chained = collective.chained_folds
+        launches["bulk"] = kernel_counts()["fold_launches"] - sum(launches.values())
+        chained = kernel_counts()["chained_folds"]
         auto_hits = collective._plans.auto_hits - auto0
         parsed = stats.parse_prometheus(_metrics_client(b.address,
                                                         SERVE_TOKEN))
@@ -4819,7 +4814,7 @@ def serve_phase(MPI, collective, fr, device, where: str) -> dict:
     out["latency_8"] = {"cuda": serve_latency(serve, {"device": "cuda"}),
                         "cpu": serve_latency(serve, {"device": "cpu"})}
     out["staging_ab"] = serve_staging_ab(serve, collective)
-    out["procs"] = serve_procs(serve, fr, where)
+    out["procs"] = serve_procs(serve, where)
     out["seconds"] = time.perf_counter() - t_phase
     f, fa, z, bk = out["fleet"], out["fairness"], out["zero_copy"], out["bulk"]
     log(f"17a fleet: {f['tenants']} tenants attached at "
@@ -5009,7 +5004,7 @@ def infer_check_set(serve, b, prompts: list, stagger: float,
     return outs
 
 
-def tenant_interleave(serve, b, fr, collective, stop_after: int,
+def tenant_interleave(serve, b, stop_after: int,
                       card: bool = True) -> dict:
     """One tenant's ``stop_after`` Allreduce SUM of four float32[4096]
     parts on the engine's pool while it generates: every reply bitwise the
@@ -5020,7 +5015,7 @@ def tenant_interleave(serve, b, fr, collective, stop_after: int,
     want = ((parts[0] + parts[1]) + parts[2]) + parts[3]
     lat = []
     with serve.attach(b.address, tenant="folds", token=SERVE_TOKEN) as s:
-        f0, c0 = fr.launches, collective.chained_folds
+        f0, c0 = kernel_counts()["fold_launches"], kernel_counts()["chained_folds"]
         for _ in range(stop_after):
             t0 = time.perf_counter()
             got = s.allreduce(parts)
@@ -5028,7 +5023,8 @@ def tenant_interleave(serve, b, fr, collective, stop_after: int,
             if got.tobytes() != want.tobytes():
                 raise AssertionError("18: a tenant reply off the rank-ordered "
                                      "fold while the engine ran")
-        launches, chained = fr.launches - f0, collective.chained_folds - c0
+        k = kernel_counts().snapshot()
+        launches, chained = k["fold_launches"] - f0, k["chained_folds"] - c0
     if launches != (stop_after if card else 0) or chained:
         raise AssertionError(f"18: {launches} fold launches (chained {chained}) "
                              f"for {stop_after} tenant ops beside the engine")
@@ -5129,7 +5125,7 @@ def infer_card_vs_cpu(serve, b, cfg, mode: str) -> dict:
             "cpu_engine_s": cpu_s}
 
 
-def infer_phase(fr, collective, device, logdir: str, where: str) -> dict:
+def infer_phase(device, logdir: str, where: str) -> dict:
     """Phase 18: the inference engine at the flagship's width on the card,
     driven by infer_sweep.py's traffic in its two lanes, with the checks
     the module docstring lists. Raises on any of them."""
@@ -5145,8 +5141,7 @@ def infer_phase(fr, collective, device, logdir: str, where: str) -> dict:
     out = {"lanes": {}, "loads": list(INFER_LOADS), "slo_ms": INFER_SLO_MS,
            "cfg": {**FLAGSHIP, "max_seq": INFER_MAX_SEQ, "dtype": "float32"}}
     checks = {}
-    fr.reset_launches()
-    collective.chained_folds = 0
+    kernel_counts().reset()
     folds = 0
     card = device.type == "cuda"
     for mode in INFER_MODES:
@@ -5171,8 +5166,7 @@ def infer_phase(fr, collective, device, logdir: str, where: str) -> dict:
                 if mode == "row_loop" and rps == INFER_LOADS[1]:
                     box = {}
                     th = threading.Thread(target=lambda: box.update(
-                        tenant_interleave(serve, b, fr, collective,
-                                          INFER_TENANT_OPS, card)))
+                        tenant_interleave(serve, b, INFER_TENANT_OPS, card)))
                     th.start()
                     points.append(infer_point(serve, b, mode, rps, streams))
                     th.join(timeout=300)
@@ -5209,12 +5203,12 @@ def infer_phase(fr, collective, device, logdir: str, where: str) -> dict:
         out["lanes"][mode] = lane
     if checks["row_loop"] != checks["prefix_share"]:
         raise AssertionError(f"18: lanes differ: {checks}")
-    if collective.chained_folds:
+    if kernel_counts()["chained_folds"]:
         raise AssertionError("18: a fold left the kernel")
     out["check_streams"] = checks["row_loop"]
-    out["fold_launches"] = fr.launches
-    if fr.launches < folds:
-        raise AssertionError(f"18: {fr.launches} fold launches for {folds} ops")
+    out["fold_launches"] = kernel_counts()["fold_launches"]
+    if out["fold_launches"] < folds:
+        raise AssertionError(f"18: {out['fold_launches']} fold launches for {folds} ops")
     out["seconds"] = time.perf_counter() - t_phase
     for mode, lane in out["lanes"].items():
         for p in lane["points"]:
@@ -5254,7 +5248,7 @@ def infer_phase(fr, collective, device, logdir: str, where: str) -> dict:
     return out
 
 
-def elastic_phase(fr, collective, device, where: str) -> dict:
+def elastic_phase(device, where: str) -> dict:
     """Phase 19: elastic_sweep.py's traffic on a ``device="cuda"`` broker
     with the engine live; the failure verdict for the highest rank lands
     mid-run, at an engine step boundary, while a generation streams."""
@@ -5363,7 +5357,7 @@ def elastic_phase(fr, collective, device, where: str) -> dict:
                 time.sleep(0.01)
             window["end"] = time.perf_counter()
 
-        f0 = fr.launches
+        f0 = kernel_counts()["fold_launches"]
         t0 = time.perf_counter()
         threads = [threading.Thread(target=worker, args=(i,)) for i in range(n)]
         gen_th = threading.Thread(target=spanning)
@@ -5375,7 +5369,7 @@ def elastic_phase(fr, collective, device, where: str) -> dict:
             t.join(timeout=300)
         killer.join(timeout=300)
         gen_th.join(timeout=300)
-        folds = fr.launches - f0
+        folds = kernel_counts()["fold_launches"] - f0
         after_stream = _generate(serve, b, prompt, ELASTIC_GEN_NEW, "after")
         resize = dict(b.elastic_state.get("last_resize") or {})
         state = {k: b.elastic_state[k] for k in ("resizes", "rebinds",
@@ -5641,7 +5635,7 @@ def isend_check_ms(device, nbytes: int, iters: int) -> dict:
             "crc_ms": median_ms(lambda: events._buf_crc(t))}
 
 
-def analysis_phase(MPI, fr, collective, host: list, device, where: str,
+def analysis_phase(MPI, host: list, device, where: str,
                    ops: int = ANALYSIS_OPS, turns: int = ANALYSIS_TURNS,
                    check_bytes: int = ISEND_CHECK_BYTES) -> dict:
     """Phase 20: the main path traced on the card, verified, explored and
@@ -5657,13 +5651,12 @@ def analysis_phase(MPI, fr, collective, host: list, device, where: str,
         # (1) the main path traced, dumped and merged
         prefix, chrome = os.path.join(tmp, "main"), os.path.join(tmp, "main.json")
         _set_trace(True, dump=prefix)
-        fr.reset_launches()
-        collective.chained_folds = 0
+        kernel_counts().reset()
         try:
             traced_ms = analysis_allreduce(MPI, host, device, ops, chrome)
         finally:
             _set_trace(False)
-        launches, chained = fr.launches, collective.chained_folds
+        launches, chained = kernel_counts()["fold_launches"], kernel_counts()["chained_folds"]
         # (a CPU rehearsal folds with the plain version: no launches)
         if (device.type == "cuda" and launches != ops + 2) or chained:
             raise AssertionError(f"traced main path: {launches} fold launches, "
@@ -5695,13 +5688,13 @@ def analysis_phase(MPI, fr, collective, host: list, device, where: str,
         for _ in range(turns):
             for mode in ("untraced", "traced"):
                 _set_trace(mode == "traced")
-                fr.reset_launches()
+                kernel_counts().reset()
                 try:
                     readings[mode].append(analysis_allreduce(MPI, host, device,
                                                              ops))
                 finally:
                     _set_trace(False)
-                turn_launches[mode].append(fr.launches)
+                turn_launches[mode].append(kernel_counts()["fold_launches"])
         if device.type == "cuda" and min(n for v in turn_launches.values()
                                          for n in v) < ops + 2:
             raise AssertionError(f"fold launches by turn {turn_launches}, "
@@ -5815,7 +5808,7 @@ def _complex_specials(rank: int, dtype) -> np.ndarray:
     return a
 
 
-def zero_d_complex_phase(MPI, collective, fr, device) -> dict:
+def zero_d_complex_phase(MPI, fr, device) -> dict:
     """21a: on NRANKS rank threads, with CUDA raw tensors and cells: the
     0-d Allreduce, Scan, Exscan, bcast and Sendrecv of float32, int64 and
     bfloat16 (shape () and the bits of the rank-ordered fold on the host),
@@ -5902,12 +5895,12 @@ def zero_d_complex_phase(MPI, collective, fr, device) -> dict:
                                          f"Accumulate MAX on rank {r}")
         MPI.Finalize()
 
-    fr.reset_launches()
-    chained0 = collective.chained_folds
+    kernel_counts().reset()
+    chained0 = kernel_counts()["chained_folds"]
     t0 = time.perf_counter()
     MPI.spmd_run(body, NRANKS, timeout=300)
     seconds = time.perf_counter() - t0
-    folds, chained = fr.launches, collective.chained_folds - chained0
+    folds, chained = kernel_counts()["fold_launches"], kernel_counts()["chained_folds"] - chained0
     want_folds = len(kinds) * len(ZERO_D_DTYPES)           # the Allreduces
     want_chained = len(kinds) * 2 * (2 + NRANKS)           # MAX, MIN, accumulates
     if folds != want_folds or chained != want_chained:
@@ -5923,8 +5916,8 @@ def zero_d_complex_phase(MPI, collective, fr, device) -> dict:
 # is) or as a plain script, then reports this process's kernel counts
 EXAMPLE_RUNNER = """
 import json, runpy, sys
-from tpu_mpi_torch import collective, launcher
-from tpu_mpi_torch.kernels import fused_reduce as fr, ring
+from tpu_mpi_torch import launcher
+from tpu_mpi_torch.kernels._build import counts
 args = sys.argv[1:]
 if args[0] == "--python":
     sys.argv = args[1:]
@@ -5933,8 +5926,8 @@ if args[0] == "--python":
 else:
     rc = launcher.main(args)
 sys.stderr.write("PHASE21 " + json.dumps({
-    "folds": fr.launches, "ring_allreduce": ring.launches["ring_allreduce"],
-    "chained": collective.chained_folds}) + "\\n")
+    "folds": counts["fold_launches"], "ring_allreduce": counts["ring_launches"]["ring_allreduce"],
+    "chained": counts["chained_folds"]}) + "\\n")
 sys.exit(rc)
 """
 
@@ -6098,13 +6091,11 @@ def main() -> int:
     # host main path
     host = host_operands(N_MAIN, NRANKS)
     auto_hits0 = collective._plans.auto_hits
-    fr.reset_launches()
-    ring.reset_launches()
-    collective.chained_folds = 0
+    kernel_counts().reset()
     t0 = time.perf_counter()
     path = main_path(MPI, host, device)
-    launches, chained = fr.launches, collective.chained_folds
-    main_routes = dict(fr.route_launches)
+    launches, chained = kernel_counts()["fold_launches"], kernel_counts()["chained_folds"]
+    main_routes = dict(kernel_counts()["fold_route_launches"])
     log(f"host main path: {path['ops']} collectives on {NRANKS} rank threads in "
         f"{time.perf_counter() - t0:.1f} s; fold kernel launches {launches} by "
         f"route {main_routes}, chained folds {chained}, auto-armed hits "
@@ -6122,15 +6113,13 @@ def main() -> int:
     # in-graph path
     mesh = xla.make_mesh({"x": NRANKS})
     xs = torch.from_numpy(np.stack(host)).to(mesh.device)
-    fr.reset_launches()
-    ring.reset_launches()
-    collective.chained_folds = 0
+    kernel_counts().reset()
     t0 = time.perf_counter()
     graph = ingraph_path(MPI, xla, xs)
-    graph_folds, graph_rings = fr.launches, dict(ring.launches)
-    graph_routes = dict(ring.route_launches)
-    graph_fold_routes = dict(fr.route_launches)
-    callables, chained = ring.callable_rings, collective.chained_folds
+    k = kernel_counts().snapshot()
+    graph_folds, graph_rings = k["fold_launches"], k["ring_launches"]
+    graph_routes, graph_fold_routes = k["ring_route_launches"], k["fold_route_launches"]
+    callables, chained = k["callable_rings"], k["chained_folds"]
     log(f"in-graph path on {mesh}: {len(graph)} calls in "
         f"{time.perf_counter() - t0:.2f} s; ring launches {graph_rings}, fold "
         f"launches {graph_folds} by route {graph_fold_routes}, callable rings "
@@ -6300,14 +6289,14 @@ def main() -> int:
                    + [w for layer in params["layers"] for w in layer.values()])
     requests = np.random.default_rng(SEED).integers(
         0, cfg.vocab, (REQUESTS, BATCH, SEQ)).astype(np.int64)
-    reset_counts(collective, fr, ring, permute, attention)
+    kernel_counts().reset()
     t0 = time.perf_counter()
     served = serve(tr, cfg, params, requests, device)
     serve_s = time.perf_counter() - t0
-    model_launches = attention.launches
-    model_routes = dict(attention.route_launches)
-    others = (fr.launches, sum(ring.launches.values()), ring.callable_rings,
-              collective.chained_folds, sum(permute.launches.values()))
+    k = kernel_counts().snapshot()
+    model_launches, model_routes = k["attention_launches"], k["attention_route_launches"]
+    others = (k["fold_launches"], sum(k["ring_launches"].values()), k["callable_rings"],
+              k["chained_folds"], sum(k["permute_launches"].values()))
     log(f"model path: {REQUESTS} requests of ({BATCH}, {SEQ}) tokens through the "
         f"sp forward on {{'sp': {SP}}}, {n_params} parameters, in {serve_s:.2f} s "
         f"(first requests, build-free); ring_attention launches {model_launches} "
@@ -6349,11 +6338,11 @@ def main() -> int:
         "float32")
     del params32
     log(f"sp logits vs dense forward (float32, TF32 off): {f32_check}")
-    fr.reset_launches()
+    kernel_counts().reset()
     tp_logits = tr.transformer_forward(cfg, tr.shard_params(params, cfg, SP), tok0,
                                        tp_axis="tp")
     torch.cuda.synchronize()
-    tp_folds = fr.launches
+    tp_folds = kernel_counts()["fold_launches"]
     tp_check = compare_logits(tp_logits[SP - 1],
                               tr.transformer_forward(cfg, params, tok0),
                               "tp vs single forward", "bfloat16")
@@ -6537,10 +6526,10 @@ def main() -> int:
                     f"threads; times one rank-step a call",
             **{k: v for k, v in t.items() if k.endswith("_turns")}})
     # 13. point-to-point and Cartesian topology on the rank threads
-    p2p = p2p_phase(MPI, collective, fr, host, device, caps, copy_gbps, logdir,
+    p2p = p2p_phase(MPI, host, device, caps, copy_gbps, logdir,
                     where)
     # 14. one-sided RMA, MPI-IO and the trainers' checkpoints
-    rma = rma_io_ckpt_phase(MPI, collective, fr, host, flat_params(params), device,
+    rma = rma_io_ckpt_phase(MPI, host, flat_params(params), device,
                             caps, where)
     # 15. meshes of several axes at the flagship width
     multi = multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir, where)
@@ -6551,18 +6540,18 @@ def main() -> int:
     print(json.dumps({"serve": served17}), flush=True)
     # 18. the inference engine at the flagship's width; 19. an elastic
     # resize of the live pool
-    infer18 = infer_phase(fr, collective, device, logdir, where)
-    elastic19 = elastic_phase(fr, collective, device, where)
+    infer18 = infer_phase(device, logdir, where)
+    elastic19 = elastic_phase(device, where)
     print(json.dumps({"infer": infer18, "elastic": elastic19},
                      default=str), flush=True)
     # 20. the analysis tier: the main path traced, defects on CUDA
     # tensors, the dumps through the analyze CLI, the static passes
-    analysis20 = analysis_phase(MPI, fr, collective, host, device, where)
+    analysis20 = analysis_phase(MPI, host, device, where)
     print(json.dumps({"analysis": analysis20}), flush=True)
     # 21. 0-d operands and complex MAX/MIN on CUDA tensors and cells; the
     # examples through the launcher on the card
     t0 = time.perf_counter()
-    zero21 = zero_d_complex_phase(MPI, collective, fr, device)
+    zero21 = zero_d_complex_phase(MPI, fr, device)
     log(f"phase 21a: 0-d {zero21['zero_d_dtypes']} Allreduce/Scan/Exscan/"
         f"bcast/Sendrecv and complex MAX/MIN Allreduce and Accumulate with NaN "
         f"and signed-zero elements on {zero21['kinds']}, bit for bit, in "

@@ -27,6 +27,7 @@ from tpu_mpi_torch import collective as tcoll
 from tpu_mpi_torch import config as tconfig
 from tpu_mpi_torch.buffers import to_numpy
 from tpu_mpi_torch.kernels import fused_reduce as fr
+from tpu_mpi_torch.kernels._build import counts
 
 TIMEOUT = 60
 
@@ -184,11 +185,11 @@ def test_tensor_folds_take_the_kernel_wrapper(monkeypatch, jax_fold):
         return orig(xs, op, **kw)
     monkeypatch.setattr(fr, "fused_multi_reduce", spy)
     data = _data("float32", 4, 64)
-    chained0 = tcoll.chained_folds
+    chained0 = counts["chained_folds"]
     got = _program(MPI, _torch_make("device", "float32"), "alloc", MPI.MAX,
                    data, repeat=1)
     assert calls == ["MAX"]
-    assert tcoll.chained_folds == chained0
+    assert counts["chained_folds"] == chained0
     np.testing.assert_array_equal(got[0][0], _left_fold(data, np.maximum))
 
 
@@ -199,10 +200,10 @@ def test_chained_fold_counted(why, monkeypatch, jax_fold):
         tconfig.load(refresh=True)
     op = (lambda a, b: a + b) if why == "custom" else MPI.SUM
     data = _data("float32", 3, 64)
-    chained0 = tcoll.chained_folds
+    chained0 = counts["chained_folds"]
     got = _program(MPI, _torch_make("device", "float32"), "alloc", op, data,
                    repeat=1)
-    assert tcoll.chained_folds == chained0 + 1
+    assert counts["chained_folds"] == chained0 + 1
     np.testing.assert_array_equal(got[0][0], _left_fold(data))
 
 

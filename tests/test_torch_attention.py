@@ -24,6 +24,7 @@ from jax.sharding import PartitionSpec as P
 from tpu_mpi import xla as jxla
 from tpu_mpi.xla import pallas_kernels as pk
 from tpu_mpi_torch.kernels import attention
+from tpu_mpi_torch.kernels._build import counts
 
 # (n, t_local, d, causal)
 CASES = [(4, 8, 16, True), (4, 8, 16, False), (8, 8, 16, True)]
@@ -160,10 +161,10 @@ def test_wrapper_shapes_and_refusals():
 
 
 def test_cpu_tensors_launch_nothing_and_bounds_count_pairs():
-    attention.reset_launches()
+    counts.reset()
     q = torch.randn(2, 1, 8, 8)
     attention.attend(q, q, q, causal=True)
-    assert attention.launches == 0
+    assert counts["attention_launches"] == 0
     assert attention.causal_pairs(4, 256) == 1024 * 1025 // 2
     assert attention.panel_rows(1024) == 1024 and attention.panel_rows(2048) == 512
 
@@ -247,9 +248,11 @@ def test_route_by_dtype_head_dim_and_alignment(dtype, d, aligned, want):
 
 
 def test_route_counts_reset_with_the_total():
-    attention.route_launches["sm90"] += 1
-    attention.reset_launches()
-    assert attention.launches == 0 and set(attention.route_launches.values()) == {0}
+    counts.add("attention_route_launches", "sm90")
+    assert counts["attention_launches"] == 1
+    counts.reset()
+    assert counts["attention_launches"] == 0
+    assert counts["attention_route_launches"] == dict.fromkeys(attention.ROUTES, 0)
     assert attention.LIBRARY_SM90.path().name.startswith("ring_attention_sm90-")
 
 
@@ -279,10 +282,10 @@ def test_backward_route_by_dtype_head_dims_alignment_and_lse(dtype, d, dv, align
 
 
 def test_backward_counters_reset_and_cpu_calls_launch_nothing():
-    attention.backward_launches += 1
-    attention.backward_dims_launches["64/64"] = 3
-    attention.reset_launches()
-    assert attention.backward_launches == 0 and attention.backward_dims_launches == {}
+    counts.add("attention_backward_dims_launches", "64/64", 3)
+    counts.reset()
+    assert counts["attention_backward_launches"] == 0
+    assert counts["attention_backward_dims_launches"] == {}
     g = torch.Generator().manual_seed(3)
     q, k, v, do = (torch.randn(2, 3, 16, 8, generator=g).to(torch.bfloat16) for _ in range(4))
     out, lse = attention.attend_saving_lse(q, k, v, causal=True)
@@ -290,20 +293,22 @@ def test_backward_counters_reset_and_cpu_calls_launch_nothing():
     want = attention.attention_backward(q, k, v, out, do, causal=True, scale=8 ** -0.5)
     got = attention.backward(q, k, v, out, do, None, causal=True, scale=8 ** -0.5)
     assert all(torch.equal(a, b) for a, b in zip(got, want))
-    assert attention.backward_launches == 0 and attention.launches == 0
+    assert counts["attention_backward_launches"] == 0 and counts["attention_launches"] == 0
 
 
 def test_snapshot_exports_the_backward_counters():
     from tpu_mpi_torch import perfvars
-    attention.reset_launches()
+    counts.reset()
     k = perfvars.kernels_snapshot()
     assert k["attention_backward_launches"] == 0
     assert k["attention_backward_dims_launches"] == {}
-    attention.backward_dims_launches["192/128"] = 5
+    counts.add("attention_backward_dims_launches", "192/128", 5)
     try:
-        assert perfvars.kernels_snapshot()["attention_backward_dims_launches"] == {"192/128": 5}
+        k = perfvars.kernels_snapshot()
+        assert k["attention_backward_dims_launches"] == {"192/128": 5}
+        assert k["attention_backward_launches"] == 5
     finally:
-        attention.reset_launches()
+        counts.reset()
     assert attention.LIBRARY_BACKWARD.path().name.startswith("attention_backward_sm90-")
 
 

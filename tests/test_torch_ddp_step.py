@@ -19,6 +19,7 @@ import tpu_mpi_torch as MPI
 from tpu_mpi_torch import perfvars
 from tpu_mpi_torch.kernels import ddp_step
 from tpu_mpi_torch.train import DDPTrainer, GradBucketer
+from tpu_mpi_torch.kernels._build import counts
 
 TIMEOUT = 120
 LR, MU = 1e-3, 0.9
@@ -124,7 +125,7 @@ def test_bucket_add_copies_nothing_until_the_bucket_is_full():
     grads = {"a": torch.randn(2, 3, dtype=torch.float64).to(torch.bfloat16),
              "b": base[:, 1:3].T,                 # non-contiguous float32
              "c": np.array([1.5, -0.0, np.inf, np.nan])}
-    copies = ddp_step.pack_copies
+    copies = counts["ddp_pack_copies"]
     assert bk.add("a", grads["a"]) is None
     assert bk.add("b", grads["b"]) is None
     assert torch.equal(bk.buckets[0].send.value, torch.zeros(16, dtype=torch.float64))
@@ -137,7 +138,7 @@ def test_bucket_add_copies_nothing_until_the_bucket_is_full():
         want.narrow(0, off, n).copy_(g.reshape(-1))
         off += n
     assert _bits(bk.buckets[0].send.value) == _bits(want)
-    assert ddp_step.pack_copies == copies     # the plain pack reads in place
+    assert counts["ddp_pack_copies"] == copies     # the plain pack reads in place
 
 
 def test_bucket_add_reads_a_gradient_when_its_bucket_packs():
@@ -159,7 +160,8 @@ def test_bucket_add_reads_a_gradient_when_its_bucket_packs():
 
 
 def test_cpu_steps_launch_no_kernel_and_the_counters_are_listed():
-    before = (ddp_step.pack_launches, ddp_step.update_launches, ddp_step.pack_copies)
+    names = ("ddp_pack_launches", "ddp_update_launches", "ddp_pack_copies")
+    before = tuple(counts[name] for name in names)
 
     def body():
         tr = DDPTrainer(_spec(), MPI.COMM_WORLD, bucket_bytes=1024, device="cpu")
@@ -167,11 +169,8 @@ def test_cpu_steps_launch_no_kernel_and_the_counters_are_listed():
         tr.step((n, g[n]) for n in reversed(list(g)))
 
     MPI.testing.run_spmd(body, 2, timeout=TIMEOUT)
-    assert (ddp_step.pack_launches, ddp_step.update_launches,
-            ddp_step.pack_copies) == before
     snap = perfvars.kernels_snapshot()
-    assert (snap["ddp_pack_launches"], snap["ddp_update_launches"],
-            snap["ddp_pack_copies"]) == before
+    assert tuple(snap[name] for name in names) == before
 
 
 @pytest.mark.parametrize("bad", ["short gradient", "past the end", "float32 flat",

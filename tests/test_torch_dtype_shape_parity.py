@@ -38,7 +38,7 @@ import pytest
 import tpu_mpi as JMPI
 import tpu_mpi.testing  # noqa: F401  (JMPI.testing.run_spmd)
 import tpu_mpi_torch as MPI
-from tpu_mpi_torch import collective
+from tpu_mpi_torch.kernels._build import counts
 
 from test_torch_p2p import AT, KINDS, TIMEOUT, host, same
 
@@ -261,7 +261,7 @@ def test_complex_max_min_specials(kind, dtype, opname):
     want_scan = [xs[0], ufunc(xs[0], xs[1]), want_red]
     want_win = [ufunc(_specials(r + 1, dtype), xs[(r - 1) % NPROCS])
                 for r in range(NPROCS)]
-    before = collective.chained_folds
+    before = counts["chained_folds"]
     t = MPI.testing.run_spmd(p_specials(MPI, AT(KINDS[kind][1]), dtype,
                                         opname), NPROCS, timeout=TIMEOUT)
     for r, (red, scan, w) in enumerate(t):
@@ -269,4 +269,4 @@ def test_complex_max_min_specials(kind, dtype, opname):
         assert same(scan, want_scan[r]), (r, scan)
         assert same(w, want_win[r]), (r, w)
     if kind != "numpy":
-        assert collective.chained_folds > before
+        assert counts["chained_folds"] > before

@@ -20,6 +20,7 @@ import torch
 from tpu_mpi.xla import pallas_kernels as pk
 from tpu_mpi_torch.buffers import from_numpy, to_numpy
 from tpu_mpi_torch.kernels import _build, fused_reduce as fr
+from tpu_mpi_torch.kernels._build import counts
 
 OPS = ["SUM", "PROD", "MAX", "MIN"]
 DTYPES = ["float32", "float64", "bfloat16", "int32", "int64"]
@@ -91,12 +92,12 @@ def test_plain_fold_is_the_left_fold():
 
 def test_cpu_wrapper_out_single_and_no_launch():
     xs = [torch.arange(6, dtype=torch.int64) + i for i in range(3)]
-    before = fr.launches
+    before = counts["fold_launches"]
     out = torch.empty(6, dtype=torch.int64)
     res = fr.fused_multi_reduce(xs, "SUM", out=out)
     assert res is out and out.tolist() == [3, 6, 9, 12, 15, 18]
     assert fr.fused_multi_reduce(xs[:1], "SUM") is xs[0]
-    assert fr.launches == before        # the plain version is no launch
+    assert counts["fold_launches"] == before        # the plain version is no launch
 
 
 @pytest.mark.parametrize("bad", ["dtype", "shape", "empty", "op"])
@@ -234,10 +235,10 @@ def test_chained_launch_into_every_operand(k, monkeypatch):
     monkeypatch.setattr(fr._build, "call", _chained_launches)
     xs = [torch.full((8,), float(i + 1)) for i in range(17)]
     want = fr.fused_multi_reduce_plain(xs, "SUM")
-    before = fr.launches
+    before = counts["fold_launches"]
     assert fr._launch(xs, "SUM", xs[k], None) is xs[k]
     assert torch.equal(xs[k], want) and want[0].item() == 153.0
-    assert fr.launches == before + 1
+    assert counts["fold_launches"] == before + 1
 
 
 @pytest.mark.parametrize("window", ["shifted out", "shifted operand"])
@@ -254,9 +255,9 @@ def test_partially_overlapping_out_is_refused(window):
 def test_unknown_route_is_refused_and_counts_reset():
     with pytest.raises(ValueError, match="no route"):
         fr.fused_multi_reduce([torch.zeros(4), torch.zeros(4)], "SUM", via="fast")
-    before = dict(fr.route_launches)
+    before = dict(counts["fold_route_launches"])
     fr.fused_multi_reduce([torch.zeros(4), torch.zeros(4)], "SUM", via="direct")
-    assert fr.route_launches == before          # the plain fold is no launch
-    fr.reset_launches()
-    assert fr.launches == 0 and set(fr.route_launches.values()) == {0}
-    assert tuple(fr.route_launches) == fr.ROUTES == ("staged", "direct")
+    assert counts["fold_route_launches"] == before          # the plain fold is no launch
+    counts.reset()
+    assert counts["fold_launches"] == 0 and set(counts["fold_route_launches"].values()) == {0}
+    assert tuple(counts["fold_route_launches"]) == fr.ROUTES == ("staged", "direct")

@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from tpu_mpi_torch.kernels import fused_reduce as fr
+from tpu_mpi_torch.kernels._build import counts
 
 
 def _card():
@@ -39,11 +40,11 @@ def test_kernel_matches_plain_on_card(dtype, n):
     for op in ("SUM", "PROD", "MAX", "MIN", "BAND", "BOR", "BXOR"):
         if not fr.supports(op, dtype):
             continue
-        before = fr.launches
+        before = counts["fold_launches"]
         got = fr.fused_multi_reduce(xs, op)
         want = fr.fused_multi_reduce_plain(xs, op)
         torch.cuda.synchronize()
-        assert fr.launches == before + 1
+        assert counts["fold_launches"] == before + 1
         assert torch.equal(got, want), (dtype, op, n)
 
 
@@ -96,11 +97,11 @@ def _same_bits(got, want, exact=False):
 def _fold_via(xs, op, way, out=None):
     """One forced-route call: its result, after checking it was counted once
     on that route."""
-    before, routes = fr.launches, dict(fr.route_launches)
+    before, routes = counts["fold_launches"], dict(counts["fold_route_launches"])
     got = fr.fused_multi_reduce(xs, op, out=out, via=way)
     torch.cuda.synchronize()
-    assert fr.launches == before + 1
-    assert fr.route_launches[way] == routes[way] + 1
+    assert counts["fold_launches"] == before + 1
+    assert counts["fold_route_launches"][way] == routes[way] + 1
     return got
 
 
@@ -156,10 +157,10 @@ def test_fold_offset_views_take_the_direct_route_on_card(dtype):
                 fr.fused_multi_reduce(xs, "SUM", via="staged")
             for op in ops:
                 want = fr.fused_multi_reduce_plain(xs, op)
-                routes = dict(fr.route_launches)
+                routes = dict(counts["fold_route_launches"])
                 got = fr.fused_multi_reduce(xs, op, out=base[n, 1:])
                 torch.cuda.synchronize()
-                assert fr.route_launches["direct"] == routes["direct"] + 1
+                assert counts["fold_route_launches"]["direct"] == routes["direct"] + 1
                 assert _same_bits(got, want, op.startswith("NUMPY")), (dtype, op, n, count)
 
 
@@ -249,13 +250,12 @@ def test_numpy_rule_nan_payloads_of_two_ranks_on_card(dtype, way):
 def test_allreduce_main_path_on_card():
     import numpy as np
     import tpu_mpi_torch as MPI
-    from tpu_mpi_torch import collective
     _card()
     rng = np.random.default_rng(1)
     data = [rng.standard_normal(3001).astype(np.float32) for _ in range(4)]
     want = fr.fused_multi_reduce_plain(
         [torch.from_numpy(d).cuda() for d in data], "SUM")
-    before, chained = fr.launches, collective.chained_folds
+    before, chained = counts["fold_launches"], counts["chained_folds"]
 
     def body():
         comm = MPI.COMM_WORLD
@@ -272,8 +272,8 @@ def test_allreduce_main_path_on_card():
             assert torch.equal(y.value, want)
 
     MPI.testing.run_spmd(body, 4, timeout=120)
-    assert fr.launches >= before + 9
-    assert collective.chained_folds == chained
+    assert counts["fold_launches"] >= before + 9
+    assert counts["chained_folds"] == chained
 
 
 # ---------------------------------------------------------------------------
@@ -307,22 +307,22 @@ def test_ring_kernels_match_plain_on_card(dtype, n):
             continue
         op = getattr(MPI, name)
         combine = ring._combine_fn(op)[1]
-        before = dict(ring.launches)
+        before = dict(counts["ring_launches"])
         got = ring.ring_allreduce(xs, op)
         want = ring.ring_allreduce_plain(xs, combine)
         got_rs = ring.ring_reduce_scatter(blocks, op)
         want_rs = ring.ring_reduce_scatter_plain(blocks, combine)
         torch.cuda.synchronize()
-        assert ring.launches["ring_allreduce"] == before["ring_allreduce"] + 1
-        assert ring.launches["ring_reduce_scatter"] == \
+        assert counts["ring_launches"]["ring_allreduce"] == before["ring_allreduce"] + 1
+        assert counts["ring_launches"]["ring_reduce_scatter"] == \
             before["ring_reduce_scatter"] + 1
         assert torch.equal(got, want), (dtype, name, n)
         assert torch.equal(got_rs, want_rs), (dtype, name, n)
     for shard in (xs, xs[:, 1:].contiguous()):       # 16-byte and narrower words
-        before = ring.launches["ring_allgather"]
+        before = counts["ring_launches"]["ring_allgather"]
         got = ring.ring_allgather(shard)
         torch.cuda.synchronize()
-        assert ring.launches["ring_allgather"] == before + 1
+        assert counts["ring_launches"]["ring_allgather"] == before + 1
         assert torch.equal(got, ring.ring_allgather_plain(shard))
 
 
@@ -333,7 +333,7 @@ def test_ring_kernels_refuse_on_card(bad):
     from tpu_mpi_torch.kernels import ring
     dev = _card()
     x = torch.zeros(4, 64, device=dev)
-    before = dict(ring.launches)
+    before = dict(counts["ring_launches"])
     with pytest.raises(ValueError):
         if bad == "non-contiguous":
             ring.ring_allreduce(x[:, ::2], "sum")
@@ -343,23 +343,22 @@ def test_ring_kernels_refuse_on_card(bad):
             ring.ring_reduce_scatter(torch.zeros(4, 10, device=dev), "sum")
         else:
             ring.ring_allreduce(x.to(torch.complex64), "sum")
-    assert ring.launches == before
+    assert counts["ring_launches"] == before
 
 
 @pytest.mark.cuda
 def test_ingraph_tier_on_card():
     import numpy as np
     import tpu_mpi_torch as MPI
-    from tpu_mpi_torch import collective, xla
-    from tpu_mpi_torch.kernels import ring
+    from tpu_mpi_torch import xla
     _card()
     mesh = xla.make_mesh({"x": 4})
     assert mesh.device.type == "cuda"
     rng = np.random.default_rng(2)
     xs = torch.from_numpy(rng.standard_normal((4, 4 * 3001)).astype(np.float32)
                           ).to(mesh.device)
-    folds, chained = fr.launches, collective.chained_folds
-    before = dict(ring.launches)
+    folds, chained = counts["fold_launches"], counts["chained_folds"]
+    before = dict(counts["ring_launches"])
     total = xla.allreduce(xs, MPI.SUM)
     shards = xla.reduce_scatter(xs, MPI.SUM)
     back = xla.allgather(shards, tiled=True)
@@ -367,9 +366,9 @@ def test_ingraph_tier_on_card():
     want = fr.fused_multi_reduce_plain(list(xs), "SUM")
     assert total.is_cuda and torch.equal(total[3], want)
     assert torch.equal(back[1], want)
-    assert fr.launches == folds + 2
-    assert ring.launches["ring_allgather"] == before["ring_allgather"] + 1
-    assert collective.chained_folds == chained
+    assert counts["fold_launches"] == folds + 2
+    assert counts["ring_launches"]["ring_allgather"] == before["ring_allgather"] + 1
+    assert counts["chained_folds"] == chained
 
 
 # ---------------------------------------------------------------------------
@@ -391,7 +390,7 @@ def test_permute_kernels_match_plain_on_card(dtype, n, per):
     g = torch.Generator().manual_seed(n)
     perm = torch.randperm(n, generator=g).tolist()
     partial = [-1 if d % 3 == 1 else (d + 1) % n for d in range(n)]
-    before = dict(permute.launches)
+    before = dict(counts["permute_launches"])
     cases = [
         (permute.collective_permute(xs, perm),
          permute.permute_rows_plain(xs, permute.inverse(perm, n))),
@@ -401,8 +400,8 @@ def test_permute_kernels_match_plain_on_card(dtype, n, per):
         (permute.pairwise_alltoall(xs), permute.pairwise_alltoall_plain(xs)),
     ]
     torch.cuda.synchronize()
-    assert permute.launches["collective_permute"] == before["collective_permute"] + 3
-    assert permute.launches["pairwise_alltoall"] == before["pairwise_alltoall"] + 1
+    assert counts["permute_launches"]["collective_permute"] == before["collective_permute"] + 3
+    assert counts["permute_launches"]["pairwise_alltoall"] == before["pairwise_alltoall"] + 1
     for got, want in cases:
         assert got.is_cuda and torch.equal(got, want), (dtype, n, per)
 
@@ -414,7 +413,7 @@ def test_permute_kernels_refuse_on_card(bad):
     from tpu_mpi_torch.kernels import permute
     dev = _card()
     x = torch.zeros(4, 64, device=dev)
-    before = dict(permute.launches)
+    before = dict(counts["permute_launches"])
     with pytest.raises(ValueError):
         if bad == "non-contiguous":
             permute.collective_permute(x[:, ::2], [1, 2, 3, 0])
@@ -424,16 +423,15 @@ def test_permute_kernels_refuse_on_card(bad):
             permute.permute_rows(x, [0, 1, 2, 4])
         else:
             permute.pairwise_alltoall(torch.zeros(4, 10, device=dev))
-    assert permute.launches == before
+    assert counts["permute_launches"] == before
 
 
 @pytest.mark.cuda
 def test_xla_movement_routes_through_the_kernels_on_card():
     from tpu_mpi_torch import xla
-    from tpu_mpi_torch.kernels import permute
     dev = _card()
     x = torch.randn(4, 8, 6, 5, device=dev)
-    before = dict(permute.launches)
+    before = dict(counts["permute_launches"])
     got = {
         "alltoall": xla.alltoall(x, split_axis=0, concat_axis=1),
         "untiled": xla.alltoall(x[:, :4].contiguous(), split_axis=0,
@@ -442,8 +440,8 @@ def test_xla_movement_routes_through_the_kernels_on_card():
         "sendrecv": xla.sendrecv(x, dest=[2, None, 0, 1]),
     }
     torch.cuda.synchronize()
-    assert permute.launches["pairwise_alltoall"] == before["pairwise_alltoall"] + 2
-    assert permute.launches["collective_permute"] == before["collective_permute"] + 2
+    assert counts["permute_launches"]["pairwise_alltoall"] == before["pairwise_alltoall"] + 2
+    assert counts["permute_launches"]["collective_permute"] == before["collective_permute"] + 2
     cpu = x.cpu()
     want = {
         "alltoall": xla.alltoall(cpu, split_axis=0, concat_axis=1),
@@ -473,10 +471,10 @@ def test_ring_attention_matches_plain_on_card(dtype, causal, n, t, d):
     g.manual_seed(t + d)
     q, k, v = (torch.randn(n, 3, t, d, generator=g, device=dev).to(dtype)
                for _ in range(3))
-    before = attention.launches
+    before = counts["attention_launches"]
     got = attention.attend(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert attention.launches == before + 1
+    assert counts["attention_launches"] == before + 1
     want = attention.ring_attention_plain(q, k, v, causal=causal,
                                           scale=d ** -0.5)
     limit = attention.allowed_error(q, k, v, want, causal=causal,
@@ -516,11 +514,11 @@ def test_sm90_ring_attention_matches_plain_on_card(n, bh, t, d, causal):
     dev = _card()
     q, k, v = _attention_case(dev, n, bh, t, d, torch.bfloat16, t + d)
     assert attention.route(q.dtype, d, True) == "sm90"
-    before = dict(attention.route_launches)
+    before = dict(counts["attention_route_launches"])
     got = attention.attend(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert attention.route_launches["sm90"] == before["sm90"] + 1
-    assert attention.route_launches["mma_sync"] == before["mma_sync"]
+    assert counts["attention_route_launches"]["sm90"] == before["sm90"] + 1
+    assert counts["attention_route_launches"]["mma_sync"] == before["mma_sync"]
     _within_bound(attention, got, q, k, v, causal)
 
 
@@ -530,11 +528,11 @@ def test_bf16_head_dim_off_eight_takes_the_mma_sync_route(causal):
     from tpu_mpi_torch.kernels import attention
     dev = _card()
     q, k, v = _attention_case(dev, 3, 2, 72, 36, torch.bfloat16, 36)
-    before = dict(attention.route_launches)
+    before = dict(counts["attention_route_launches"])
     got = attention.attend(q, k, v, causal=causal)
     torch.cuda.synchronize()
-    assert attention.route_launches["mma_sync"] == before["mma_sync"] + 1
-    assert attention.route_launches["sm90"] == before["sm90"]
+    assert counts["attention_route_launches"]["mma_sync"] == before["mma_sync"] + 1
+    assert counts["attention_route_launches"]["sm90"] == before["sm90"]
     _within_bound(attention, got, q, k, v, causal)
 
 
@@ -560,13 +558,13 @@ def test_sm90_latent_attention_192_128_matches_plain_on_card(n, bh, t, causal):
     dev = _card()
     q, k, v = _latent_case(dev, n, bh, t, 5 * t + n)
     assert attention.route(q.dtype, 192, True, 128) == "sm90"
-    before = dict(attention.route_launches)
-    dims = attention.dims_launches.get("192/128", 0)
+    before = dict(counts["attention_route_launches"])
+    dims = counts["attention_dims_launches"].get("192/128", 0)
     got = attention.attend(q, k, v, causal=causal)
     torch.cuda.synchronize()
     assert got.shape == v.shape
-    assert attention.route_launches["sm90"] == before["sm90"] + 1
-    assert attention.dims_launches["192/128"] == dims + 1
+    assert counts["attention_route_launches"]["sm90"] == before["sm90"] + 1
+    assert counts["attention_dims_launches"]["192/128"] == dims + 1
     _within_bound(attention, got, q, k, v, causal)
 
 
@@ -594,11 +592,11 @@ def test_latent_attention_autograd_through_the_kernel_on_card(n, bh, t):
     g.manual_seed(t)
     dout = torch.randn(v.shape, generator=g, device=dev).bfloat16()
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    backward = attention.backward_dims_launches.get("192/128", 0)
+    backward = counts["attention_backward_dims_launches"].get("192/128", 0)
     out = ring._RingAttention.apply(*leaves, True, 192 ** -0.5)
     out.backward(dout)
     torch.cuda.synchronize()
-    assert attention.backward_dims_launches["192/128"] == backward + 1
+    assert counts["attention_backward_dims_launches"]["192/128"] == backward + 1
     plain = attention.ring_attention_plain(q, k, v, causal=True, scale=192 ** -0.5)
     want = attention.attention_backward(q, k, v, plain, dout, causal=True, scale=192 ** -0.5)
     for leaf, w in zip(leaves, want):
@@ -643,11 +641,12 @@ def test_attention_backward_kernel_matches_plain_on_card(n, bh, t, d, dv, causal
     out, lse = attention.attend_saving_lse(q, k, v, causal=causal, scale=scale)
     assert lse is not None and lse.shape == q.shape[:-1]
     dims = f"{d}/{dv}"
-    before, at_dims = attention.backward_launches, attention.backward_dims_launches.get(dims, 0)
+    before = counts["attention_backward_launches"]
+    at_dims = counts["attention_backward_dims_launches"].get(dims, 0)
     got = attention.backward(q, k, v, out, do, lse, causal=causal, scale=scale)
     torch.cuda.synchronize()
-    assert attention.backward_launches == before + 1
-    assert attention.backward_dims_launches[dims] == at_dims + 1
+    assert counts["attention_backward_launches"] == before + 1
+    assert counts["attention_backward_dims_launches"][dims] == at_dims + 1
     want = attention.attention_backward(q, k, v, out, do, causal=causal, scale=scale)
     for name, a, w in zip(("dq", "dk", "dv"), got, want):
         assert a.dtype == torch.bfloat16 and a.shape == w.shape, name
@@ -694,12 +693,12 @@ def test_permute_launch_path_two_tables_back_to_back_on_card():
     from tpu_mpi_torch.kernels import permute
     dev = _card()
     xs = _stacked(torch.bfloat16, 4, 4 * 1024, dev, 13)
-    before = permute.launches["collective_permute"]
+    before = counts["permute_launches"]["collective_permute"]
     first = permute.collective_permute(xs, [1, 2, 3, 0])
     second = permute.permute_rows(xs, [2, -1, 0, 1])
     again = permute.collective_permute(xs, [1, 2, 3, 0])
     torch.cuda.synchronize()
-    assert permute.launches["collective_permute"] == before + 3
+    assert counts["permute_launches"]["collective_permute"] == before + 3
     assert torch.equal(first, xs.roll(1, 0)) and torch.equal(again, first)
     assert torch.equal(second, permute.permute_rows_plain(xs, [2, -1, 0, 1]))
 
@@ -711,7 +710,7 @@ def test_ring_attention_refuses_on_card(bad):
     from tpu_mpi_torch.kernels import attention
     dev = _card()
     q = torch.zeros(2, 3, 16, 8, device=dev)
-    before = attention.launches
+    before = counts["attention_launches"]
     with pytest.raises(ValueError):
         if bad == "non-contiguous":
             attention.attend(q.transpose(1, 2), q.transpose(1, 2),
@@ -727,12 +726,11 @@ def test_ring_attention_refuses_on_card(bad):
         else:
             r = torch.zeros(2, 12, 8, device=dev)
             attention.ring_attention(r, r, r)
-    assert attention.launches == before
+    assert counts["attention_launches"] == before
 
 
 @pytest.mark.cuda
 def test_sp_transformer_forward_on_card():
-    from tpu_mpi_torch.kernels import attention
     from tpu_mpi_torch.models import transformer as tr
     dev = _card()
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -743,10 +741,10 @@ def test_sp_transformer_forward_on_card():
     params = tr.transformer_init(g, cfg, device=dev)
     tokens = torch.randint(0, 64, (2, 64), generator=g, device=dev)
     stacked = tokens.view(2, 4, 16).transpose(0, 1).contiguous()
-    before = attention.launches
+    before = counts["attention_launches"]
     sp = tr.transformer_forward(cfg, params, stacked, sp_axis="sp")
     torch.cuda.synchronize()
-    assert attention.launches == before + cfg.n_layers
+    assert counts["attention_launches"] == before + cfg.n_layers
     single = tr.transformer_forward(cfg, params, tokens)
     torch.testing.assert_close(sp.transpose(0, 1).reshape(single.shape), single,
                                atol=1e-4, rtol=1e-4)
@@ -775,16 +773,16 @@ def test_ring_attention_autograd_through_the_kernel_on_card(dtype, n, bh, t, d,
     g.manual_seed(t)
     dout = torch.randn(q.shape, generator=g, device=dev).to(dtype)
     leaves = [x.clone().requires_grad_() for x in (q, k, v)]
-    before = dict(attention.route_launches)
-    backward = attention.backward_launches
+    before = dict(counts["attention_route_launches"])
+    backward = counts["attention_backward_launches"]
     out = ring._RingAttention.apply(*leaves, causal, d ** -0.5)
     out.backward(dout)
     torch.cuda.synchronize()
     way = attention.route(dtype, d, True)
-    assert attention.route_launches[way] == before[way] + 1
+    assert counts["attention_route_launches"][way] == before[way] + 1
     # the sm90 forward's calls take the backward kernel, the fma route's the
     # plain backward
-    assert attention.backward_launches == backward + int(way == "sm90")
+    assert counts["attention_backward_launches"] == backward + int(way == "sm90")
     plain = attention.ring_attention_plain(q, k, v, causal=causal, scale=d ** -0.5)
     want = attention.attention_backward(q, k, v, plain, dout, causal=causal,
                                         scale=d ** -0.5)
@@ -799,8 +797,7 @@ def test_ring_attention_autograd_through_the_kernel_on_card(dtype, n, bh, t, d,
 def test_sp_train_step_on_card():
     """One float32 sp train step on the card (fma attention, folds on the
     kernel) against the same step on the CPU."""
-    from tpu_mpi_torch import collective, xla
-    from tpu_mpi_torch.kernels import attention
+    from tpu_mpi_torch import xla
     from tpu_mpi_torch.models import transformer as tr
     from tpu_mpi_torch.parallel import dp
     dev = _card()
@@ -813,13 +810,14 @@ def test_sp_train_step_on_card():
     step, _ = tr.transformer_train_step(cfg, xla.make_mesh({"sp": 4}))
     cpu_step, _ = tr.transformer_train_step(
         cfg, xla.make_mesh({"sp": 4}, devices=[torch.device("cpu")]))
-    folds, attn, chained = fr.launches, attention.launches, collective.chained_folds
+    folds, attn = counts["fold_launches"], counts["attention_launches"]
+    chained = counts["chained_folds"]
     on_card = dp.tree_map(lambda p: p.to(dev), params)
     new, loss = step(on_card, tokens.to(dev), labels.to(dev))
     torch.cuda.synchronize()
-    assert fr.launches - folds == 2 + 6 * cfg.n_layers + 1
-    assert attention.launches - attn == cfg.n_layers
-    assert collective.chained_folds == chained
+    assert counts["fold_launches"] - folds == 2 + 6 * cfg.n_layers + 1
+    assert counts["attention_launches"] - attn == cfg.n_layers
+    assert counts["chained_folds"] == chained
     want, want_loss = cpu_step(params, tokens, labels)
     assert abs(float(loss) - float(want_loss)) <= 1e-4
     for got, w in zip(dp.leaves(new), dp.leaves(want)):
@@ -833,7 +831,6 @@ def test_ddp_fsdp_on_card():
     masters on the card: bitwise equal, every bucket folded by the kernel."""
     import numpy as np
     import tpu_mpi_torch as MPI
-    from tpu_mpi_torch import collective
     from tpu_mpi_torch.train import DDPTrainer, FSDPTrainer, GradBucketer
     dev = _card()
     spec = {f"p{i}": np.random.default_rng(i).standard_normal(n)
@@ -853,12 +850,12 @@ def test_ddp_fsdp_on_card():
         torch.cuda.synchronize()
         return [{n: p.cpu() for n, p in tr.params.items()} for tr in trainers]
 
-    folds, chained = fr.launches, collective.chained_folds
+    folds, chained = counts["fold_launches"], counts["chained_folds"]
     outs = MPI.spmd_run(body, 4, timeout=300)
     nbuckets = len(GradBucketer([(n, a.size) for n, a in reversed(spec.items())],
                                 8192, device=dev))
-    assert fr.launches - folds >= 2 * 3 * nbuckets + 3
-    assert collective.chained_folds == chained
+    assert counts["fold_launches"] - folds >= 2 * 3 * nbuckets + 3
+    assert counts["chained_folds"] == chained
     for rank_out in outs:
         for other in rank_out[1:]:
             for n in spec:
@@ -896,20 +893,20 @@ def test_ddp_pack_matches_copy_on_card(dtype, nseg):
     dev = _card()
     gen = torch.Generator(device=dev)
     gen.manual_seed(nseg)
-    counts = [_DDP_COUNTS[i % len(_DDP_COUNTS)] for i in range(nseg)]
-    pool = torch.randn(sum(counts) + nseg + 1, generator=gen, device=dev).to(dtype)
+    sizes = [_DDP_COUNTS[i % len(_DDP_COUNTS)] for i in range(nseg)]
+    pool = torch.randn(sum(sizes) + nseg + 1, generator=gen, device=dev).to(dtype)
     parts, off, pos = [], 1, 1
-    for c in counts:
+    for c in sizes:
         parts.append((off, c, _specials(pool[pos:pos + c])))
         off, pos = off + c + 1, pos + c + 1
     dst = torch.full((off,), -7.0, dtype=torch.float64, device=dev)
     want = dst.clone()
     for o, c, g in parts:
         want.narrow(0, o, c).copy_(g)
-    before = ddp_step.pack_launches
+    before = counts["ddp_pack_launches"]
     ddp_step.pack(dst, parts)
     torch.cuda.synchronize()
-    assert ddp_step.pack_launches == before + -(-nseg // ddp_step.SEG_MAX)
+    assert counts["ddp_pack_launches"] == before + -(-nseg // ddp_step.SEG_MAX)
     assert _same_bits(dst, want, exact=True), (dtype, nseg)
 
 
@@ -927,11 +924,11 @@ def test_ddp_pack_copies_what_it_cannot_read_in_place_on_card():
     want = dst.clone()
     for o, c, g in parts:
         want.narrow(0, o, c).copy_(g.reshape(-1))
-    copies, launches = ddp_step.pack_copies, ddp_step.pack_launches
+    copies, launches = counts["ddp_pack_copies"], counts["ddp_pack_launches"]
     ddp_step.pack(dst, parts)
     torch.cuda.synchronize()
-    assert ddp_step.pack_copies == copies + 3
-    assert ddp_step.pack_launches == launches + 1
+    assert counts["ddp_pack_copies"] == copies + 3
+    assert counts["ddp_pack_launches"] == launches + 1
     assert _same_bits(dst, want, exact=True)
 
 
@@ -944,17 +941,17 @@ def test_ddp_kernels_count_only_the_launches_they_make_on_card():
     f64 = dict(dtype=torch.float64, device=dev)
     dst = torch.zeros(4, **f64)
     empty = torch.zeros(0, device=dev)
-    before = ddp_step.pack_launches
+    before = counts["ddp_pack_launches"]
     ddp_step.pack(dst, [(0, 0, empty)] * 3)
-    assert ddp_step.pack_launches == before
+    assert counts["ddp_pack_launches"] == before
     ddp_step.pack(dst, [(0, 0, empty)] * 32 + [(0, 4, torch.ones(4, device=dev))])
-    assert ddp_step.pack_launches == before + 1
+    assert counts["ddp_pack_launches"] == before + 1
     master, mom = torch.zeros(4, **f64), torch.zeros(4, **f64)
-    before = ddp_step.update_launches
+    before = counts["ddp_update_launches"]
     ddp_step.update(master, mom, [(0, 0, torch.zeros(0, **f64))] * 32
                     + [(0, 4, torch.ones(4, **f64))], 1.0, 0.9, 1e-3)
     torch.cuda.synchronize()
-    assert ddp_step.update_launches == before + 1
+    assert counts["ddp_update_launches"] == before + 1
     assert dst.tolist() == [1.0] * 4 and master.tolist() == [-1e-3] * 4
 
 
@@ -968,13 +965,13 @@ def test_ddp_update_matches_plain_on_card(inv):
     gen = torch.Generator(device=dev)
     gen.manual_seed(int(inv * 8))
     f64 = dict(dtype=torch.float64, device=dev)
-    counts = [_DDP_COUNTS[i % len(_DDP_COUNTS)] for i in range(40)]
-    counts[7] = (1 << 20) + 3
-    total = sum(counts)
+    sizes = [_DDP_COUNTS[i % len(_DDP_COUNTS)] for i in range(40)]
+    sizes[7] = (1 << 20) + 3
+    total = sum(sizes)
     master = torch.randn(total, generator=gen, **f64)
     mom = torch.randn(total, generator=gen, **f64)
     parts, off = [], 0
-    for c in counts:
+    for c in sizes:
         r = torch.randn(c, generator=gen, **f64)
         if c >= 4:
             r[:4] = torch.tensor([-0.0, -0.0, 0.0, float("nan")], **f64)
@@ -983,10 +980,10 @@ def test_ddp_update_matches_plain_on_card(inv):
         off += c
     want_p, want_m = master.clone(), mom.clone()
     ddp_step.update_plain(want_p, want_m, parts, inv, 0.9, 1e-3)
-    before = ddp_step.update_launches
+    before = counts["ddp_update_launches"]
     ddp_step.update(master, mom, parts, inv, 0.9, 1e-3)
     torch.cuda.synchronize()
-    assert ddp_step.update_launches == before + 2
+    assert counts["ddp_update_launches"] == before + 2
     assert _same_bits(master, want_p) and _same_bits(mom, want_m)
     assert torch.isnan(master).any()
 
@@ -1010,7 +1007,6 @@ def test_ddp_trainer_packs_a_bucket_a_launch_on_card():
     update launches a step and no gradient copied before its pack."""
     import numpy as np
     import tpu_mpi_torch as MPI
-    from tpu_mpi_torch.kernels import ddp_step
     from tpu_mpi_torch.train import DDPTrainer
     dev = _card()
     spec = {f"p{i}": np.random.default_rng(i).standard_normal(s)
@@ -1033,14 +1029,14 @@ def test_ddp_trainer_packs_a_bucket_a_launch_on_card():
             return ({n: p.cpu() for n, p in tr.params.items()}, len(tr.bucketer))
         return run
 
-    packs, updates, copies = (ddp_step.pack_launches, ddp_step.update_launches,
-                              ddp_step.pack_copies)
+    packs, updates, copies = (counts["ddp_pack_launches"], counts["ddp_update_launches"],
+                              counts["ddp_pack_copies"])
     got = MPI.spmd_run(body(dev), 4, timeout=300)
     nb = got[0][1]
     assert nb > 32
-    assert ddp_step.pack_launches - packs == 4 * 3 * nb
-    assert ddp_step.update_launches - updates == 4 * 3 * 2
-    assert ddp_step.pack_copies == copies
+    assert counts["ddp_pack_launches"] - packs == 4 * 3 * nb
+    assert counts["ddp_update_launches"] - updates == 4 * 3 * 2
+    assert counts["ddp_pack_copies"] == copies
     want = MPI.spmd_run(body("cpu"), 4, timeout=300)
     for (params, _), (ref, _) in zip(got, want):
         for n in spec:
@@ -1157,7 +1153,6 @@ def test_jacobi_halo_loop_on_card():
     card: the gathered grid and every sweep's residual bitwise equal to the
     same sweeps on the whole grid in one thread; one fold launch a sweep."""
     import tpu_mpi_torch as MPI
-    from tpu_mpi_torch import collective
     dev = _card()
     n, size, sweeps = 512, 4, 20
     rows = n // size
@@ -1185,10 +1180,10 @@ def test_jacobi_halo_loop_on_card():
         MPI.Finalize()
         return u[1:rows + 1], torch.cat(res)
 
-    folds, chained = fr.launches, collective.chained_folds
+    folds, chained = counts["fold_launches"], counts["chained_folds"]
     out = MPI.spmd_run(body, size, timeout=120)
-    assert fr.launches - folds == sweeps
-    assert collective.chained_folds == chained
+    assert counts["fold_launches"] - folds == sweeps
+    assert counts["chained_folds"] == chained
     grid = torch.zeros(n + 2, n, device=dev)
     grid[0] = 1.0
     want = []
@@ -1214,7 +1209,6 @@ def test_accumulate_folds_on_card(kind):
     values first, bitwise against the plain fold; none chained."""
     import numpy as np
     import tpu_mpi_torch as MPI
-    from tpu_mpi_torch import collective
     dev = _card()
     rng = np.random.default_rng(3)
     start = torch.from_numpy(rng.standard_normal(5000).astype(np.float32)).to(dev)
@@ -1246,10 +1240,10 @@ def test_accumulate_folds_on_card(kind):
         cwin.free()
         return out, cnt
 
-    folds, chained = fr.launches, collective.chained_folds
+    folds, chained = counts["fold_launches"], counts["chained_folds"]
     outs = MPI.spmd_run(body, 4, timeout=120)
-    assert fr.launches - folds == 4 + 40
-    assert collective.chained_folds == chained
+    assert counts["fold_launches"] - folds == 4 + 40
+    assert counts["chained_folds"] == chained
     want = fr.fused_multi_reduce_plain([start] + origins, "SUM")
     assert outs[0][0].is_cuda and torch.equal(outs[0][0], want)
     assert outs[0][1] == 40
@@ -1265,7 +1259,6 @@ def test_overlapping_origin_rma_on_card():
     Accumulate is one fold launch, none chained."""
     import numpy as np
     import tpu_mpi_torch as MPI
-    from tpu_mpi_torch import collective
     dev = _card()
     B, lo, hi = 5000, 2, 5002
     rng = np.random.default_rng(4)
@@ -1306,10 +1299,10 @@ def test_overlapping_origin_rma_on_card():
         win.free()
         return wrong
 
-    folds, chained = fr.launches, collective.chained_folds
+    folds, chained = counts["fold_launches"], counts["chained_folds"]
     outs = MPI.spmd_run(body, 2, timeout=120)
     assert outs == [[], []]
-    assert fr.launches - folds == 2 and collective.chained_folds == chained
+    assert counts["fold_launches"] - folds == 2 and counts["chained_folds"] == chained
 
 
 @pytest.mark.cuda
@@ -1414,16 +1407,16 @@ def test_unsigned_kernels_match_plain_on_card(dtype):
         assert fr.supports(name, dtype)
         op = getattr(MPI, name)
         combine = ring._combine_fn(op)[1]
-        folds, rings = fr.launches, dict(ring.launches)
+        folds, rings = counts["fold_launches"], dict(counts["ring_launches"])
         pairs = [(fr.fused_multi_reduce(list(xs), name),
                   fr.fused_multi_reduce_plain(list(xs), name)),
                  (ring.ring_allreduce(xs, op), ring.ring_allreduce_plain(xs, combine))]
         pairs += [(ring.ring_reduce_scatter(b, op),
                    ring.ring_reduce_scatter_plain(b, combine)) for b in (blocks, odd)]
         torch.cuda.synchronize()
-        assert fr.launches == folds + 1
-        assert ring.launches["ring_allreduce"] == rings["ring_allreduce"] + 1
-        assert ring.launches["ring_reduce_scatter"] == rings["ring_reduce_scatter"] + 2
+        assert counts["fold_launches"] == folds + 1
+        assert counts["ring_launches"]["ring_allreduce"] == rings["ring_allreduce"] + 1
+        assert counts["ring_launches"]["ring_reduce_scatter"] == rings["ring_reduce_scatter"] + 2
         for got, want in pairs:
             assert got.dtype == dtype and torch.equal(got, want), (dtype, name)
 
@@ -1436,7 +1429,7 @@ def test_unsigned_allreduce_on_card(dtype):
     import functools
     import numpy as np
     import tpu_mpi_torch as MPI
-    from tpu_mpi_torch import collective, xla
+    from tpu_mpi_torch import xla
     _card()
     rng = np.random.default_rng(24)
     npd = np.dtype(str(dtype).split(".")[1])
@@ -1444,7 +1437,7 @@ def test_unsigned_allreduce_on_card(dtype):
             for _ in range(4)]
     want = {name: functools.reduce(ufunc, data) for name, ufunc in
             (("SUM", np.add), ("MAX", np.maximum), ("MIN", np.minimum))}
-    folds, chained = fr.launches, collective.chained_folds
+    folds, chained = counts["fold_launches"], counts["chained_folds"]
 
     def body():
         comm = MPI.COMM_WORLD
@@ -1455,7 +1448,7 @@ def test_unsigned_allreduce_on_card(dtype):
     for got in MPI.spmd_run(body, 4, timeout=120):
         for name in want:
             np.testing.assert_array_equal(got[name], want[name])
-    assert fr.launches >= folds + 3 and collective.chained_folds == chained
+    assert counts["fold_launches"] >= folds + 3 and counts["chained_folds"] == chained
     mesh = xla.make_mesh({"x": 4})
     xs = torch.from_numpy(np.stack(data)).to(mesh.device)
     xs[0, :7] = 0
@@ -1475,11 +1468,11 @@ def test_unsigned_allreduce_on_card(dtype):
 def _reduce_scatter_case(xs):
     """One kernel call against the plain ring fold, bitwise, and its count."""
     from tpu_mpi_torch.kernels import ring
-    before = ring.launches["ring_reduce_scatter"]
+    before = counts["ring_launches"]["ring_reduce_scatter"]
     got = ring.ring_reduce_scatter(xs, "sum")
     want = ring.ring_reduce_scatter_plain(xs, ring._combine_fn("sum")[1])
     torch.cuda.synchronize()
-    assert ring.launches["ring_reduce_scatter"] == before + 1
+    assert counts["ring_launches"]["ring_reduce_scatter"] == before + 1
     assert got.dtype == want.dtype and got.shape == want.shape
     if got.dtype.is_floating_point:     # bits, so -0.0 and 0.0 differ
         got, want = got.view(_INT_OF[got.element_size()]), \
@@ -1557,7 +1550,6 @@ MESH3 = {"dp": 2, "tp": 2, "sp": 2}
 @pytest.mark.parametrize("axis", ["dp", "sp", ("dp", "sp"), ("sp", "tp", "dp")])
 def test_grouped_collectives_launch_once_on_card(axis):
     from tpu_mpi_torch import xla
-    from tpu_mpi_torch.kernels import permute, ring
     dev = _card()
     g = torch.Generator(device=dev)
     g.manual_seed(9)
@@ -1566,16 +1558,16 @@ def test_grouped_collectives_launch_once_on_card(axis):
     dest = [i + 1 if i + 1 < n else None for i in range(n)]
     calls = {
         "allreduce": (lambda t: xla.allreduce(t, axis=axis, mesh=MESH3),
-                      lambda: fr.launches),
+                      lambda: counts["fold_launches"]),
         "allgather": (lambda t: xla.allgather(t, axis=axis, mesh=MESH3),
-                      lambda: ring.launches["ring_allgather"]),
+                      lambda: counts["ring_launches"]["ring_allgather"]),
         "alltoall": (lambda t: xla.alltoall(t, axis=axis, mesh=MESH3, split_axis=0,
                                             concat_axis=1),
-                     lambda: permute.launches["pairwise_alltoall"]),
+                     lambda: counts["permute_launches"]["pairwise_alltoall"]),
         "ring_shift": (lambda t: xla.ring_shift(t, axis=axis, mesh=MESH3),
-                       lambda: permute.launches["collective_permute"]),
+                       lambda: counts["permute_launches"]["collective_permute"]),
         "sendrecv": (lambda t: xla.sendrecv(t, dest=dest, axis=axis, mesh=MESH3),
-                     lambda: permute.launches["collective_permute"]),
+                     lambda: counts["permute_launches"]["collective_permute"]),
     }
     for name, (fn, count) in calls.items():
         before = count()
@@ -1589,7 +1581,6 @@ def test_grouped_collectives_launch_once_on_card(axis):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_autograd_permute_and_alltoall_match_plain_autograd_on_card(dtype):
     from tpu_mpi_torch import xla
-    from tpu_mpi_torch.kernels import permute
     from tpu_mpi_torch.xla import collectives as xc
     dev = _card()
     g = torch.Generator(device=dev)
@@ -1614,12 +1605,12 @@ def test_autograd_permute_and_alltoall_match_plain_autograd_on_card(dtype):
     }
     for name, (kernel, plain, counter) in cases.items():
         a = x.clone().requires_grad_()
-        before = permute.launches[counter]
+        before = counts["permute_launches"][counter]
         ya = kernel(a)
         cot = torch.randn(ya.shape, generator=g, device=dev).to(dtype)
         ya.backward(cot)
         torch.cuda.synchronize()
-        assert permute.launches[counter] == before + 2, name     # forward, backward
+        assert counts["permute_launches"][counter] == before + 2, name     # forward, backward
         b = x.clone().requires_grad_()
         yb = plain(b)
         yb.backward(cot)
@@ -1635,11 +1626,11 @@ def test_ring_attention_over_a_sub_axis_is_one_sm90_launch_on_card():
     g.manual_seed(11)
     q, k, v = (torch.randn(2, 2, 2, 2, 4, 128, 64, generator=g, device=dev)
                .to(torch.bfloat16) for _ in range(3))
-    before, sm90 = attention.launches, attention.route_launches["sm90"]
+    before, sm90 = counts["attention_launches"], counts["attention_route_launches"]["sm90"]
     got = tpar.ring_attention(q, k, v, axis="sp", mesh=MESH3)
     torch.cuda.synchronize()
-    assert attention.launches == before + 1
-    assert attention.route_launches["sm90"] == sm90 + 1
+    assert counts["attention_launches"] == before + 1
+    assert counts["attention_route_launches"]["sm90"] == sm90 + 1
     flat = [x.movedim(2, 0).reshape(2, -1, 128, 64).contiguous() for x in (q, k, v)]
     want = attention.ring_attention_plain(*flat, causal=True, scale=64 ** -0.5)
     bound = attention.allowed_error(*flat, want, causal=True, scale=64 ** -0.5)
@@ -1657,7 +1648,7 @@ def test_serve_broker_on_card_replies_the_rank_ordered_fold(red):
     both signs return the second operand, as numpy does (the fold
     kernel's NUMPY_* steps)."""
     import numpy as np
-    from tpu_mpi_torch import collective, serve
+    from tpu_mpi_torch import serve
     _card()
     rng = np.random.default_rng(17)
     parts = [rng.standard_normal(4099).astype(np.float32) for _ in range(4)]
@@ -1675,10 +1666,10 @@ def test_serve_broker_on_card_replies_the_rank_ordered_fold(red):
     try:
         assert str(b.pool.device).startswith("cuda")
         with serve.attach(b.address, tenant="card", token="tk") as s:
-            before, chained = fr.launches, collective.chained_folds
+            before, chained = counts["fold_launches"], counts["chained_folds"]
             got = s.allreduce(parts, op=red)
-            assert fr.launches == before + 1
-            assert collective.chained_folds == chained
+            assert counts["fold_launches"] == before + 1
+            assert counts["chained_folds"] == chained
     finally:
         b.close()
     assert got.dtype == np.float32 and got.shape == want.shape
@@ -1704,11 +1695,11 @@ def test_numpy_rule_kernel_matches_numpy_and_plain_on_card(dtype):
             for a, b in pair_cases(dtype, length):
                 want = numpy_fold_bits(ufunc, a, b)
                 ta, tb = (torch.from_numpy(x).to(dev) for x in (a, b))
-                before = fr.launches
+                before = counts["fold_launches"]
                 got = fr.fused_multi_reduce([ta, tb], op)
                 plain = fr.fused_multi_reduce_plain([ta, tb], op)
                 torch.cuda.synchronize()
-                assert fr.launches == before + 1
+                assert counts["fold_launches"] == before + 1
                 assert (got.cpu().numpy().view(u) == want).all(), (op, length)
                 assert (plain.cpu().numpy().view(u) == want).all(), (op, length)
 
@@ -1746,14 +1737,14 @@ def test_infer_engine_lanes_bitwise_on_card():
     loop, vectorized, speculative, prefix sharing, chunked prefill) emits
     the row loop's streams bit for bit, batched or staggered — each row's
     products keep one shape whatever shares its batch."""
-    from tpu_mpi_torch import collective, serve
+    from tpu_mpi_torch import serve
     _card()
     modes = [{"vectorized": False, "spec_k": 1, "prefix_share": False},
              {"vectorized": True}, {"vectorized": True, "spec_k": 6},
              {"vectorized": True, "spec_k": 6, "prefix_share": True},
              {"vectorized": True, "prefill_chunk": 8}]
     per_mode = []
-    chained = collective.chained_folds
+    chained = counts["chained_folds"]
     for mode in modes:
         b = serve.Broker(nranks=4, token="tk", infer=dict(mode))
         b.run_in_thread()
@@ -1769,7 +1760,7 @@ def test_infer_engine_lanes_bitwise_on_card():
             b.close()
         per_mode.append(outs)
     assert all(o == per_mode[0] for o in per_mode[1:])
-    assert collective.chained_folds == chained
+    assert counts["chained_folds"] == chained
 
 
 @pytest.mark.cuda
@@ -1851,9 +1842,9 @@ def test_elastic_resize_with_the_engine_live_on_card():
                     and time.monotonic() < deadline:
                 time.sleep(0.02)
             assert b.elastic_state["resizes"] == 1, b.elastic_state
-            before = fr.launches
+            before = counts["fold_launches"]
             assert s.allreduce(parts).tobytes() == first.tobytes()
-            assert fr.launches == before + 1
+            assert counts["fold_launches"] == before + 1
         th.join(timeout=120)
         assert out["toks"] == want == streamed
         new = eng.ranks[3]
@@ -1998,11 +1989,11 @@ def test_zero_d_operands_keep_their_shape_on_card():
                                 _raw(t.cpu()) == _raw(w)))
         return out
 
-    fr.reset_launches()
+    counts.reset()
     for rank_out in MPI.spmd_run(body, 4, timeout=120):
         assert all(o == ("cuda", (), True) for o in rank_out), rank_out
     # 2 kinds x 3 dtypes of Allreduce; one element is no whole 16-byte word
-    assert fr.launches == fr.route_launches["direct"] == 6
+    assert counts["fold_launches"] == counts["fold_route_launches"]["direct"] == 6
 
 
 @pytest.mark.cuda
@@ -2014,7 +2005,6 @@ def test_complex_max_min_fold_as_numpy_on_card():
     import functools
     import numpy as np
     import tpu_mpi_torch as MPI
-    from tpu_mpi_torch import collective
     from tpu_mpi_torch.buffers import to_numpy
     dev = _card()
     c = (complex(np.nan, 0.0), complex(0.0, np.nan), complex(0.0, 0.0),
@@ -2049,9 +2039,9 @@ def test_complex_max_min_fold_as_numpy_on_card():
                                    else w).tobytes() == want.tobytes())
         return ok
 
-    before, launches = collective.chained_folds, fr.launches
+    before, launches = counts["chained_folds"], counts["fold_launches"]
     for rank_ok in MPI.spmd_run(body, 4, timeout=120):
         assert all(rank_ok), rank_ok
-    assert fr.launches == launches
+    assert counts["fold_launches"] == launches
     # per kind and dtype: the two Allreduces, then one accumulate a rank
-    assert collective.chained_folds - before == 2 * 2 * (2 + 4)
+    assert counts["chained_folds"] - before == 2 * 2 * (2 + 4)

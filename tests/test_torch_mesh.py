@@ -33,6 +33,7 @@ from tpu_mpi_torch import xla
 from tpu_mpi_torch.kernels import fused_reduce as fr
 from tpu_mpi_torch.kernels import permute
 from tpu_mpi_torch.xla import collectives as xc
+from tpu_mpi_torch.kernels._build import counts
 
 AXES = {"dp": 2, "tp": 2, "sp": 2}
 CPU = torch.device("cpu")
@@ -150,13 +151,13 @@ def test_one_fold_launch_for_every_group(monkeypatch):
     plain = fr.fused_multi_reduce_plain
     monkeypatch.setattr(fr, "fused_multi_reduce_plain",
                         lambda xs, op: calls.append(len(xs)) or plain(xs, op))
-    xc.reset_layout_copies()
+    counts.reset()
     x = torch.randn(2, 2, 2, 5)
     xla.allreduce(x, axis="dp", mesh=AXES)          # leads: no copy
     xla.allreduce(x, axis="sp", mesh=AXES)
     xla.allreduce(x, axis=("sp", "dp"), mesh=AXES)
     assert calls == [2, 2, 4]
-    assert xc.layout_copies == 2 and xc.layout_copy_bytes == 2 * x.numel() * 4
+    assert counts["layout_copies"] == 2 and counts["layout_copy_bytes"] == 2 * x.numel() * 4
 
 
 # ---------------------------------------------------------------------------

@@ -25,7 +25,7 @@ import torch
 
 import tpu_mpi as JMPI
 import tpu_mpi_torch as MPI
-from tpu_mpi_torch import collective
+from tpu_mpi_torch.kernels._build import counts
 
 from test_torch_p2p import KINDS, TIMEOUT, assert_parity, host
 
@@ -347,9 +347,9 @@ def p_accumulate_ops(M, AT, dtype, op_name):
     (np.int32, "MIN"), (np.int64, "BXOR"), (np.float32, "REPLACE"),
     (np.int32, "NO_OP"), (np.float64, "custom")])
 def test_accumulate_op_parity(kind, dtype, op_name, nprocs):
-    before = collective.chained_folds
+    before = counts["chained_folds"]
     assert_parity(p_accumulate_ops, kind, nprocs, dtype=dtype, op_name=op_name)
-    chained = collective.chained_folds - before
+    chained = counts["chained_folds"] - before
     custom_on_tensors = op_name == "custom" and kind != "numpy"
     # per rank one Accumulate; rank 1 adds a Get_accumulate and a Fetch_and_op
     assert chained == ((nprocs + 2) if custom_on_tensors else 0)
@@ -497,9 +497,9 @@ def p_overlapping_origin(M, AT, op, shift):
 @pytest.mark.parametrize("op", OVERLAP_OPS)
 @pytest.mark.parametrize("kind", ["numpy", "tensor"])
 def test_overlapping_origin_parity(kind, op, shift):
-    before = collective.chained_folds
+    before = counts["chained_folds"]
     assert_parity(p_overlapping_origin, kind, 2, op=op, shift=shift)
-    assert collective.chained_folds == before
+    assert counts["chained_folds"] == before
 
 
 def p_cell_window_origin_views_its_cell(M, AT):

@@ -30,6 +30,7 @@ from tpu_mpi_torch.buffers import from_numpy, to_numpy
 from tpu_mpi_torch.kernels import permute
 from tpu_mpi_torch.kernels import ring
 from tpu_mpi_torch.xla import collectives as xc
+from tpu_mpi_torch.kernels._build import counts
 
 # (n, kernel, dtype, per-rank size)
 CASES = [
@@ -196,13 +197,13 @@ def test_sendrecv_kernel_route_matches_plain_code():
 
 
 def test_cpu_tensors_launch_nothing():
-    permute.reset_launches()
+    counts.reset()
     x = torch.randn(4, 8)
     permute.collective_permute(x, [1, 2, 3, 0])
     permute.pairwise_alltoall(x)
     xla.alltoall(x)
     xla.ring_shift(x)
-    assert set(permute.launches.values()) == {0}
+    assert set(counts["permute_launches"].values()) == {0}
 
 
 def test_library_path_keyed_by_source():

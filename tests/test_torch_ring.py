@@ -28,6 +28,7 @@ from tpu_mpi.xla import pallas_kernels as pk
 from tpu_mpi_torch.buffers import from_numpy, to_numpy
 from tpu_mpi_torch.kernels import fused_reduce as fr
 from tpu_mpi_torch.kernels import ring
+from tpu_mpi_torch.kernels._build import counts
 
 
 def _noncommutative(a, b):
@@ -250,12 +251,12 @@ def test_ops_are_chosen_up_front():
 
 def test_callable_rings_are_counted_and_launch_nothing():
     xs = torch.arange(8.0).reshape(2, 4)
-    ring.reset_launches()
+    counts.reset()
     ring.ring_allreduce(xs, _noncommutative)
     ring.ring_reduce_scatter(xs, tpu_mpi_torch.LOR)
     ring.ring_allreduce(xs, "sum")                     # CPU: plain, no count
-    assert ring.callable_rings == 2
-    assert set(ring.launches.values()) == {0}
+    assert counts["callable_rings"] == 2
+    assert set(counts["ring_launches"].values()) == {0}
 
 
 @pytest.mark.parametrize("bad", ["scalar", "no ranks", "indivisible",

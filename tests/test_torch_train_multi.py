@@ -36,6 +36,7 @@ from tpu_mpi.models import transformer as jtr
 from tpu_mpi_torch import xla as txla
 from tpu_mpi_torch.kernels import fused_reduce as fr
 from tpu_mpi_torch.models import transformer as ttr
+from tpu_mpi_torch.kernels._build import counts
 
 KW = dict(vocab=64, d_model=32, n_heads=4, n_layers=2, d_ff=64)
 JCFG = jtr.TransformerConfig(**KW)
@@ -164,14 +165,14 @@ def test_dp_tp_sp_step_matches_jax(axes):
 def test_dp_tp_sp_step_folds_once_per_tensor(monkeypatch):
     calls = _count_folds(monkeypatch)
     step, _, params, tok, lab = _flat_port({"dp": 2, "tp": 2, "sp": 2})
-    txla.collectives.reset_layout_copies()
+    counts.reset()
     step(params, torch.from_numpy(tok), torch.from_numpy(lab))
     L = KW["n_layers"]
     # f/g: 4 a layer over the 2 tp ranks; a (dp, sp) psum of 4 ranks per
     # parameter tensor and for the loss
     assert sorted(calls) == [2] * (4 * L) + [4] * (2 + 6 * L + 1)
     # the tp-sharded gradients (n_tp, n_dp, n_sp, ...) bring (dp, sp) forward
-    assert txla.collectives.layout_copies == 4 * L
+    assert counts["layout_copies"] == 4 * L
 
 
 def test_dp_tp_sp_forward_matches_jax():

@@ -22,8 +22,8 @@ from jax.sharding import PartitionSpec as P
 import tpu_mpi
 import tpu_mpi_torch
 from tpu_mpi import xla as jxla
-from tpu_mpi_torch import collective as tcollective
 from tpu_mpi_torch import xla
+from tpu_mpi_torch.kernels._build import counts
 
 N = 8
 CPU = torch.device("cpu")
@@ -80,13 +80,13 @@ def test_allreduce_matches(jmesh, opname):
         np.random.default_rng(2).standard_normal((N, 6, 5)).astype(np.float32)
     jop = _custom if opname == "custom" else getattr(tpu_mpi, opname)
     top = _custom if opname == "custom" else getattr(tpu_mpi_torch, opname)
-    chained = tcollective.chained_folds
+    chained = counts["chained_folds"]
     want = _jax(jmesh, lambda v: jxla.allreduce(v, jop, axis="x"), x)
     got = xla.allreduce(_t(x), top, axis="x")
     assert got.shape == (N, 6, 5)
     _same(got, want)
     # only the custom callable leaves the fold kernel's path
-    assert tcollective.chained_folds == chained + (opname == "custom")
+    assert counts["chained_folds"] == chained + (opname == "custom")
 
 
 @pytest.mark.parametrize("opname", ["SUM", "PROD", "BXOR", "LAND", "LOR", "LXOR"])

@@ -48,6 +48,7 @@ from . import perfvars as _pv
 from . import tune_online as _tune_online
 from .analyze import events as _ev
 from .error import CollectiveMismatchError, MPIError
+from .kernels import _build
 from .kernels import fused_reduce as _fused
 from .operators import Op, as_op
 from .overlap import (ChunkSchedule, CollectivePlan, PersistentCollRequest,
@@ -223,8 +224,7 @@ def _wire_nbytes(payload: Any) -> Optional[int]:
 # PyTorch fold instead (custom callables, ops or dtypes the kernel does not
 # take, ragged operands, the fused_fold knob off). The main path keeps it
 # still; a moving count names a fold that left the kernel.
-chained_folds = 0
-_chained_lock = threading.Lock()
+__getattr__ = _build.views(__name__, {"chained_folds": "chained_folds"})
 
 
 def _kernel_op(op: Op, dtype: torch.dtype) -> Optional[str]:
@@ -279,9 +279,7 @@ def _tensor_fold(arrs: Sequence[Any], op: Op, out: Optional[Any] = None):
     kop = _fused_reduce_candidate(op, arrs)
     if kop is not None:
         return _fused.fused_multi_reduce(arrs, kop, out=out)
-    global chained_folds
-    with _chained_lock:
-        chained_folds += 1
+    _build.counts.add("chained_folds")
     res = functools.reduce(op, arrs)
     return res if out is None else out.copy_(res)
 

@@ -9,7 +9,8 @@ makes concurrent processes build it once. The library is loaded with
 
 Every wrapper launches through :func:`call`, the one lean launch path: it
 appends the device's current stream as a raw handle and makes the device
-current only when it is not already.
+current only when it is not already. What the wrappers launch is counted in
+:data:`counts`, the kernel layer's one table of launch counts.
 """
 
 from __future__ import annotations
@@ -24,7 +25,7 @@ import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence
 
 import torch
 
@@ -79,9 +80,8 @@ class Library:
     """One CUDA source, built and loaded at first use (thread-safe).
     ``bind(lib)`` sets the ``argtypes``/``restype`` of its functions.
     ``builds``/``build_ns`` count this process's ``nvcc`` runs and their
-    time, ``loads``/``load_ns`` its loads of the built file (the
-    ``kernels`` block of ``perfvars.snapshot``); ``instances`` lists every
-    library."""
+    time, ``loads``/``load_ns`` its loads of the built file (reported by
+    :meth:`Counts.snapshot`); ``instances`` lists every library."""
 
     instances: list = []
 
@@ -156,3 +156,85 @@ def build_all(libs: Sequence[Library]) -> list[Path]:
     """Build every library at once, one ``nvcc`` each; returns their paths."""
     with ThreadPoolExecutor(max(1, len(libs))) as pool:
         return list(pool.map(Library.build, libs))
+
+
+# Every launch count, in the kernels block's order: a plain count (None) or
+# a table and the keys it starts at zero, the kernel modules' routes and
+# kernel names. TOTALS reports a table also summed, just before it.
+COUNTED = {"fold_route_launches": ("staged", "direct"),
+           "attention_route_launches": ("sm90", "mma_sync", "fma"),
+           "attention_dims_launches": (), "attention_backward_dims_launches": (),
+           "ring_launches": ("ring_allreduce", "ring_reduce_scatter", "ring_allgather"),
+           "ring_route_launches": ("staged", "direct"), "callable_rings": None,
+           "permute_launches": ("pairwise_alltoall", "collective_permute"),
+           **dict.fromkeys(("ddp_pack_launches", "ddp_update_launches", "ddp_pack_copies",
+                            "chained_folds", "layout_copies", "layout_copy_bytes"))}
+TOTALS = {"fold_route_launches": "fold_launches",
+          "attention_route_launches": "attention_launches",
+          "attention_backward_dims_launches": "attention_backward_launches"}
+# Libraries are named after their sources: the block lists each, built or not.
+SOURCES = tuple(sorted(p.stem for p in CSRC.glob("*.cu")))
+
+
+class Counts:
+    """The kernel layer's launch counts under one lock; ``counts[name]``
+    reads one entry of :meth:`snapshot`."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.reset()
+
+    def add(self, name: str, key: Optional[str] = None, n: int = 1) -> None:
+        """Add ``n`` to the count ``name``, or to its table's ``key``."""
+        with self._lock:
+            if key is None:
+                self._counts[name] += n
+            else:
+                self._counts[name][key] = self._counts[name].get(key, 0) + n
+
+    def add_many(self, *entries: tuple) -> None:
+        """:meth:`add` each ``(name, key, n)`` under one lock, so a reader
+        sees a launch's counts move together."""
+        with self._lock:
+            for name, key, n in entries:
+                if key is None:
+                    self._counts[name] += n
+                else:
+                    self._counts[name][key] = self._counts[name].get(key, 0) + n
+
+    def reset(self) -> None:
+        """Zero every count (the libraries' builds and loads stay)."""
+        fresh = {name: 0 if keys is None else dict.fromkeys(keys, 0)
+                 for name, keys in COUNTED.items()}
+        with self._lock:
+            self._counts = fresh
+
+    def snapshot(self) -> dict:
+        """The ``kernels`` block of ``perfvars.snapshot``: each library's
+        builds and loads (count and ns), then every count, tables copied."""
+        out = {field: {**dict.fromkeys(SOURCES, 0),
+                       **{lib.name: getattr(lib, field) for lib in Library.instances}}
+               for field in ("builds", "build_ns", "loads", "load_ns")}
+        with self._lock:
+            for name, value in self._counts.items():
+                if name in TOTALS:
+                    out[TOTALS[name]] = sum(value.values())
+                out[name] = dict(value) if isinstance(value, dict) else value
+        return out
+
+    def __getitem__(self, name: str):
+        return self.snapshot()[name]
+
+
+counts = Counts()
+
+
+def views(module: str, names: dict) -> Callable[[str], object]:
+    """A module ``__getattr__`` serving each attribute in ``names`` as the
+    count it maps to. portbench/drivers read these names; they go once it
+    reads ``perfvars.kernels_snapshot()``."""
+    def __getattr__(attr: str):
+        if attr not in names:
+            raise AttributeError(f"module {module!r} has no attribute {attr!r}")
+        return counts[names[attr]]
+    return __getattr__

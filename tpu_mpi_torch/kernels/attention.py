@@ -52,7 +52,6 @@ from __future__ import annotations
 
 import ctypes
 import math
-import threading
 from typing import Optional
 
 import torch
@@ -70,7 +69,7 @@ MAX_QK_DIM_SM90 = 192       # q/k head dim the sm90 route takes beside dv <= 128
 # attention_backward: the float32 (BH, rows, keys) scores of one query block
 # stay within this many bytes (each of the few such tensors a block holds)
 BACKWARD_BLOCK_BYTES = 1 << 30
-ROUTES = ("sm90", "mma_sync", "fma")
+ROUTES = _build.COUNTED["attention_route_launches"]     # ("sm90", "mma_sync", "fma")
 BACKWARD_ROUTES = ("sm90", "plain")
 SUBLANE = 8         # the TPU wrapper's multiple for the local sequence length
 M_INIT = -1e30      # the running max's start
@@ -88,27 +87,11 @@ BF16_REL = 2.0 ** -7 * (1 + 2.0 ** -6)
 TOLERANCE_NOTE = ("float32 |got-want| <= 1e-4 + 1e-4|want|; bfloat16 |got-want| "
                   "<= 2^-7 (1+2^-6) (A + |want|), A = attention of |v| in float32")
 
-# Launches of the forward kernels, one per wrapper call that launched one:
-# in all, per route, and per head dims ("<d>/<dv>"); and of the backward
-# kernel (its main launch with the two small ones, one a call), in all and
-# per head dims.
-launches = 0
-route_launches = dict.fromkeys(ROUTES, 0)
-dims_launches: dict = {}
-backward_launches = 0
-backward_dims_launches: dict = {}
-_count_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    global launches, backward_launches
-    with _count_lock:
-        launches = 0
-        for name in route_launches:
-            route_launches[name] = 0
-        dims_launches.clear()
-        backward_launches = 0
-        backward_dims_launches.clear()
+# A forward launch is counted by route and head dims ("<d>/<dv>"), a call of
+# the backward kernel (its main launch with the two small ones) by head dims.
+__getattr__ = _build.views(__name__, {"launches": "attention_launches",
+                                      "route_launches": "attention_route_launches",
+                                      "dims_launches": "attention_dims_launches"})
 
 
 def sm90_takes(d: int, dv: int) -> bool:
@@ -326,12 +309,8 @@ def _launch(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, causal: bool,
     else:
         _build.call(LIBRARY.fn("tmt_ring_attention"), q.device, "ring_attention",
                     *ptrs, n, bh, t, d, scale, int(causal), DTYPE_CODE[q.dtype])
-    global launches
-    with _count_lock:
-        launches += 1
-        route_launches[way] += 1
-        dims = f"{d}/{dv}"
-        dims_launches[dims] = dims_launches.get(dims, 0) + 1
+    _build.counts.add_many(("attention_route_launches", way, 1),
+                           ("attention_dims_launches", f"{d}/{dv}", 1))
     return (out, lse) if keep_lse else out
 
 
@@ -400,11 +379,7 @@ def _launch_backward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch
                 q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), do.data_ptr(),
                 lse.data_ptr(), dq.data_ptr(), dk.data_ptr(), dvv.data_ptr(),
                 scratch.data_ptr(), n, bh, t, d, dv, scale, int(causal))
-    global backward_launches
-    with _count_lock:
-        backward_launches += 1
-        dims = f"{d}/{dv}"
-        backward_dims_launches[dims] = backward_dims_launches.get(dims, 0) + 1
+    _build.counts.add("attention_backward_dims_launches", f"{d}/{dv}")
     return dq, dk, dvv
 
 

@@ -18,9 +18,9 @@ step in PyTorch's order (see the kernel source). The update is
 elementwise, so one bucket's flat range gives the bits that the same
 sequence gives a tensor at a time.
 
-Counters: ``pack_launches`` and ``update_launches``, the kernels each
-launched (as the C side reports them: one a chunk of up to ``SEG_MAX``
-segments that holds an element), and ``pack_copies``, the gradients
+Counts: ``ddp_pack_launches`` and ``ddp_update_launches``, the kernels
+each launched (as the C side reports them: one a chunk of up to ``SEG_MAX``
+segments that holds an element), and ``ddp_pack_copies``, the gradients
 :func:`pack` had PyTorch copy first because the kernel cannot read them
 where they are (off ``dst``'s device, of another type, or non-contiguous).
 """
@@ -28,7 +28,6 @@ where they are (off ``dst``'s device, of another type, or non-contiguous).
 from __future__ import annotations
 
 import ctypes
-import threading
 from typing import Any, Sequence, Tuple
 
 import torch
@@ -42,17 +41,6 @@ SEG_MAX = 32        # segments one launch takes (SEG_MAX in the kernel source)
 
 # Gradient types the pack kernel converts; any other is cast by PyTorch first.
 PACK_DTYPES = (torch.float32, torch.float64, torch.float16, torch.bfloat16)
-
-pack_launches = 0
-update_launches = 0
-pack_copies = 0
-_count_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    global pack_launches, update_launches, pack_copies
-    with _count_lock:
-        pack_launches = update_launches = pack_copies = 0
 
 
 Part = Tuple[int, int, torch.Tensor]      # (offset, count, tensor)
@@ -71,7 +59,7 @@ def pack(dst: torch.Tensor, parts: Sequence[Part]) -> None:
     launch (chained beyond ``SEG_MAX`` parts) on the current stream; a
     tensor off ``dst``'s device or of a type the kernel does not convert is
     cast there by PyTorch first, a non-contiguous one made contiguous, each
-    counted in ``pack_copies``."""
+    counted in ``ddp_pack_copies``."""
     for off, n, g in parts:
         if g.numel() != n or off < 0 or off + n > dst.numel():
             raise ValueError(f"ddp pack: a {g.numel()}-element gradient for "
@@ -93,10 +81,8 @@ def pack(dst: torch.Tensor, parts: Sequence[Part]) -> None:
             g, copies = g.contiguous(), copies + 1
         srcs.append(g)
     n = len(parts)
-    global pack_copies
-    with _count_lock:
-        pack_copies += copies
-    _launch("tmt_ddp_pack", "pack_launches", dst.device, "ddp pack",
+    _build.counts.add("ddp_pack_copies", n=copies)
+    _launch("tmt_ddp_pack", "ddp_pack_launches", dst.device, "ddp pack",
             (ctypes.c_void_p * n)(*[g.data_ptr() for g in srcs]),
             (ctypes.c_int * n)(*[DTYPE_CODE[g.dtype] for g in srcs]),
             (ctypes.c_int64 * n)(*[off for off, _, _ in parts]),
@@ -146,7 +132,7 @@ def update(master: torch.Tensor, momentum: torch.Tensor, parts: Sequence[Part],
             raise ValueError("ddp update kernel takes contiguous float64 sums on "
                              "the masters' device")
     n = len(parts)
-    _launch("tmt_ddp_update", "update_launches", master.device, "ddp update",
+    _launch("tmt_ddp_update", "ddp_update_launches", master.device, "ddp update",
             (ctypes.c_void_p * n)(*[r.data_ptr() for _, _, r in parts]),
             (ctypes.c_int64 * n)(*[off for off, _, _ in parts]),
             (ctypes.c_int64 * n)(*[c for _, c, _ in parts]),
@@ -156,14 +142,13 @@ def update(master: torch.Tensor, momentum: torch.Tensor, parts: Sequence[Part],
 
 def _launch(fn: str, counter: str, device: torch.device, what: str, *args) -> None:
     """Call the C function ``fn`` with ``args``, its launch count's
-    address and the stream, and add the kernels it launched to the module
-    counter ``counter``, a refused call's earlier launches included."""
+    address and the stream, and add the kernels it launched to the count
+    ``counter``, a refused call's earlier launches included."""
     launched = ctypes.c_int(0)
     try:
         _build.call(LIBRARY.fn(fn), device, what, *args, ctypes.byref(launched))
     finally:
-        with _count_lock:
-            globals()[counter] += launched.value
+        _build.counts.add(counter, n=launched.value)
 
 
 def _bind(lib: ctypes.CDLL) -> None:

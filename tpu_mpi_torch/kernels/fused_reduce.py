@@ -17,13 +17,13 @@ op does (see the kernel source for the rules).
 The kernel is bound by bytes: ``(n + 1) * count * itemsize`` of device
 memory traffic, against ``n - 1`` cheap operations per element. It has two
 routes, chosen up front by :func:`route` from the pointers and the size and
-counted in ``route_launches``: "staged" (every operand and ``out`` 16-byte
+counted by route: "staged" (every operand and ``out`` 16-byte
 aligned and the fold whole 16-byte words: one CTA a tile, the n slices of
 the tile brought into shared memory by bulk asynchronous copies on one
 mbarrier, folded 16 bytes at a time) and "direct" (anything else: 16-byte
 or scalar loads straight from device memory, the ragged tail in the same
 launch). Up to 16 operands fold in one launch; more run as chained launches
-on the same route, and still count as one call in ``launches``.
+on the same route, and still count as one launch.
 
 Build: :mod:`tpu_mpi_torch.kernels._build` (nvcc for ``sm_90a`` into
 ``tpu_mpi_torch/_build/`` at first use, loaded with ``ctypes``).
@@ -33,7 +33,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Optional, Sequence
 
 import torch
@@ -47,20 +46,10 @@ SOURCE = _build.CSRC / "fused_reduce.cu"
 
 N_MAX = 16          # operands one launch folds (N_MAX in the kernel source)
 
-# Launches of the kernel, one per wrapper call that launched it, and the
-# same calls by route.
-launches = 0
-ROUTES = ("staged", "direct")
-route_launches = dict.fromkeys(ROUTES, 0)
-_count_lock = threading.Lock()
+ROUTES = _build.COUNTED["fold_route_launches"]     # ("staged", "direct")
 
-
-def reset_launches() -> None:
-    global launches
-    with _count_lock:
-        launches = 0
-        for name in route_launches:
-            route_launches[name] = 0
+__getattr__ = _build.views(__name__, {"launches": "fold_launches",
+                                      "route_launches": "fold_route_launches"})
 
 
 def fused_multi_reduce_plain(xs: Sequence[torch.Tensor], op: str) -> torch.Tensor:
@@ -147,10 +136,7 @@ def _launch(xs: list, op: str, out: Optional[torch.Tensor],
     _build.call(LIBRARY.fn("tmt_fused_reduce"), x0.device, "fused_multi_reduce",
                 ptrs, len(xs), out.data_ptr(), x0.numel(), DTYPE_CODE[x0.dtype],
                 OP_CODE[op], ROUTES.index(way))
-    global launches
-    with _count_lock:
-        launches += 1
-        route_launches[way] += 1
+    _build.counts.add("fold_route_launches", way)
     return out
 
 

@@ -34,7 +34,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Sequence
 
 import torch
@@ -43,27 +42,15 @@ from . import _build
 from .ring import _kernel_input, block_elems, stacked_ranks
 
 SOURCE = _build.CSRC / "permute.cu"
-REPLACES = {
-    "pairwise_alltoall": "tpu_mpi/xla/pallas_kernels.py:390",
-    "collective_permute": "tpu_mpi/xla/pallas_kernels.py:463",
-}
+# Each kernel (all-to-all, permute: its count's keys) and the TPU kernel it
+# replaces.
+REPLACES = dict(zip(_build.COUNTED["permute_launches"], (
+    "tpu_mpi/xla/pallas_kernels.py:390", "tpu_mpi/xla/pallas_kernels.py:463")))
 MAX_RANKS = 512     # TMT_MAX_RANKS: the source table rides as a kernel parameter
 TABLE_CACHE = 64    # distinct source tables kept checked and converted
 
-# Launches of each kernel, one per wrapper call that launched it.
-launches = dict.fromkeys(REPLACES, 0)
-_count_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    with _count_lock:
-        for name in launches:
-            launches[name] = 0
-
-
-def _count(name: str) -> None:
-    with _count_lock:
-        launches[name] += 1
+# A wrapper call that launched a kernel is counted by kernel.
+__getattr__ = _build.views(__name__, {"launches": "permute_launches"})
 
 
 def _ranks_fit(n: int, what: str) -> None:
@@ -113,7 +100,7 @@ def _permute(xs: torch.Tensor, n: int, src: tuple, table) -> torch.Tensor:
     _build.call(LIBRARY.fn("tmt_permute"), xs.device, "collective_permute",
                 xs.data_ptr(), out.data_ptr(), n, xs.numel() // n * xs.element_size(),
                 table)
-    _count("collective_permute")
+    _build.counts.add("permute_launches", "collective_permute")
     return out
 
 
@@ -176,7 +163,7 @@ def pairwise_alltoall(xs: torch.Tensor) -> torch.Tensor:
     out = xs.new_empty((n, n * per))
     _build.call(LIBRARY.fn("tmt_alltoall"), xs.device, "pairwise_alltoall",
                 xs.data_ptr(), out.data_ptr(), n, per * xs.element_size())
-    _count("pairwise_alltoall")
+    _build.counts.add("permute_launches", "pairwise_alltoall")
     return out
 
 

@@ -34,7 +34,7 @@ Bound on the card: bytes. On one card the ring's hops would only copy each
 chunk through the same HBM again, so each kernel computes in one pass what
 the hops leave on every rank (see the source for the traffic of each). The
 reduce-scatter kernel has two routes, chosen from alignment and n and
-counted in ``route_launches``: "staged" stages each tile's n slices in
+counted in ``ring_route_launches``: "staged" stages each tile's n slices in
 shared memory with bulk asynchronous copies (16-byte-aligned bases, blocks
 of whole 16-byte words, an n that :func:`staged_tile` stages), "direct"
 loads straight from HBM (any other call).
@@ -44,7 +44,6 @@ from __future__ import annotations
 
 import ctypes
 import functools
-import threading
 from typing import Any, Callable, Optional
 
 import torch
@@ -54,42 +53,16 @@ from .fold_ops import DTYPE_CODE, OP_CODE, PLAIN_STEP, supports
 from ..operators import _PREDEFINED, _signed, as_op
 
 SOURCE = _build.CSRC / "ring.cu"
-REPLACES = {
-    "ring_allreduce": "tpu_mpi/xla/pallas_kernels.py:254",
-    "ring_reduce_scatter": "tpu_mpi/xla/pallas_kernels.py:321",
-    "ring_allgather": "tpu_mpi/xla/pallas_kernels.py:169",
-}
+# Each kernel (allreduce, reduce-scatter, allgather: its count's keys) and
+# the TPU kernel it replaces.
+REPLACES = dict(zip(_build.COUNTED["ring_launches"], (
+    "tpu_mpi/xla/pallas_kernels.py:254", "tpu_mpi/xla/pallas_kernels.py:321",
+    "tpu_mpi/xla/pallas_kernels.py:169")))
 
 LANE = 128      # the TPU layout's lane width: ring chunks are whole rows of it
 SUBLANE = 8     # rows per chunk are a multiple of this
 
-# Launches of each kernel, one per wrapper call that launched it (and of
-# the reduce-scatter kernel by route); and ring calls whose op could not
-# enter a kernel and ran the plain schedule.
-launches = dict.fromkeys(REPLACES, 0)
-ROUTES = ("staged", "direct")      # the reduce-scatter kernel's routes
-route_launches = dict.fromkeys(ROUTES, 0)
-callable_rings = 0
-_count_lock = threading.Lock()
-
-
-def reset_launches() -> None:
-    global callable_rings
-    with _count_lock:
-        for table in (launches, route_launches):
-            for name in table:
-                table[name] = 0
-        callable_rings = 0
-
-
-def _count(name: Optional[str]) -> None:
-    """One kernel launch of ``name``; None counts a callable ring."""
-    global callable_rings
-    with _count_lock:
-        if name is None:
-            callable_rings += 1
-        else:
-            launches[name] += 1
+ROUTES = _build.COUNTED["ring_route_launches"]     # the reduce-scatter kernel's
 
 
 # ---------------------------------------------------------------------------
@@ -199,7 +172,7 @@ def ring_allreduce(xs: torch.Tensor, op: Any = "sum") -> torch.Tensor:
     if n == 1:
         return xs
     if kop is None:
-        _count(None)
+        _build.counts.add("callable_rings")
         return ring_allreduce_plain(xs, combine)
     if xs.device.type == "cpu":
         return ring_allreduce_plain(xs, combine)
@@ -209,7 +182,7 @@ def ring_allreduce(xs: torch.Tensor, op: Any = "sum") -> torch.Tensor:
     _build.call(LIBRARY.fn("tmt_ring_allreduce"), xs.device, "ring_allreduce",
                 xs.data_ptr(), out.data_ptr(), n, count, chunk_elems(count, n),
                 DTYPE_CODE[xs.dtype], OP_CODE[kop])
-    _count("ring_allreduce")
+    _build.counts.add("ring_launches", "ring_allreduce")
     return out
 
 
@@ -241,7 +214,7 @@ def ring_reduce_scatter(xs: torch.Tensor, op: Any = "sum") -> torch.Tensor:
         return xs.reshape(1, -1)
     per = block_elems(xs[0].numel(), n)
     if kop is None:
-        _count(None)
+        _build.counts.add("callable_rings")
         return ring_reduce_scatter_plain(xs, combine)
     if xs.device.type == "cpu":
         return ring_reduce_scatter_plain(xs, combine)
@@ -264,9 +237,8 @@ def _reduce_scatter_kernel(xs: torch.Tensor, kop: str, per: int, *,
     _build.call(LIBRARY.fn("tmt_ring_reduce_scatter"), xs.device,
                 "ring_reduce_scatter", xs.data_ptr(), out.data_ptr(), n, per,
                 DTYPE_CODE[xs.dtype], OP_CODE[kop], ROUTES.index(way))
-    with _count_lock:
-        launches["ring_reduce_scatter"] += 1
-        route_launches[way] += 1
+    _build.counts.add_many(("ring_launches", "ring_reduce_scatter", 1),
+                           ("ring_route_launches", way, 1))
     return out
 
 
@@ -315,7 +287,7 @@ def ring_allgather(xs: torch.Tensor) -> torch.Tensor:
     out = xs.new_empty((n,) + tuple(xs.shape))
     _build.call(LIBRARY.fn("tmt_ring_allgather"), xs.device, "ring_allgather",
                 xs.data_ptr(), out.data_ptr(), n, xs.numel() * xs.element_size())
-    _count("ring_allgather")
+    _build.counts.add("ring_launches", "ring_allgather")
     return out
 
 

@@ -328,7 +328,7 @@ def acc_combine(old: Any, incoming: Any, op: Op, out: Any = None):
     other op is the two-operand rank-ordered fold ``op(old, incoming)``
     through the Allreduce fold's candidate check — one launch of the fused
     fold kernel on a CUDA tensor for a predefined op it takes, else the
-    chained fold (counted in ``collective.chained_folds``). An origin that
+    chained fold (counted in ``chained_folds``). An origin that
     overlaps the target range in part is read in full first, as numpy's
     assignment reads it (``buffers.detach_overlap``)."""
     if op is NO_OP:

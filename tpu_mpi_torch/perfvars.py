@@ -1027,35 +1027,10 @@ def frontdoor_totals(coll: str = "allreduce") -> dict:
 
 
 def kernels_snapshot() -> dict:
-    """The kernels block of :func:`snapshot`: each CUDA library's builds
-    and loads (count and ns, by library), the kernels' launch counts (the
-    DDP trainer's pack and update among them), the folds that left the
-    fold kernel, the in-graph layout copies and the gradients the DDP pack
-    copied first, read where they are kept. At most one level of nesting."""
-    from . import collective
-    from .kernels import _build, attention, ddp_step, fused_reduce, permute, ring
-    from .xla import collectives as xc
-    libs = list(_build.Library.instances)
-    return {"builds": {lib.name: lib.builds for lib in libs},
-            "build_ns": {lib.name: lib.build_ns for lib in libs},
-            "loads": {lib.name: lib.loads for lib in libs},
-            "load_ns": {lib.name: lib.load_ns for lib in libs},
-            "fold_launches": fused_reduce.launches,
-            "fold_route_launches": dict(fused_reduce.route_launches),
-            "attention_launches": attention.launches,
-            "attention_route_launches": dict(attention.route_launches),
-            "attention_dims_launches": dict(attention.dims_launches),
-            "attention_backward_launches": attention.backward_launches,
-            "attention_backward_dims_launches": dict(attention.backward_dims_launches),
-            "ring_launches": dict(ring.launches),
-            "ring_route_launches": dict(ring.route_launches),
-            "callable_rings": ring.callable_rings,
-            "permute_launches": dict(permute.launches),
-            "ddp_pack_launches": ddp_step.pack_launches,
-            "ddp_update_launches": ddp_step.update_launches,
-            "ddp_pack_copies": ddp_step.pack_copies,
-            "chained_folds": collective.chained_folds,
-            "layout_copies": xc.layout_copies}
+    """The kernels block of :func:`snapshot`: the kernel layer's table of
+    builds, loads and launch counts (``kernels._build.counts``)."""
+    from .kernels._build import counts
+    return counts.snapshot()
 
 
 # ---------------------------------------------------------------------------

@@ -195,12 +195,9 @@ class _PoolWorker:
         return {"group": list(merged.group), "cid": merged.cid}, []
 
     def _wop_pvars(self, meta: dict) -> tuple:
-        # with the counters: this process's fold-kernel launches, so the
-        # broker can tell its ops went through the kernel on the card
+        # its kernels block tells whether this process's ops took the card
         from .. import perfvars
-        from ..kernels import fused_reduce
-        return {"snapshot": perfvars.snapshot(),
-                "fold_launches": fused_reduce.launches}, []
+        return {"snapshot": perfvars.snapshot()}, []
 
     # -- the loop ------------------------------------------------------------
     def serve(self) -> None:

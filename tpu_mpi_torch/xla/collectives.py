@@ -35,7 +35,7 @@ Lowerings:
   (:mod:`tpu_mpi_torch.kernels.fused_reduce`) on a CUDA tensor; LAND, LOR
   and LXOR fold ``x != 0`` in int32 as the JAX lowering does; any other op
   is gathered and folded by the chained fold of
-  ``collective._tensor_fold``, counted in ``collective.chained_folds``.
+  ``collective._tensor_fold``, counted in ``chained_folds``.
   ``approx_prod=True`` keeps the exp/log PROD. A SUM is differentiable:
   its backward is the SUM of the cotangent over the same group, the
   transpose ``lax.psum`` has.
@@ -75,7 +75,6 @@ result among ranks.
 from __future__ import annotations
 
 import math
-import threading
 from typing import Any, Mapping, Optional, Sequence, Union
 
 import numpy as np
@@ -83,6 +82,7 @@ import torch
 
 from .. import collective as _collective
 from .. import perfvars as _pv
+from ..kernels import _build
 from ..kernels import permute as _permute
 from ..kernels import ring as _ring
 from ..kernels.ring import stacked_ranks
@@ -92,17 +92,9 @@ from .mesh import Mesh
 Axis = Union[str, Sequence[str]]
 Layout = Union[Mesh, Mapping[str, int], None]
 
-# Copies that bring a group's rank dims to the front (see the module doc).
-layout_copies = 0
-layout_copy_bytes = 0
+# While a list, each copy that brings a group's rank dims to the front
+# (see the module doc).
 record_layout: Optional[list] = None
-_layout_lock = threading.Lock()
-
-
-def reset_layout_copies() -> None:
-    global layout_copies, layout_copy_bytes
-    with _layout_lock:
-        layout_copies = layout_copy_bytes = 0
 
 
 def _layout_shape(mesh: Layout) -> dict:
@@ -165,12 +157,10 @@ class _Group:
 
 
 def _count_layout_copy(xs: torch.Tensor, order: tuple) -> None:
-    global layout_copies, layout_copy_bytes
-    with _layout_lock:
-        layout_copies += 1
-        layout_copy_bytes += xs.numel() * xs.element_size()
-        if record_layout is not None:
-            record_layout.append((tuple(xs.shape), xs.dtype, order))
+    _build.counts.add_many(("layout_copies", None, 1),
+                           ("layout_copy_bytes", None, xs.numel() * xs.element_size()))
+    if record_layout is not None:
+        record_layout.append((tuple(xs.shape), xs.dtype, order))
 
 
 def _replicate(x: torch.Tensor, n: int) -> torch.Tensor:
