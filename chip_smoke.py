@@ -119,9 +119,16 @@ fatal on failure:
    call, and a ``kernels`` entry of each;
 12. training at the flagship width: ``transformer_train_step`` on
    ``{"sp": 4}``, 3 steps of batch 8 x 1024 (labels the tokens shifted by
-   one, lr 1e-3): 24 ring-attention launches, all sm90, one fold launch per
-   parameter tensor and one for the loss per step, no chained fold, finite
-   losses, step 0's loss against the dense single-device step; one float32
+   one, lr 1e-3; eager, captured into a CUDA graph, replayed: 1 capture and 2
+   replays in the model block): the launch table counts the eager step and
+   the capture, 16 ring-attention launches, all sm90, 16 backward calls at
+   "64/64", one fold launch per parameter tensor and one for the loss per
+   counted step, no chained fold, and none for the replay; a profiled
+   replay runs 8 ``ring_attention_sm90_kernel``, 8
+   ``attention_backward_sm90_kernel`` and 51 ``fused_fold_kernel_*`` by
+   name; finite losses, step 0's loss against the dense single-device
+   step; an eager step against a replayed one, three of each in turns
+   (host clock to a synchronise); one float32
    sp step and one float32 tp step against the dense autograd step (TF32
    off; the largest update difference relative to the update); one bfloat16
    step on ``{"tp": 4}`` (4 L fold launches); ``DDPTrainer`` and
@@ -193,7 +200,7 @@ fatal on failure:
    ``transformer_forward(..., tp_axis="tp", sp_axis="sp")`` against the
    dense forward (phase 9's bfloat16 bounds; 8 sm90 attention and 16 fold
    launches), ``transformer_train_step`` (8 attention, 83 fold launches a
-   step), a float32 step against the dense autograd step of the (dp, sp)
+   step on its eager step and its capture, none on its replay), a float32 step against the dense autograd step of the (dp, sp)
    blocks; (b) ``transformer_pp_moe_train_step`` on ``{"dp": 2, "pp": 2,
    "ep": 2}``, 2 experts, 4 microbatches, capacity 1024 (9 permute, 80
    all-to-all, 20 fold launches a step), a float32 step against a plain
@@ -1484,8 +1491,8 @@ def model_profile(tr, cfg, params, tokens, logdir: str, iters: int = 3) -> dict:
 def device_profile(fn, logdir: str, name: str, iters: int = 3) -> dict:
     """``fn`` once, then ``iters`` calls under ``torch.profiler``: the
     window, the device's busy time (the union of kernel, memcpy and memset
-    spans), the device time by kernel per call and the sm90 attention
-    spans."""
+    spans), the device time by kernel and the launches by kernel name per
+    call, and the sm90 attention spans."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     fn()
@@ -1505,16 +1512,18 @@ def device_profile(fn, logdir: str, name: str, iters: int = 3) -> dict:
     attn = [e for e in events if e.get("ph") == "X" and e.get("cat") == "kernel"
             and "ring_attention_sm90_kernel" in e.get("name", "")]
     by_name: dict = {}
+    launches: dict = {}
     for e in events:
         if e.get("ph") == "X" and e.get("cat") == "kernel":
-            name = e.get("name", "")[:60]
-            by_name[name] = by_name.get(name, 0.0) + float(e["dur"]) / 1e3 / iters
+            name = e.get("name", "")
+            launches[name] = launches.get(name, 0) + 1 / iters
+            by_name[name[:60]] = by_name.get(name[:60], 0.0) + float(e["dur"]) / 1e3 / iters
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"window_ms": window_us / 1e3, "busy_ms": busy / 1e3,
             "top_kernels_ms_per_request": [[k, round(v, 4)] for k, v in top],
             "attention_spans": len(attn),
             "attention_ms": sum(float(e["dur"]) for e in attn) / 1e3,
-            "iters": iters, "trace": trace}
+            "launches": launches, "iters": iters, "trace": trace}
 
 
 # ---------------------------------------------------------------------------
@@ -2193,6 +2202,7 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
     """Phase 12: the sp and tp train steps, the trainers, and their times."""
     import torch
     import torch.nn.functional as F
+    from tpu_mpi_torch import perfvars
     from tpu_mpi_torch.kernels import attention, ddp_step
     from tpu_mpi_torch.train import DDPTrainer, FSDPTrainer
     out = {}
@@ -2202,9 +2212,11 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
     labels = [torch.from_numpy(np.roll(b, -1, axis=1)).to(device) for b in batches]
     n_tensors = 2 + 6 * cfg.n_layers
 
-    # the sp step: 3 steps at the flagship width, every launch counted
+    # the sp step: 3 steps at the flagship width (eager, captured into a
+    # CUDA graph, replayed), every launch counted
     step, _ = tr.transformer_train_step(cfg, xla.make_mesh({"sp": SP}), lr=TRAIN_LR)
     kernel_counts().reset()
+    model0 = perfvars.model_snapshot()
     p, losses = params, []
     for tok, lab in zip(tokens, labels):
         p, loss = step(p, tok, lab)
@@ -2212,24 +2224,65 @@ def train_phase(MPI, tr, xla, cfg, params, device, logdir: str, where: str,
     torch.cuda.synchronize()
     folds, attn, sm90, chained = counts()
     backward = dict(kernel_counts()["attention_backward_dims_launches"])
+    model1 = perfvars.model_snapshot()
+    graphs = {k: model1.get(k, 0) - model0.get(k, 0)
+              for k in ("graph_captures", "graph_replays", "graph_copy_bytes")}
     losses = [float(x) for x in losses]
     out["sp"] = {"losses": losses, "fold_launches": folds,
                  "attention_launches": attn, "sm90_launches": sm90,
-                 "backward_launches_by_dims": backward}
+                 "backward_launches_by_dims": backward, **graphs}
     log(f"train: sp step x {TRAIN_STEPS} on {{'sp': {SP}}}, batch {BATCH}x{SEQ}, "
         f"lr {TRAIN_LR}: losses {losses}; ring_attention launches {attn} "
         f"({sm90} sm90), fold launches {folds} ({n_tensors} parameter tensors + "
-        f"the loss, per step), chained folds {chained}")
-    if attn != TRAIN_STEPS * cfg.n_layers or sm90 != attn:
-        raise AssertionError(f"train step: {attn} attention launches, {sm90} sm90")
+        f"the loss, per step), chained folds {chained}; CUDA graph {graphs}")
+    if graphs["graph_captures"] != 1 or graphs["graph_replays"] != TRAIN_STEPS - 1:
+        raise AssertionError(f"train step: {graphs}, want 1 capture and "
+                             f"{TRAIN_STEPS - 1} replays")
+    # the table counts the wrappers' launches: the eager step's and the
+    # capture's, not the replay's
+    counted = TRAIN_STEPS - graphs["graph_replays"] + graphs["graph_captures"]
+    if attn != counted * cfg.n_layers or sm90 != attn:
+        raise AssertionError(f"train step: {attn} attention launches, {sm90} sm90, "
+                             f"want {counted * cfg.n_layers}")
     dims = f"{cfg.head_dim}/{cfg.head_dim}"
-    if backward != {dims: TRAIN_STEPS * cfg.n_layers}:
+    if backward != {dims: counted * cfg.n_layers}:
         raise AssertionError(f"train step: attention backward kernel calls by head dims "
-                             f"{backward}, want {TRAIN_STEPS * cfg.n_layers} at {dims}")
-    if folds != TRAIN_STEPS * (n_tensors + 1) or chained:
+                             f"{backward}, want {counted * cfg.n_layers} at {dims}")
+    if folds != counted * (n_tensors + 1) or chained:
         raise AssertionError(f"train step: {folds} folds, {chained} chained")
     if not all(np.isfinite(losses)):
         raise AssertionError(f"train step: non-finite loss {losses}")
+    # what a replay runs, by kernel name from a trace of one replay
+    ran = device_profile(lambda: step(p, tokens[0], labels[0]), logdir, "train_replay",
+                         1)["launches"]
+    replayed = {part: sum(n for k, n in ran.items() if part in k)
+                for part in ("ring_attention_sm90_kernel", "attention_backward_sm90_kernel",
+                             "fused_fold_kernel")}
+    out["sp"]["replay_launches"] = replayed
+    log(f"train: one replayed sp step ran {replayed}")
+    if replayed != {"ring_attention_sm90_kernel": cfg.n_layers,
+                    "attention_backward_sm90_kernel": cfg.n_layers,
+                    "fused_fold_kernel": n_tensors + 1}:
+        raise AssertionError(f"train step: a replay ran {replayed}, want {cfg.n_layers} "
+                             f"attention forwards and backwards, {n_tensors + 1} folds")
+    # an eager step (a fresh step function's first call) against a replayed
+    # one at this shape, in turns, host clock to a synchronise
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    fresh = lambda: tr.transformer_train_step(  # noqa: E731
+        cfg, xla.make_mesh({"sp": SP}), lr=TRAIN_LR)[0](p, tokens[0], labels[0])
+    eager_ms, replay_ms = [], []
+    for _ in range(3):
+        eager_ms.append(timed(fresh))
+        replay_ms.append(timed(lambda: step(p, tokens[0], labels[0])))
+    out["sp"]["eager_step_ms"], out["sp"]["replayed_step_ms"] = eager_ms, replay_ms
+    log(f"train: sp step eager {eager_ms} ms, replayed {replay_ms} ms (medians "
+        f"{np.median(eager_ms):.3f} / {np.median(replay_ms):.3f}) {where}")
     sp_params = p
     del p
 
@@ -3699,13 +3752,15 @@ def multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir: str,
     lab = torch.from_numpy(np.roll(batch, -1, axis=1)).to(device)
     cfg32 = tr.TransformerConfig(**FLAGSHIP, dtype=torch.float32)
 
-    def times(name, step, p, n_tokens):
+    def times(name, step, p, n_tokens, fresh=None):
         torch.cuda.reset_peak_memory_stats()
         ms = time_ms(lambda: step(p, tok, lab), iters=MULTI_TIMED, warmup=1)
         peak = torch.cuda.max_memory_allocated()
         prof = device_profile(lambda: step(p, tok, lab), logdir, name, 2)
-        copies, copy_bytes, copy_ms = layout_copy_ms(xc, lambda: step(p, tok, lab),
-                                                     device)
+        # a replayed graph records no layout copies on the host, so they are
+        # taken from the first (eager) call of a step built anew
+        copies, copy_bytes, copy_ms = layout_copy_ms(
+            xc, lambda: (fresh() if fresh else step)(p, tok, lab), device)
         return {"step_ms": ms, "tokens_per_s": n_tokens / (ms * 1e-3),
                 "busy_ms": prof["busy_ms"] / prof["iters"],
                 "window_ms": prof["window_ms"] / prof["iters"],
@@ -3733,14 +3788,18 @@ def multi_axis_phase(MPI, tr, xla, par, cfg, params, device, logdir: str,
     p_a, losses, per_step = run_steps(step_a, shards, tok, lab, TRAIN_STEPS, counters)
     want_a = {"attention": L, "sm90": L, "folds": 4 * L + (2 + 6 * L) + 1,
               "permute": 0, "alltoall": 0, "chained": 0}
-    check_launches("dp x tp x sp", per_step, want_a)
+    # the eager step and the capture launch through the wrappers; a replay
+    # of the CUDA graph launches nothing the table counts
+    check_launches("dp x tp x sp", per_step[:2], want_a)
+    check_launches("dp x tp x sp replayed", per_step[2:], dict.fromkeys(want_a, 0))
     tally(fwd, *per_step)
     if not all(np.isfinite(losses)) or not all(a > b for a, b in zip(losses, losses[1:])):
         raise AssertionError(f"dp x tp x sp: losses {losses} on one batch are not "
                              f"finite and falling")
     out["a"] = {"mesh": MESH_A, "forward_vs_dense": check, "forward_launches": fwd,
                 "losses": losses, "launches_per_step": per_step[0]}
-    out["a"]["times"] = times("train_dp_tp_sp", step_a, shards, BATCH * SEQ)
+    out["a"]["times"] = times("train_dp_tp_sp", step_a, shards, BATCH * SEQ, lambda: (
+        tr.transformer_train_step(cfg, xla.make_mesh(MESH_A), lr=TRAIN_LR)[0]))
     del p_a
     params32 = float32_params(params)
     step32, _ = tr.transformer_train_step(cfg32, xla.make_mesh(MESH_A), lr=TRAIN_LR_F32)

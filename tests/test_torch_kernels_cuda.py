@@ -795,8 +795,10 @@ def test_ring_attention_autograd_through_the_kernel_on_card(dtype, n, bh, t, d,
 
 @pytest.mark.cuda
 def test_sp_train_step_on_card():
-    """One float32 sp train step on the card (fma attention, folds on the
-    kernel) against the same step on the CPU."""
+    """Three float32 sp train steps on the card (fma attention, folds on the
+    kernel: eager, captured, replayed) against the same steps on the CPU;
+    the launch table counts the eager step's and the capture's launches,
+    and none of the replay's."""
     from tpu_mpi_torch import xla
     from tpu_mpi_torch.models import transformer as tr
     from tpu_mpi_torch.parallel import dp
@@ -810,19 +812,188 @@ def test_sp_train_step_on_card():
     step, _ = tr.transformer_train_step(cfg, xla.make_mesh({"sp": 4}))
     cpu_step, _ = tr.transformer_train_step(
         cfg, xla.make_mesh({"sp": 4}, devices=[torch.device("cpu")]))
-    folds, attn = counts["fold_launches"], counts["attention_launches"]
-    chained = counts["chained_folds"]
-    on_card = dp.tree_map(lambda p: p.to(dev), params)
-    new, loss = step(on_card, tokens.to(dev), labels.to(dev))
+    on_card, want = dp.tree_map(lambda p: p.to(dev), params), params
+    for s in range(3):
+        folds, attn = counts["fold_launches"], counts["attention_launches"]
+        chained = counts["chained_folds"]
+        on_card, loss = step(on_card, tokens.to(dev), labels.to(dev))
+        torch.cuda.synchronize()
+        launched = s < 2
+        assert counts["fold_launches"] - folds == launched * (2 + 6 * cfg.n_layers + 1), s
+        assert counts["attention_launches"] - attn == launched * cfg.n_layers, s
+        assert counts["chained_folds"] == chained
+        want, want_loss = cpu_step(want, tokens, labels)
+        assert abs(float(loss) - float(want_loss)) <= 1e-4, s
+        for got, w in zip(dp.leaves(on_card), dp.leaves(want)):
+            assert got.device.type == "cuda"
+            torch.testing.assert_close(got.cpu(), w, atol=1e-4, rtol=0)
+
+
+# ---------------------------------------------------------------------------
+# The train step as one CUDA graph (models/transformer.py: _StepGraph)
+# ---------------------------------------------------------------------------
+
+def _graph_case(mesh, rows=4, seq=256):
+    """A small bfloat16 model whose attention takes the sm90 kernels (head
+    dim 64), its weights (tp-cut under a tp axis) and 5 batches."""
+    from tpu_mpi_torch.models import transformer as tr
+    dev = _card()
+    cfg = tr.TransformerConfig(vocab=512, d_model=256, n_heads=4, n_layers=2,
+                               d_ff=512, max_seq=seq, dtype=torch.bfloat16)
+    params = tr.transformer_init(torch.Generator().manual_seed(11), cfg, device=dev)
+    if "tp" in mesh:
+        params = tr.shard_params(params, cfg, mesh["tp"])
+    tokens = torch.randint(0, cfg.vocab, (5, rows, seq),
+                           generator=torch.Generator().manual_seed(12)).to(dev)
+    return cfg, params, tokens, tokens.roll(-1, 2)
+
+
+def _kernel_counts():
+    from tpu_mpi_torch import perfvars
+    snap = perfvars.kernels_snapshot()
+    return {k: v for k, v in snap.items()
+            if k not in ("builds", "build_ns", "loads", "load_ns")}
+
+
+def _grew(before: dict, after: dict) -> dict:
+    out = {}
+    for k, v in after.items():
+        if isinstance(v, dict):
+            out[k] = {key: n - before[k].get(key, 0) for key, n in v.items()}
+        else:
+            out[k] = v - before[k]
+    return out
+
+
+def _none(counts: dict) -> bool:
+    return not any(v for n in counts.values()
+                   for v in (n.values() if isinstance(n, dict) else [n]))
+
+
+def _kernels_run(fn) -> dict:
+    """The hand-written kernels (``sm90::`` attention, ``fused_fold_kernel``)
+    that ``fn`` runs on the card, by name, from a ``torch.profiler`` trace."""
+    from torch.profiler import ProfilerActivity, profile
     torch.cuda.synchronize()
-    assert counts["fold_launches"] - folds == 2 + 6 * cfg.n_layers + 1
-    assert counts["attention_launches"] - attn == cfg.n_layers
-    assert counts["chained_folds"] == chained
-    want, want_loss = cpu_step(params, tokens, labels)
-    assert abs(float(loss) - float(want_loss)) <= 1e-4
-    for got, w in zip(dp.leaves(new), dp.leaves(want)):
-        assert got.device.type == "cuda"
-        torch.testing.assert_close(got.cpu(), w, atol=1e-4, rtol=0)
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {e.key: e.count for e in prof.key_averages()
+            if "sm90::" in e.key or "fused_fold_kernel" in e.key}
+
+
+def _model_grew(before: dict) -> dict:
+    from tpu_mpi_torch import perfvars
+    after = perfvars.model_snapshot()
+    return {k: after.get(k, 0) - before.get(k, 0) for k in after}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mesh", [{"sp": 4}, {"tp": 2, "sp": 2}], ids=["sp4", "tp2sp2"])
+def test_graphed_train_step_matches_eager_on_card(mesh):
+    """Five steps of one step function (eager, captured, then replayed)
+    bit for bit against five eager steps, each the first call of a step
+    function of its own; no input written, no returned tensor overwritten.
+    The launch table counts the eager step and the capture as eager steps
+    and the replays not at all; a profiled replay runs the hand-written
+    kernels a profiled eager step runs."""
+    from tpu_mpi_torch import perfvars, xla
+    from tpu_mpi_torch.models import transformer as tr
+    from tpu_mpi_torch.parallel import dp
+    cfg, params, tokens, labels = _graph_case(mesh)
+    make = lambda: tr.transformer_train_step(cfg, xla.make_mesh(mesh), lr=1e-2)[0]  # noqa: E731
+    want, p = [], params
+    for s in range(5):
+        before = _kernel_counts()
+        p, loss = make()(p, tokens[s], labels[s])
+        torch.cuda.synchronize()
+        want.append((p, loss, _grew(before, _kernel_counts())))
+    step = make()
+    model0 = perfvars.model_snapshot()
+    inputs = [x.clone() for x in dp.leaves(params)]
+    got, p = [], params
+    for s in range(5):
+        before = _kernel_counts()
+        p, loss = step(p, tokens[s], labels[s])
+        torch.cuda.synchronize()
+        got.append((p, [x.clone() for x in dp.leaves(p)], loss,
+                    _grew(before, _kernel_counts())))
+    assert all(torch.equal(a, b) for a, b in zip(inputs, dp.leaves(params)))
+    for s, ((wp, wloss, wcounts), (gp, kept, gloss, gcounts)) in enumerate(zip(want, got)):
+        assert torch.equal(gloss, wloss), s
+        for a, b, c in zip(dp.leaves(gp), dp.leaves(wp), kept):
+            assert torch.equal(a, b), s
+            assert torch.equal(a, c), s          # a later step left it alone
+        assert gcounts == wcounts if s < 2 else _none(gcounts), s
+    assert want[0][2]["attention_route_launches"]["sm90"] == cfg.n_layers
+    assert want[0][2]["attention_backward_launches"] == cfg.n_layers
+    grew = _model_grew(model0)
+    assert grew["steps"] == 5 and grew["graph_captures"] == 1
+    assert grew["graph_replays"] == 4
+    assert grew["graph_copy_bytes"] > 0
+    eager = _kernels_run(lambda: make()(p, tokens[0], labels[0]))
+    replay = _kernels_run(lambda: step(p, tokens[0], labels[0]))
+    assert replay == eager
+    by = lambda part: sum(n for k, n in replay.items() if part in k)  # noqa: E731
+    assert by("ring_attention_sm90_kernel") == cfg.n_layers
+    assert by("attention_backward_sm90_kernel") == cfg.n_layers
+    assert by("fused_fold_kernel") == want[0][2]["fold_launches"]
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_new_shape_captures_again_on_card():
+    """A batch of another shape warms up and captures a second graph; the
+    step stays the eager step's on it."""
+    from tpu_mpi_torch import perfvars, xla
+    from tpu_mpi_torch.models import transformer as tr
+    from tpu_mpi_torch.parallel import dp
+    cfg, params, tokens, labels = _graph_case({"sp": 4})
+    step, _ = tr.transformer_train_step(cfg, xla.make_mesh({"sp": 4}), lr=1e-2)
+    model0 = perfvars.model_snapshot()
+    for s in range(3):
+        step(params, tokens[s], labels[s])
+    short, short_labels = tokens[:, :, :128], labels[:, :, :128].contiguous()
+    short = short.contiguous()
+    for s in range(3):
+        got, loss = step(params, short[s], short_labels[s])
+    torch.cuda.synchronize()
+    grew = _model_grew(model0)
+    assert grew["graph_captures"] == 2 and grew["graph_replays"] == 4
+    fresh, _ = tr.transformer_train_step(cfg, xla.make_mesh({"sp": 4}), lr=1e-2)
+    want, want_loss = fresh(params, short[2], short_labels[2])
+    assert torch.equal(loss, want_loss)
+    assert all(torch.equal(a, b) for a, b in zip(dp.leaves(got), dp.leaves(want)))
+
+
+@pytest.mark.cuda
+def test_graphed_train_step_captures_a_patched_function_on_card(monkeypatch):
+    """A fault patched into ``tr._sgd`` before the capture (the benchmark's
+    planted fault: one tensor's gradient doubled) shows in a replayed step
+    as in an eager one."""
+    from tpu_mpi_torch import xla
+    from tpu_mpi_torch.models import transformer as tr
+    from tpu_mpi_torch.parallel import dp
+    cfg, params, tokens, labels = _graph_case({"sp": 4})
+    make = lambda: tr.transformer_train_step(cfg, xla.make_mesh({"sp": 4}), lr=1e-2)[0]  # noqa: E731
+    sound = make()
+    for s in range(3):
+        clean, _ = sound(params, tokens[s], labels[s])
+    real = tr._sgd
+
+    def sgd(params, grads, lr):
+        target = params["layers"][0]["w_in"]
+        return real(params, [g * 2 if p is target else g
+                             for p, g in zip(dp.leaves(params), grads)], lr)
+
+    monkeypatch.setattr(tr, "_sgd", sgd)
+    faulty = make()
+    for s in range(3):
+        got, _ = faulty(params, tokens[s], labels[s])
+    want, _ = make()(params, tokens[2], labels[2])
+    torch.cuda.synchronize()
+    assert torch.equal(got["layers"][0]["w_in"], want["layers"][0]["w_in"])
+    assert not torch.equal(got["layers"][0]["w_in"], clean["layers"][0]["w_in"])
+    assert torch.equal(got["layers"][1]["w_in"], clean["layers"][1]["w_in"])
 
 
 @pytest.mark.cuda

@@ -37,6 +37,7 @@ from tpu_mpi import xla as jxla
 from tpu_mpi.models import mlp as jmlp
 from tpu_mpi.models import transformer as jtr
 from tpu_mpi_torch import parallel as tpar
+from tpu_mpi_torch import perfvars
 from tpu_mpi_torch import xla as txla
 from tpu_mpi_torch.kernels import fused_reduce as fr
 from tpu_mpi_torch.models import mlp as tmlp
@@ -298,6 +299,58 @@ def test_train_step_mesh_axes():
                      torch.from_numpy(tokens), torch.from_numpy(labels))
     assert loss.dim() == 0 and bool(torch.isfinite(loss))
     assert new["layers"][1]["w_out"].shape == (KW["d_ff"], KW["d_model"])
+
+
+def test_cpu_train_step_runs_eagerly():
+    """A CPU step never captures a graph: three steps are three eager steps
+    in the model block, their phases tiling the step's time. (The tests
+    above hold the CPU step's numbers to the JAX package's.)"""
+    jparams, tokens, labels = _setup()
+    params = ttr.params_from_jax(_to_np(jparams), TCFG, CPU)
+    toks, labs = torch.from_numpy(tokens), torch.from_numpy(labels)
+    step, _ = ttr.transformer_train_step(
+        TCFG, txla.make_mesh({"sp": N}, devices=[CPU]), lr=LR)
+    before = perfvars.model_snapshot()
+    for _ in range(3):
+        params, _ = step(params, toks, labs)
+    after = perfvars.model_snapshot()
+    grew = {k: after.get(k, 0) - before.get(k, 0) for k in set(after) | set(before)}
+    assert grew["steps"] == 3
+    assert grew.get("graph_captures", 0) == grew.get("graph_replays", 0) == 0
+    assert grew.get("graph_copy_bytes", 0) == 0
+    assert grew["forward_ns"] + grew["backward_ns"] + grew["grad_sum_ns"] \
+        + grew["update_ns"] == grew["step_ns"]
+
+
+def _other_layout(what, params, tokens, labels):
+    """A step's inputs with one thing changed."""
+    params = tpar.dp.tree_map(lambda p: p, params)
+    layer = params["layers"][0]
+    if what == "shape":
+        tokens = tokens[:, :-4]
+    elif what == "dtype":
+        labels = labels.to(torch.int16)
+    elif what == "stride":
+        layer["w_in"] = layer["w_in"].t().contiguous().t()
+    elif what == "device":
+        layer["ln1"] = layer["ln1"].to("meta")
+    elif what == "leaf order":
+        params["layers"][0] = dict(reversed(layer.items()))
+    return params, tokens, labels
+
+
+@pytest.mark.parametrize("what", ["same", "shape", "dtype", "stride", "device",
+                                  "leaf order"])
+def test_step_signature_tells_inputs_apart(what):
+    """The signature a graphed step is captured for changes with each
+    input's shape, dtype, strides, device and place in the tree; equal
+    inputs give equal ones."""
+    jparams, tokens, labels = _setup()
+    params = ttr.params_from_jax(_to_np(jparams), TCFG, CPU)
+    toks, labs = torch.from_numpy(tokens), torch.from_numpy(labels)
+    sig = ttr._step_signature(params, toks, labs)
+    other = ttr._step_signature(*_other_layout(what, params, toks.clone(), labs.clone()))
+    assert (sig == other) == (what == "same")
 
 
 # ---------------------------------------------------------------------------

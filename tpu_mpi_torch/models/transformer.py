@@ -35,6 +35,7 @@ one layer-stacked tensor per name in the pipelined ones), so
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Any, Mapping, Optional, Sequence
 
 import numpy as np
@@ -420,6 +421,72 @@ def _pmean(x: torch.Tensor, axes, layout: Mapping[str, int]) -> torch.Tensor:
     return _psum(x, axes, layout) / xla.size(layout, axes)
 
 
+def _layout(tree: Any) -> tuple:
+    """The structure of a tree of tensors, with each leaf's shape, dtype,
+    strides and device in its place."""
+    if isinstance(tree, dict):
+        return tuple((k, _layout(v)) for k, v in tree.items())
+    if isinstance(tree, (list, tuple)):
+        return (type(tree),) + tuple(_layout(v) for v in tree)
+    return tuple(tree.shape), tree.dtype, tree.stride(), tree.device
+
+
+def _step_signature(params: Any, tokens: torch.Tensor, labels: torch.Tensor) -> tuple:
+    """What a train step's launches depend on beyond the mesh and lr it
+    closes over: the layout of its inputs."""
+    return _layout((params, tokens, labels))
+
+
+class _StepGraph:
+    """A train step's body as one CUDA graph. The first call for an input
+    signature runs ``eager`` (the warm-up a capture needs), the second
+    captures ``body`` on static copies of the inputs and every later one
+    replays it; a new signature's capture drops the old graph. A call
+    copies its inputs in and returns copies of the outputs, so no tensor a
+    caller passes or keeps is written. The body calls the module's
+    functions as an eager step does, so one patched before the capture is
+    captured with it. The kernel table counts the wrappers' launches, which
+    the capture makes once; a replay adds nothing there and one to the
+    model block's ``graph_replays``."""
+
+    def __init__(self, body, eager):
+        self.body, self.eager = body, eager
+        self.warm = self.sig = self.graph = None
+
+    def __call__(self, params, tokens, labels):
+        t0 = time.perf_counter_ns()
+        sig = _step_signature(params, tokens, labels)
+        if sig == self.sig:
+            return self._run(params, tokens, labels, t0, captures=0)
+        if sig != self.warm:
+            self.warm = sig
+            return self.eager(params, tokens, labels)
+        # the old graph's pool goes before the new one fills
+        self.sig = self.graph = self.new = self.ins = self.outs = None
+        src = _dp.leaves(params) + [tokens, labels]
+        ins = [torch.empty_strided(x.shape, x.stride(), dtype=x.dtype, device=x.device)
+               for x in src]
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            new, loss = self.body(_dp.unflatten(params, ins[:-2]), ins[-2], ins[-1],
+                                  lambda phase: None)
+        self.new, self.ins, self.outs = new, ins, _dp.leaves(new) + [loss]
+        self.copy_bytes = sum(x.numel() * x.element_size() for x in ins + self.outs)
+        self.sig, self.graph = sig, graph
+        return self._run(params, tokens, labels, t0, captures=1)
+
+    def _run(self, params, tokens, labels, t0: int, captures: int):
+        torch._foreach_copy_(self.ins, _dp.leaves(params) + [tokens, labels])
+        self.graph.replay()
+        outs = [torch.empty_like(x) for x in self.outs]
+        torch._foreach_copy_(outs, self.outs)
+        if _pv.enabled():
+            _pv.note_model(steps=1, step_ns=time.perf_counter_ns() - t0,
+                           graph_captures=captures, graph_replays=1,
+                           graph_copy_bytes=self.copy_bytes)
+        return _dp.unflatten(self.new, outs[:-1]), outs[-1]
+
+
 def transformer_train_step(cfg: TransformerConfig, mesh, lr: float = 1e-2, *,
                            dp_axis: str = "dp", tp_axis: str = "tp",
                            sp_axis: str = "sp"):
@@ -437,11 +504,21 @@ def transformer_train_step(cfg: TransformerConfig, mesh, lr: float = 1e-2, *,
     from the f/g pair, the update is ``(p - lr * g).to(p.dtype)`` and the
     loss is the (dp, sp) ranks' mean.
 
-    Each step is timed into the ``perfvars`` model block (``step_ns`` and
-    the four phases that tile it: ``forward_ns`` the placement, logits and
-    loss, ``backward_ns`` the autograd pass, ``grad_sum_ns`` the gradient
-    folds, ``update_ns`` the loss mean and the SGD update), and with the
-    span ring on recorded as ``model.step`` over ``model.<phase>`` spans."""
+    Each eager step is timed into the ``perfvars`` model block (``steps``,
+    ``step_ns`` and the four phases that tile it: ``forward_ns`` the
+    placement, logits and loss, ``backward_ns`` the autograd pass,
+    ``grad_sum_ns`` the gradient folds, ``update_ns`` the loss mean and the
+    SGD update), and with the span ring on recorded as ``model.step`` over
+    ``model.<phase>`` spans.
+
+    On CUDA inputs the step is one CUDA graph (:class:`_StepGraph`): the
+    first call for an input signature runs eagerly, the second captures the
+    body and every later one replays it. A captured or replayed step adds
+    ``steps``, ``step_ns`` (the host's copies and replay), ``graph_replays``
+    and ``graph_copy_bytes`` to the model block, and a capture
+    ``graph_captures``; the phases advance on eager steps alone. The kernel
+    table counts the launches its wrappers make, an eager step's and the
+    capture's; a replay adds none there. CPU tensors always run eagerly."""
     specs = transformer_param_specs(cfg, tp_axis)
     names = (dp_axis, tp_axis, sp_axis)
     if len(set(names)) != 3:
@@ -455,14 +532,8 @@ def transformer_train_step(cfg: TransformerConfig, mesh, lr: float = 1e-2, *,
     data = (dp_axis, sp_axis)
     sharded = tp_axis in mesh.axis_names
 
-    def step(params, tokens, labels):
-        if _tp_size(cfg, params) != (n_tp if sharded else 1):
-            raise ValueError(f"params are cut for {_tp_size(cfg, params)} tp "
-                             f"ranks, the mesh has {n_tp}")
+    def body(params, tokens, labels, lap):
         b, t = tokens.shape
-        if b % n_dp or t % n_sp:
-            raise ValueError(f"batch {b} x sequence {t} does not split over "
-                             f"{n_dp} dp x {n_sp} sp ranks")
 
         def cut(x):             # (b, t) -> (n_dp, n_sp, b/n_dp, t/n_sp)
             return x.view(n_dp, b // n_dp, n_sp, t // n_sp).transpose(1, 2)
@@ -472,30 +543,34 @@ def transformer_train_step(cfg: TransformerConfig, mesh, lr: float = 1e-2, *,
                 return _leaf(_place(p, [tp_axis], sharded_layout))
             return _leaf(_place(p, [], held))
 
+        own = _dp.tree_map(ranked, params, specs)
+        cut_over_tp = _dp.leaves(_dp.tree_map(lambda p, s: sharded and tp_axis in s,
+                                              params, specs))
+        positions = _sp_positions(n_sp, t // n_sp, tokens.device)
+        logits = _logits(cfg, own, cut(tokens), positions,
+                         tp_axis=tp_axis if sharded else None,
+                         sp_axis=sp_axis if n_sp > 1 else None, sp_dim=1)
+        losses = _xent_ranked(logits, cut(labels), 2)             # (n_dp, n_sp)
+        lap("model.forward")
+        grads = torch.autograd.grad(losses.sum(), _dp.leaves(own))
+        lap("model.backward")
+        summed = []
+        for g, over_tp in zip(grads, cut_over_tp):
+            if over_tp:
+                summed.append(_unplace(_psum(g, data, sharded_layout), [tp_axis],
+                                       sharded_layout))
+            else:
+                summed.append(_unplace(_psum(g, data, held), [], held))
+        lap("model.grad_sum")
+        loss = _pmean(losses.detach(), data, held)[0, 0]
+        new = _sgd(params, summed, lr)
+        lap("model.update")
+        return new, loss
+
+    def eager(params, tokens, labels):
         ph = _pv.Phases("model.step")
         try:
-            own = _dp.tree_map(ranked, params, specs)
-            cut_over_tp = _dp.leaves(_dp.tree_map(lambda p, s: sharded and tp_axis in s,
-                                                  params, specs))
-            positions = _sp_positions(n_sp, t // n_sp, tokens.device)
-            logits = _logits(cfg, own, cut(tokens), positions,
-                             tp_axis=tp_axis if sharded else None,
-                             sp_axis=sp_axis if n_sp > 1 else None, sp_dim=1)
-            losses = _xent_ranked(logits, cut(labels), 2)             # (n_dp, n_sp)
-            ph.lap("model.forward")
-            grads = torch.autograd.grad(losses.sum(), _dp.leaves(own))
-            ph.lap("model.backward")
-            summed = []
-            for g, over_tp in zip(grads, cut_over_tp):
-                if over_tp:
-                    summed.append(_unplace(_psum(g, data, sharded_layout), [tp_axis],
-                                           sharded_layout))
-                else:
-                    summed.append(_unplace(_psum(g, data, held), [], held))
-            ph.lap("model.grad_sum")
-            loss = _pmean(losses.detach(), data, held)[0, 0]
-            new = _sgd(params, summed, lr)
-            ph.lap("model.update")
+            new, loss = body(params, tokens, labels, ph.lap)
         finally:
             step_ns = ph.close()
         if _pv.enabled():
@@ -506,6 +581,20 @@ def transformer_train_step(cfg: TransformerConfig, mesh, lr: float = 1e-2, *,
                            grad_sum_ns=ns["model.grad_sum"],
                            update_ns=ns["model.update"])
         return new, loss
+
+    graph = _StepGraph(body, eager)
+
+    def step(params, tokens, labels):
+        if _tp_size(cfg, params) != (n_tp if sharded else 1):
+            raise ValueError(f"params are cut for {_tp_size(cfg, params)} tp "
+                             f"ranks, the mesh has {n_tp}")
+        b, t = tokens.shape
+        if b % n_dp or t % n_sp:
+            raise ValueError(f"batch {b} x sequence {t} does not split over "
+                             f"{n_dp} dp x {n_sp} sp ranks")
+        if tokens.device.type == "cuda":
+            return graph(params, tokens, labels)
+        return eager(params, tokens, labels)
 
     return step, specs
 
